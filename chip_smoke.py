@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
+    python3 chip_smoke.py --profile       # and phase 6: trace one serving run
+
+It drives the port (``src/repro_torch``) and nothing of the JAX package:
+
+1. Report the card: its name and power limit (``nvidia-smi``).
+2. Build the four kernels of the serving path from ``src/repro_torch/csrc``
+   with ``nvcc`` (one process per source, started together).
+3. Check each kernel against its plain PyTorch version on the card at the
+   full-width smollm-135m shapes of the serving path, and time the kernel,
+   the plain version and one PyTorch library call that computes the same
+   function (a yardstick only; the port never calls it).
+4. Serve smollm-135m at full width (seeded random weights, quantized by the
+   port to itq3_s, rotated-int8 KV cache, greedy) through ``ServeEngine``:
+   8 requests over 4 slots. Every launch counter is reset just before and
+   read just after the counted run, and each kernel must have launched
+   exactly as often as the path dictates (per layer: 7 projections, each
+   FWHT then matvec or matmul, and one attention).
+5. Teacher-forced parity: prefill and 4 decode steps through the kernels
+   against the same forward with the plain versions on the card, run apart
+   (reported) and layer by layer on one cache state (held to 1e-3).
+6. With ``--profile`` only: one more serving run under ``torch.profiler``,
+   for the device's busy time and idle share.
+
+It exits non-zero, printing no result, when there is no CUDA device or any
+phase fails. Before the last line it prints the card's name and power
+limit and one JSON line with every kernel's launches, error, times and
+bound; the last line is the JSON result. Per-shape details and the ptxas
+report go to ``chiprun_out/chip_smoke_details.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import formats  # noqa: E402
+from repro_torch.core.fwht import hadamard_matrix  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.attn_q8 import attn_q8, attn_q8_ref  # noqa: E402
+from repro_torch.kernels.fwht import fwht, fwht_ref  # noqa: E402
+from repro_torch.kernels.itq3 import (  # noqa: E402
+    dequant_blocks, itq3_matmul, itq3_matmul_ref, itq3_matvec,
+)
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
+# outside the tensor cores. A kernel's bound is the larger of its bytes
+# (inputs read once, outputs written once) over the first and its
+# operations over the second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# Kernel vs plain version: both f32, summed in a different order (warp
+# shuffles, tiles, online softmax against one matmul / plain softmax), so
+# they agree to a few ulps of the largest magnitude, well inside 1e-4.
+KERNEL_REL_TOL = 1e-4
+# End-to-end logits, the two paths forced layer by layer onto one cache
+# state (see two_paths): 30 layers compound the kernels' differences.
+LOGITS_REL_TOL = 1e-3
+TIMED_RUNS = 20
+# The serving run: 8 requests over 4 slots, 64-token prompt buckets, a
+# 256-position cache, 32 new tokens each.
+SLOTS, MAX_LEN, PROMPT_PAD, MAX_NEW = 4, 256, 64, 32
+DETAILS = ROOT / "chiprun_out" / "chip_smoke_details.json"
+TABLE = ROOT / "chiprun_out" / "chip_smoke_profile.txt"
+
+
+def card_report() -> tuple[str, str]:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return name, smi.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Median device time of one call of ``fn`` over TIMED_RUNS runs. Each
+    run queues ``reps`` calls behind a kernel that spins for some
+    milliseconds, so the card runs them back to back and the CUDA events
+    see device time, not the host's launch rate. Inputs stay in the 50 MB
+    L2 between calls, as they do on the serving path at these sizes."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_RUNS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max abs error over max |want|)."""
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    return err, err / scale if scale else err
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+class Ledger:
+    """Per-kernel sums over the checked main-path shapes."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add(self, kernel, shape, *, err, rel, ms, plain_ms, library_ms,
+            nbytes, flops):
+        b, by = bound_ms(nbytes, flops)
+        row = dict(kernel=kernel, shape=shape, max_abs_err=err, max_rel_err=rel,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
+        self.rows.append(row)
+        print(f"  {kernel:12s} {shape:34s} abs {err:.2e} rel {rel:.2e} | "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+              f"{library_ms:.4f} ms  bound {b:.4f} ms ({by})", flush=True)
+        if not rel <= KERNEL_REL_TOL:
+            raise AssertionError(f"{kernel} {shape}: rel error {rel:.3e} > "
+                                 f"{KERNEL_REL_TOL}")
+
+    def summary(self, kernel):
+        """Sums over the kernel's main-path shapes (activations mode, so
+        no rotate=True rows): one call at each shape. The bound of the sum
+        is the sum of the per-call bounds, labelled by the larger part."""
+        rows = [r for r in self.rows if r["kernel"] == kernel
+                and "rotate=True" not in r["shape"]]
+        tot = {k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+        return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                    ms=tot["ms"], plain_ms=tot["plain_ms"],
+                    bound_ms=tot["bound_ms"],
+                    bound_by="bytes" if 2 * by_bytes >= tot["bound_ms"]
+                    else "operations",
+                    library_ms=tot["library_ms"],
+                    shapes=[r["shape"] for r in rows])
+
+
+# --- phase 3: each kernel against its plain version ------------------------
+
+SMOLLM_PROJ = {"wq": (576, 576), "wk": (576, 192), "gate": (576, 1536),
+               "down": (1536, 576)}
+
+
+def check_fwht(led: Ledger, gen: torch.Generator, dev) -> None:
+    for m, k in ((256, 768), (4, 1536)):
+        x = torch.randn(m, k, generator=gen, device=dev)
+        got, want = fwht(x), fwht_ref(x)
+        h = hadamard_matrix(256, device=dev)
+        err, rel = rel_err(got, want)
+        led.add("fwht", f"({m},{k})", err=err, rel=rel,
+                ms=device_ms(lambda: fwht(x)),
+                plain_ms=device_ms(lambda: fwht_ref(x)),
+                library_ms=device_ms(lambda: x.view(-1, 256) @ h),
+                nbytes=2 * m * k * 4, flops=m * k * (8 + 1))
+
+
+def check_itq3(led: Ledger, gen: torch.Generator, dev, weights) -> None:
+    for name, qt in weights.items():
+        d = qt.data
+        n, kb = d["plane2"].shape[:2]
+        kpad = kb * 256
+        for rotate in (False, True):
+            w = dequant_blocks(d["plane2"], d["plane1"], d["scales"], d["zps"],
+                               rotate_weights=rotate, fivelevel=False,
+                               sub_blocks=0).reshape(n, kpad).T.contiguous()
+            for kernel, m, fn in (("itq3_matvec", 4, itq3_matvec),
+                                  ("itq3_matmul", 256, itq3_matmul)):
+                x = torch.randn(m, kpad, generator=gen, device=dev)
+
+                def run(fn=fn, x=x):
+                    return fn(x, d["plane2"], d["plane1"], d["scales"],
+                              d["zps"], rotate_weights=rotate)
+
+                def plain(x=x):
+                    return itq3_matmul_ref(x, d["plane2"], d["plane1"],
+                                           d["scales"], d["zps"],
+                                           rotate_weights=rotate)
+                err, rel = rel_err(run(), plain())
+                nbytes = (m * kpad * 4 + n * kb * (64 + 32 + 2 + 2)
+                          + m * n * 4)
+                flops = 2 * m * n * kpad + (n * kb * 256 * 9 if rotate else 0)
+                led.add(kernel, f"{name} M={m} rotate={rotate}", err=err,
+                        rel=rel, ms=device_ms(run), plain_ms=device_ms(plain),
+                        library_ms=device_ms(lambda x=x: x @ w),
+                        nbytes=nbytes, flops=flops)
+
+
+def _attn_case(gen, dev, *, r, tq, g, hd, t, kv_len, q_offset, causal):
+    q = torch.randn(r, tq, g, hd, generator=gen, device=dev)
+    kc = torch.randint(-127, 128, (r, t, hd), generator=gen, device=dev,
+                       dtype=torch.int8)
+    vc = torch.randint(-127, 128, (r, t, hd), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = (torch.rand(r, t, generator=gen, device=dev) * 0.05 + 1e-3).half()
+    vs = (torch.rand(r, t, generator=gen, device=dev) * 0.05 + 1e-3).half()
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    off = torch.tensor(q_offset, dtype=torch.int32, device=dev)
+    return (q, kc, ks, vc, vs, kl, off), dict(sm_scale=hd ** -0.5,
+                                              causal=causal)
+
+
+def attn_extent(kv_len, q_offset, tq: int, t: int, causal: bool):
+    """What this run's rows need: the (R, TQ, T) bool mask of valid
+    (query, key) pairs, the keys each row must read (its largest valid
+    key + 1) and the count of valid pairs."""
+    kpos = np.arange(t)
+    qpos = np.asarray(q_offset)[:, None] + np.arange(tq)  # (R, TQ)
+    mask = kpos[None, None, :] < np.asarray(kv_len)[:, None, None]
+    if causal:
+        mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+    keys_read = [int(np.nonzero(m.any(0))[0].max()) + 1 if m.any() else 0
+                 for m in mask]
+    return mask, keys_read, int(mask.sum())
+
+
+def check_attn(led: Ledger, gen: torch.Generator, dev) -> None:
+    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
+    cases = (
+        ("decode TQ=1", 1, [5, 64, 130, 255], [0, 0, 0, 0], False),
+        ("prefill TQ=64", 64, [64, 74, 164, 256], [0, 10, 100, 192], True),
+    )
+    for label, tq, lens, offs, causal in cases:
+        kv_len = [x for x in lens for _ in range(kvh)]
+        q_off = [x for x in offs for _ in range(kvh)]
+        args, kw = _attn_case(gen, dev, r=slots * kvh, tq=tq, g=g, hd=hd, t=t,
+                              kv_len=kv_len, q_offset=q_off, causal=causal)
+        got, want = attn_q8(*args, **kw), attn_q8_ref(*args, **kw)
+        acc_err, acc_rel = rel_err(got[0], want[0])
+        l_err, l_rel = rel_err(got[2], want[2])
+        m_err, _ = rel_err(got[1], want[1])
+        q, kc, ks, vc, vs, _, _ = args
+        kd = (kc.float() * ks.float()[..., None])[:, None].expand(-1, g, -1, -1)
+        vd = (vc.float() * vs.float()[..., None])[:, None].expand(-1, g, -1, -1)
+        qh = q.permute(0, 2, 1, 3)  # (R, G, TQ, HD)
+        mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
+        mask = torch.as_tensor(mask, device=dev)[:, None]  # (R, 1, TQ, T)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=mask, scale=kw["sm_scale"])
+        rows = q.numel() // hd  # (query, group) rows
+        nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
+                  + 2 * len(kv_len) * 4 + 2 * rows * 4)
+        flops = pairs * g * 4 * hd
+        led.add("attn_q8", f"{label} R=12 G=3 HD=64 T=256",
+                err=max(acc_err, l_err, m_err), rel=max(acc_rel, l_rel),
+                ms=device_ms(lambda: attn_q8(*args, **kw)),
+                plain_ms=device_ms(lambda: attn_q8_ref(*args, **kw)),
+                library_ms=device_ms(library), nbytes=nbytes, flops=flops)
+
+
+def quantize_smollm_projections(gen, dev):
+    out = {}
+    for name, (k, n) in SMOLLM_PROJ.items():
+        w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+        out[name] = formats.quantize(w, "itq3_s")
+    return out
+
+
+# --- phases 4 and 5: serve the full-width model ----------------------------
+
+def two_paths(params, cfg, tokens, caches, pos, last_idx, forced: bool):
+    """One prefill (or decode step) through the kernel path and the plain
+    path, each on its own cache; returns both logits.
+
+    ``forced=False`` runs the two forwards apart. The int8 KV codec then
+    rounds a few codes to neighbouring values at ties (inputs differ by
+    ~1e-6 relative), and each such code feeds every later layer, so this
+    measures the codec's tie sensitivity as much as the kernels.
+    ``forced=True`` runs them layer by layer: every layer of both paths
+    takes the plain path's input, and after each layer the kernel path's
+    cache rows are overwritten with the plain path's, so a tie stays in
+    its layer. That is the kernels' end-to-end difference the tolerance
+    holds."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+
+    rts = [Runtime(kv_quant=True, backend=b, decode_token_cache=not forced)
+           for b in ("auto", "ref")]
+    if not forced:
+        step = lm.decode_step if tokens.shape[1] == 1 else None
+        return [step(params, tokens, c, pos, rt, cfg)[0] if step else
+                lm.forward(params, tokens, rt, cfg, cache=c, pos=pos,
+                           last_idx=last_idx)[0]
+                for rt, c in zip(rts, caches)]
+    x = lm._embed(params, torch.as_tensor(tokens, device=caches[0]["attn"][
+        "k"].device))
+    for i in range(cfg.num_layers):
+        lp = lm.layer_params(params["layers"], i)
+        outs = [lm._dense_layer_apply(
+            lp, x, rt, cfg, cache={k: v[i] for k, v in c["attn"].items()},
+            pos=pos)[0] for rt, c in zip(rts, caches)]
+        for k, v in caches[0]["attn"].items():
+            v[i].copy_(caches[1]["attn"][k][i])
+        x = outs[1]
+    if last_idx is not None:
+        rows = torch.arange(x.shape[0], device=x.device)
+        outs = [h[rows, last_idx][:, None] for h in outs]
+    return [lm._head(params, h, rt, cfg) for h, rt in zip(outs, rts)]
+
+
+def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
+    """Phases 4 and 5 (and 6 with ``profile``) on ``cfg``; returns the
+    counted run's launches."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.quantized import quantize_params
+
+    t0 = time.perf_counter()
+    params = quantize_params(lm.init_params(cfg, seed=0, device=dev),
+                             "itq3_s")
+    torch.cuda.synchronize()
+    report["quantize_s"] = time.perf_counter() - t0
+    print(f"phase 4: {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}), seeded weights quantized "
+          f"by the port to itq3_s in {report['quantize_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(p)).astype(np.int32)
+               for p in rng.integers(8, 41, size=8)]
+
+    def serve(backend, count):
+        eng = ServeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                          prompt_pad=PROMPT_PAD,
+                          rt=Runtime(kv_quant=True, backend=backend),
+                          device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if count:
+            _build.reset_launches()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches) if count else None
+        return eng, reqs, wall, counts
+
+    serve("auto", count=False)  # warm-up: first-use allocations
+    eng, reqs, wall, counts = serve("auto", count=True)
+    st = eng.stats()
+    bad = [r.rid for r in reqs if r.finish_reason != "length"
+           or len(r.out) != MAX_NEW]
+    if bad:
+        raise AssertionError(f"requests {bad} did not finish with length")
+    if st["quarantined"]:
+        raise AssertionError("non-finite logits quarantined a slot")
+    missing = [k for k in _build.SOURCES if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"kernels never launched while serving: {missing}")
+    # every projection of every layer: FWHT then matvec (decode, M = slots)
+    # or matmul (prefill, M = slots x bucket); one attention per layer
+    proj = cfg.num_layers * 7  # wq wk wv wo gate up down
+    steps, waves = st["decode_steps"], st["prefill_waves"]
+    expected = {"fwht": proj * (steps + waves), "itq3_matvec": proj * steps,
+                "itq3_matmul": proj * waves,
+                "attn_q8": cfg.num_layers * (steps + waves)}
+    if _build.SOURCES and counts != expected:
+        raise AssertionError(f"launches {counts} != expected {expected}")
+    report["serve"] = dict(
+        wall_s=wall, launches=counts, stats=st,
+        decode_tok_s=st["tokens_decoded"] / st["decode_seconds"],
+        decode_ms_per_step=1e3 * st["decode_seconds"] / st["decode_steps"],
+        prefill_ms_per_wave=1e3 * st["prefill_seconds"] / st["prefill_waves"],
+        launches_per_decode_step={
+            k: v / st["decode_steps"] for k, v in counts.items()},
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    s = report["serve"]
+    print(f"  served {len(reqs)} requests / {sum(len(r.out) for r in reqs)} "
+          f"tokens in {wall:.2f} s: decode {s['decode_tok_s']:.1f} tok/s "
+          f"({s['decode_ms_per_step']:.1f} ms/step over "
+          f"{st['decode_steps']} steps), prefill "
+          f"{s['prefill_ms_per_wave']:.1f} ms/wave over "
+          f"{st['prefill_waves']} waves, {st['syncs_per_token']:.3f} host "
+          f"syncs/token, peak memory {s['peak_mem_bytes'] / 2**20:.0f} MiB",
+          flush=True)
+    print(f"  launches while serving: {counts}", flush=True)
+
+    # phase 5: the same forward through the kernels and through the plain
+    # versions, teacher-forced with the plain path's tokens
+    print("phase 5: teacher-forced parity, kernels vs plain versions",
+          flush=True)
+    n = SLOTS
+    toks = torch.as_tensor(np.stack([np.pad(p, (0, PROMPT_PAD - len(p)))
+                                     for p in prompts[:n]]), device=dev)
+    last = torch.as_tensor([len(p) - 1 for p in prompts[:n]], device=dev)
+    for forced in (False, True):
+        caches = [lm.init_cache(cfg, n, MAX_LEN, kv_quant=True, device=dev)
+                  for _ in range(2)]
+        logits = two_paths(params, cfg, toks, caches, 0, last, forced)
+        errs = [rel_err(*logits)[1]]
+        pos = last + 1
+        for _ in range(4):
+            nxt = logits[1][:, 0].argmax(-1)[:, None]
+            logits = two_paths(params, cfg, nxt, caches, pos, None, forced)
+            errs.append(rel_err(*logits)[1])
+            pos = pos + 1
+        code_diff = (caches[0]["attn"]["k"] != caches[1]["attn"]["k"]
+                     ).float().mean().item()
+        key = "layer_forced" if forced else "free_running"
+        report[f"parity_{key}"] = dict(logits_rel=errs, k_code_diff=code_diff)
+        print(f"  {key}: logits rel error (max |diff| / max |logit|), "
+              f"prefill then 4 decode steps: "
+              f"{', '.join(f'{e:.2e}' for e in errs)}; K codes differing "
+              f"after the run: {code_diff:.2e}", flush=True)
+    if not max(errs) <= LOGITS_REL_TOL:
+        raise AssertionError(f"layer-forced logits rel error {max(errs):.3e}"
+                             f" > {LOGITS_REL_TOL}")
+    _, plain_reqs, plain_wall, _ = serve("ref", count=False)
+    same = sum(a == b for r, p in zip(reqs, plain_reqs)
+               for a, b in zip(r.out, p.out))
+    total = sum(len(r.out) for r in reqs)
+    report["greedy_agreement"] = same / total
+    report["plain_serve_wall_s"] = plain_wall
+    print(f"  free-running greedy streams: {same}/{total} tokens agree with "
+          f"the plain-version run ({plain_wall:.2f} s)", flush=True)
+    if profile:
+        profile_phase(serve, report)
+    return counts
+
+
+def profile_phase(serve, report: dict) -> None:
+    """Phase 6 (``--profile``): one more kernel-path serving run under
+    ``torch.profiler``; the device's busy time is the sum of the self
+    device time of every kernel and copy on the card (one stream, so they
+    never overlap). Tracing slows the host, so the idle share read here is an
+    upper bound on the unprofiled run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng, _, wall, _ = serve("auto", count=False)
+    events = prof.key_averages()
+    # device-side rows only: the operator rows repeat their kernels' time
+    busy_s = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA) / 1e6
+    report["profile"] = dict(wall_s=wall, device_busy_s=busy_s,
+                             idle_share=1 - busy_s / wall,
+                             decode_steps=eng.stats()["decode_steps"])
+    TABLE.parent.mkdir(parents=True, exist_ok=True)
+    TABLE.write_text(events.table(sort_by="self_device_time_total",
+                                  row_limit=40))
+    print(f"phase 6: profiled serving run: device busy {busy_s:.3f} s of "
+          f"{wall:.3f} s wall (idle share {1 - busy_s / wall:.3f}); "
+          f"kernel table in {TABLE.relative_to(ROOT)}", flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after building and checking the kernels")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one serving run with torch.profiler")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on "
+              "the GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # tolerances assume f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    report: dict = {}
+
+    kind, smi = card_report()
+    print(f"phase 1: card {kind!r}; nvidia-smi: {smi}", flush=True)
+
+    t0 = time.perf_counter()
+    builds = _build.build()
+    report["build_s"] = time.perf_counter() - t0
+    report["ptxas"] = {k: v["ptxas"] for k, v in builds.items()}
+    print(f"phase 2: built {len(builds)} kernels with nvcc for sm_90a in "
+          f"{report['build_s']:.1f} s "
+          f"({', '.join(f'{k} {v['seconds']:.1f} s' for k, v in builds.items())})",
+          flush=True)
+    for k, v in builds.items():
+        for line in v["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {k}: {line.strip()}")
+
+    print("phase 3: kernels vs plain versions at smollm-135m main-path "
+          "shapes (ms = median device time of one call)", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    led = Ledger()
+    check_fwht(led, gen, dev)
+    check_itq3(led, gen, dev, quantize_smollm_projections(gen, dev))
+    check_attn(led, gen, dev)
+    report["kernel_rows"] = led.rows
+
+    counts = {}
+    if not args.kernels_only:
+        counts = serve_phase(dev, report, get_config("smollm-135m"),
+                             profile=args.profile)
+
+    replaces = {
+        "fwht": "src/repro/kernels/fwht_kernel.py:39",
+        "itq3_matvec": "src/repro/kernels/itq3_matvec.py:82",
+        "itq3_matmul": "src/repro/kernels/itq3_matmul.py:339",
+        "attn_q8": "src/repro/kernels/attn_decode.py:230",
+    }
+    kernels = []
+    for name in _build.SOURCES:
+        s = led.summary(name)
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=replaces[name], launches=int(counts.get(name, 0)),
+            max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+            bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+            library_ms=s["library_ms"], shapes=s["shapes"]))
+    report["kernels"] = kernels
+    DETAILS.parent.mkdir(parents=True, exist_ok=True)
+    DETAILS.write_text(json.dumps(report, indent=1, default=str))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

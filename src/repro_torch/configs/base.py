@@ -1,0 +1,81 @@
+"""Model configuration for the port (copy of ``repro/configs/base.py``).
+
+Only the dense llama-family models this slice serves are registered:
+``smollm-135m`` and ``qwen1.5-0.5b``. ``reduced()`` gives the same topology
+at CPU-test size, exactly as the reference does, so a reduced config built
+here equals the reference's field for field.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+__all__ = ["ModelConfig", "get_config", "reduced", "ARCH_IDS",
+           "kv_cache_bytes_per_token"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense (the only family this slice serves)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    activation: str = "swiglu"
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0
+    tie_embeddings: bool = True
+    eos_token_id: Optional[int] = None  # engine finishes a request on this
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+
+ARCH_IDS = ["qwen1.5-0.5b", "smollm-135m"]
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch_id!r}; the port serves {ARCH_IDS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_module_name(arch_id)}")
+    return mod.CONFIG
+
+
+def kv_cache_bytes_per_token(cfg: ModelConfig, *, kv_quant: bool = False,
+                             fp_bytes: int = 2) -> int:
+    """Attention KV-cache bytes per cached token position across all
+    layers: 2 planes (K, V) x num_kv_heads x per-vector bytes, where the
+    rotated-int8 layout stores head_dim int8 codes plus one fp16 scale."""
+    hd = cfg.resolved_head_dim
+    per_vector = (hd + 2) if kv_quant else hd * fp_bytes
+    return 2 * cfg.num_layers * cfg.num_kv_heads * per_vector
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-topology config for CPU tests: 4 layers, d_model 128,
+    4 heads at head_dim 32, the GQA ratio preserved."""
+    kv_ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
+    heads = 4
+    return dataclasses.replace(
+        cfg,
+        num_layers=min(cfg.num_layers, 4),
+        d_model=128,
+        num_heads=heads,
+        num_kv_heads=max(1, heads // kv_ratio),
+        head_dim=32,
+        d_ff=256,
+        vocab_size=512,
+    )

@@ -1,0 +1,89 @@
+"""Quantized linear forward (port of ``repro/core/qlinear.py`` and of the
+dispatch in ``repro/kernels/ops.py``).
+
+:func:`qmatmul` is the one entry point for ``y = x @ W_hat`` on a QTensor.
+
+**mode** — where the rotation lands (see ``TernaryFormat.contract``):
+``dequant`` (materialize W_hat; plain only), ``weights`` (inverse-FWHT the
+weight tiles inside the contraction kernel), ``activations`` (rotate each
+activation block once with the FWHT kernel, then contract without a weight
+rotation; the serving default), ``auto`` (rotate the smaller operand).
+
+**backend** — ``ref`` runs the plain ``TernaryFormat.contract``; ``cuda``
+runs the kernel path and requires CUDA tensors; ``auto`` runs the kernel
+path, whose wrappers launch the Hopper kernels on CUDA tensors and run
+their plain versions on CPU tensors. The kernel path dispatches by shape:
+M <= 16 rows go to the matvec kernel, larger M to the tiled kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import formats as fmt_mod
+from repro_torch.core.quantize import QTensor, pad_last_dim
+from repro_torch.kernels.fwht import fwht as fwht_kernel
+from repro_torch.kernels.itq3 import MATVEC_MAX_M, itq3_matmul, itq3_matvec
+
+__all__ = ["qmatmul", "qmatmul_kernel", "resolve_mode", "QLINEAR_MODES",
+           "QMATMUL_BACKENDS"]
+
+QLINEAR_MODES = ("dequant", "weights", "activations", "auto")
+QMATMUL_BACKENDS = ("auto", "ref", "cuda")
+
+
+def resolve_mode(x: torch.Tensor, m, mode: str) -> str:
+    """Resolve mode="auto": rotate the smaller operand."""
+    if mode != "auto":
+        return mode
+    rows = 1
+    for d in x.shape[:-1]:
+        rows *= d
+    return "activations" if rows <= m.n else "weights"
+
+
+def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
+            backend: str = "auto") -> torch.Tensor:
+    """``x (..., K) @ W_hat (K, N) -> (..., N)`` in f32."""
+    m = qt.meta
+    if len(m.shape) != 2:
+        raise ValueError(f"qmatmul expects 2-D weights, got shape {m.shape}")
+    if mode not in QLINEAR_MODES:
+        raise ValueError(f"mode {mode!r} not in {QLINEAR_MODES}")
+    if backend not in QMATMUL_BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {QMATMUL_BACKENDS}")
+    spec = fmt_mod.get_format(m.fmt)
+    mode = resolve_mode(x, m, mode)
+    if backend == "cuda" and not x.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors")
+    if backend == "ref" or mode == "dequant":
+        return spec.contract(x, qt, mode=mode)
+    return qmatmul_kernel(x, qt, mode=mode)
+
+
+def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
+                   mode: str = "activations") -> torch.Tensor:
+    """Kernel-path ``x @ W_hat``: pad K to whole blocks, rotate (activations
+    mode) or pre-scale by the sign diagonal (weights mode), then the
+    matvec (M <= 16) or tiled kernel."""
+    m = qt.meta
+    lead = x.shape[:-1]
+    xp = pad_last_dim(x.reshape(-1, x.shape[-1]).to(torch.float32), m.block)
+    dsign = qt.data.get("dsign")
+    rotate_weights = False
+    if m.rotate:
+        if dsign is not None:
+            # w_hat = D H v  =>  y = v . (H D x): pre-scale x by D either way
+            xp = (xp.reshape(xp.shape[0], -1, m.block)
+                  * dsign.to(xp.dtype)).reshape(xp.shape)
+        if mode == "activations":
+            xp = fwht_kernel(xp.contiguous(), m.block)
+        elif mode == "weights":
+            rotate_weights = True
+        else:
+            raise ValueError(f"unknown kernel mode {mode!r}")
+    xp = xp.contiguous()
+    fn = itq3_matvec if xp.shape[0] <= MATVEC_MAX_M else itq3_matmul
+    out = fn(xp, qt.data["plane2"], qt.data["plane1"], qt.data["scales"],
+             qt.data["zps"], rotate_weights=rotate_weights,
+             fivelevel=m.fivelevel, sub_blocks=m.sub_blocks)
+    return out.reshape(*lead, m.n)

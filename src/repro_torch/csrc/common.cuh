@@ -1,0 +1,108 @@
+// Shared device helpers for the ITQ3_S kernels: warp reductions, the
+// planar 3-bit decode of one 256-element block, and the 256-point
+// Walsh-Hadamard butterfly on a warp's registers.
+//
+// Lane layout of one decoded block (32 lanes x 8 values): lane L holds
+// elements e = c*64 + 2*L + j for c in 0..3, j in 0..1, in register
+// r = 2*c + j. Plane2 byte i carries elements {i, 64+i, 128+i, 192+i}, so
+// lane L reads plane2 bytes 2L and 2L+1 (one coalesced 2-byte load) and
+// gets all 8 of its payloads. Element bits: bit 0 = j (register), bits
+// 1..5 = lane bits 0..4 (shuffles), bits 6..7 = c (register).
+#pragma once
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+// Element index held in register r by `lane` (see the layout above).
+__device__ __forceinline__ int itq3_elem(int r, int lane) {
+  return (r >> 1) * 64 + 2 * lane + (r & 1);
+}
+
+// Decode block `blk` (= n*KB + kb) into w[8]: d*(q - z), or d_sub*q with
+// sub-block scales, with q the ternary payload (or the five-level value
+// when `fivelevel`). For plain ternary formats plane1 carries a parity bit
+// and must not be read as an escape.
+__device__ __forceinline__ void itq3_decode_lane(
+    const uint8_t* __restrict__ plane2, const uint8_t* __restrict__ plane1,
+    const __half* __restrict__ scales, const __half* __restrict__ zps,
+    long long blk, int sub_blocks, int fivelevel, int lane, float w[8]) {
+  const uint8_t* p2 = plane2 + blk * 64;
+  const unsigned short b2 =
+      *reinterpret_cast<const unsigned short*>(p2 + 2 * lane);
+  const unsigned q2[2] = {b2 & 0xffu, (unsigned)(b2 >> 8)};
+  unsigned q1[2] = {0u, 0u};
+  if (fivelevel) {
+    const uint8_t* p1 = plane1 + blk * 32;
+    q1[0] = p1[(2 * lane) & 31];
+    q1[1] = p1[(2 * lane + 1) & 31];
+  }
+  const int hi = lane >= 16;  // elements c*64 + 32..63 sit in odd plane1 bits
+  float d = 0.f, z = 0.f;
+  if (!sub_blocks) {
+    d = __half2float(scales[blk]);
+    z = __half2float(zps[blk]);
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int c = r >> 1, j = r & 1;
+    int q = (int)((q2[j] >> (2 * c)) & 3u) - 1;
+    if (fivelevel) q *= 1 + (int)((q1[j] >> (2 * c + hi)) & 1u);
+    if (sub_blocks) {
+      const int s = itq3_elem(r, lane) / (256 / sub_blocks);
+      w[r] = __half2float(scales[blk * sub_blocks + s]) * (float)q;
+    } else {
+      w[r] = d * ((float)q - z);
+    }
+  }
+}
+
+// Normalized 256-point FWHT of the block held in w[8] across the warp,
+// stages h = 1, 2, ..., 128 in the reference's order: (a, b) -> (a+b, a-b).
+__device__ __forceinline__ void itq3_butterfly(float w[8], int lane) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {  // h = 1: register pair j = 0/1
+    const float a = w[2 * c], b = w[2 * c + 1];
+    w[2 * c] = a + b;
+    w[2 * c + 1] = a - b;
+  }
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) {  // h = 2..32: lane bit m
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float o = __shfl_xor_sync(FULL_MASK, w[r], m);
+      w[r] = (lane & m) ? (o - w[r]) : (w[r] + o);
+    }
+  }
+#pragma unroll
+  for (int s = 1; s < 4; s <<= 1) {  // h = 64, 128: bits of c
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if ((c & s) == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float a = w[2 * c + j], b = w[2 * (c + s) + j];
+          w[2 * c + j] = a + b;
+          w[2 * (c + s) + j] = a - b;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) w[r] *= 0.0625f;  // 1/sqrt(256), exact
+}

@@ -1,0 +1,231 @@
+"""Attention over the rotated-int8 KV cache (kernel 4, ``csrc/attn_q8.cu``).
+
+Port of the dense layout of ``repro/kernels/attn_decode.py``. The cache
+holds each K/V vector FWHT-rotated and int8-quantized with an fp16 scale.
+Because H is an isometry, ``q . k = (H q) . (H k)``: scores come straight
+from the K codes against the rotated query, the V scale folds into the
+softmax weight, and one inverse FWHT per query span undoes the rotation of
+the weighted V sum.
+
+:func:`attn_q8` (the kernel wrapper; plain version :func:`attn_q8_ref`)
+works on the kernel layout ``q_rot (R, TQ, G, HD)`` with R = B*KV rows and
+returns the unnormalized ``(acc, m, l)``. :func:`decode_attn_q8` and
+:func:`prefill_attn_q8` are the serving entry points: they rotate q, call
+the kernel (or, with ``backend="ref"``, the plain versions
+:func:`decode_attn_q8_ref` / :func:`prefill_attn_q8_ref`), merge the
+decode self token, normalize and apply the final inverse FWHT in PyTorch.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.core.fwht import fwht, is_pow2
+from repro_torch.kernels import _build
+
+__all__ = ["attn_q8", "attn_q8_ref", "decode_attn_q8", "decode_attn_q8_ref",
+           "prefill_attn_q8", "prefill_attn_q8_ref", "ATTN_BACKENDS"]
+
+NEG_INF = -1e30
+ATTN_BACKENDS = ("auto", "ref", "cuda")
+_ROWS_PER_BLOCK = 32  # query rows (TQB * G) one thread block holds
+
+_SIG = {"attn_q8_launch": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)}
+
+
+def attn_q8_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset,
+                *, sm_scale: float, causal: bool):
+    """Plain version of the kernel: the same score and V-scale-folding
+    formulas with a plain (non-online) max and sum over all keys.
+
+    q_rot (R, TQ, G, HD) f32; codes (R, T, HD) int8; scales (R, T) f16;
+    kv_len, q_offset (R,) int32. Returns acc (R, TQ, G, HD), m and l
+    (R, TQ, G, 1), f32."""
+    r, tq, g, hd = q_rot.shape
+    t = k_codes.shape[1]
+    s = torch.einsum("rqgd,rtd->rqgt", q_rot.to(torch.float32),
+                     k_codes.to(torch.float32))
+    s = s * (k_scale.to(torch.float32) * sm_scale)[:, None, None, :]
+    kpos = torch.arange(t, device=q_rot.device)
+    valid = kpos[None, None, None, :] < kv_len.to(torch.int64)[:, None, None, None]
+    if causal:
+        qpos = (q_offset.to(torch.int64)[:, None]
+                + torch.arange(tq, device=q_rot.device)[None, :])  # (R, TQ)
+        valid = valid & (kpos[None, None, None, :] <= qpos[:, :, None, None])
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = torch.sum(p, dim=-1, keepdim=True)
+    pv = p * v_scale.to(torch.float32)[:, None, None, :]
+    acc = torch.einsum("rqgt,rtd->rqgd", pv, v_codes.to(torch.float32))
+    return acc, m, l
+
+
+def attn_q8(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset, *,
+            sm_scale: float, causal: bool):
+    """Online-softmax attention of rotated queries over int8 K/V codes:
+    the kernel on a CUDA tensor, :func:`attn_q8_ref` on a CPU tensor."""
+    r, tq, g, hd = q_rot.shape
+    t = k_codes.shape[1]
+    if (k_codes.shape != (r, t, hd) or v_codes.shape != (r, t, hd)
+            or k_scale.shape != (r, t) or v_scale.shape != (r, t)
+            or kv_len.shape != (r,) or q_offset.shape != (r,)):
+        raise ValueError("attn_q8: operand shapes do not match q_rot "
+                         f"{tuple(q_rot.shape)} and codes {tuple(k_codes.shape)}")
+    if not is_pow2(hd) or not 32 <= hd <= 128:
+        raise ValueError(f"attn_q8: head_dim {hd} must be a power of two "
+                         f"in [32, 128]")
+    _build.check_operands("attn_q8", q_rot.device, zip(
+        (q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset),
+        (torch.float32, torch.int8, torch.float16, torch.int8, torch.float16,
+         torch.int32, torch.int32)))
+    if q_rot.device.type == "cpu":
+        return attn_q8_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len,
+                           q_offset, sm_scale=sm_scale, causal=causal)
+    if not q_rot.is_cuda:
+        raise ValueError(f"attn_q8: unsupported device {q_rot.device}")
+    acc = torch.empty((r, tq, g, hd), dtype=torch.float32, device=q_rot.device)
+    m = torch.empty((r, tq, g, 1), dtype=torch.float32, device=q_rot.device)
+    l = torch.empty_like(m)
+    tqb = max(1, min(tq, _ROWS_PER_BLOCK // g))
+    lib = _build.library("attn_q8", _SIG)
+    _build.check(lib.attn_q8_launch(
+        q_rot.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
+        v_codes.data_ptr(), v_scale.data_ptr(), kv_len.data_ptr(),
+        q_offset.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        r, tq, g, hd, t, tqb, float(sm_scale), int(causal),
+        _build.stream_of(q_rot)), "attn_q8")
+    _build.launches["attn_q8"] += 1
+    return acc, m, l
+
+
+def _merge_self_token(acc, m, l, s_self, v_self):
+    """One more online-softmax step for the current token, then normalize.
+
+    acc (..., G, HD), m/l (..., G, 1); s_self (..., G, 1) score of the new
+    token; v_self (..., 1, HD) its dequantized (still rotated) V row."""
+    m_tot = torch.maximum(m, s_self)
+    alpha = torch.exp(m - m_tot)
+    p_self = torch.exp(s_self - m_tot)
+    l_tot = l * alpha + p_self
+    return (acc * alpha + p_self * v_self) / l_tot
+
+
+def _use_kernel(backend: str, x: torch.Tensor) -> bool:
+    if backend not in ATTN_BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {ATTN_BACKENDS}")
+    if backend == "cuda" and not x.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors")
+    return backend != "ref"
+
+
+def decode_attn_q8_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, *,
+                       sm_scale: float):
+    """Plain decode cache pass in the reference layout: q_rot (B, KV, G, HD),
+    codes (B, KV, T, HD), scales (B, KV, T, 1), kv_len (B,). Returns the
+    unnormalized (acc (B, KV, G, HD), m, l (B, KV, G, 1))."""
+    b, kv, g, hd = q_rot.shape
+    t = k_codes.shape[2]
+    r = b * kv
+    acc, m, l = attn_q8_ref(
+        q_rot.reshape(r, 1, g, hd), k_codes.reshape(r, t, hd),
+        k_scale.reshape(r, t), v_codes.reshape(r, t, hd),
+        v_scale.reshape(r, t), kv_len.repeat_interleave(kv),
+        torch.zeros(r, dtype=torch.int32, device=q_rot.device),
+        sm_scale=sm_scale, causal=False)
+    return (acc.reshape(b, kv, g, hd), m.reshape(b, kv, g, 1),
+            l.reshape(b, kv, g, 1))
+
+
+def prefill_attn_q8_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len,
+                        q_offset, *, sm_scale: float, causal: bool = True):
+    """Plain q-tile cache pass in the reference layout: q_rot
+    (B, KV, G, TQ, HD). Returns unnormalized (acc (B, KV, G, TQ, HD),
+    m, l (B, KV, G, TQ, 1))."""
+    b, kv, g, tq, hd = q_rot.shape
+    t = k_codes.shape[2]
+    r = b * kv
+    acc, m, l = attn_q8_ref(
+        q_rot.transpose(2, 3).reshape(r, tq, g, hd), k_codes.reshape(r, t, hd),
+        k_scale.reshape(r, t), v_codes.reshape(r, t, hd),
+        v_scale.reshape(r, t), kv_len.repeat_interleave(kv),
+        q_offset.repeat_interleave(kv), sm_scale=sm_scale, causal=causal)
+
+    def back(a):
+        return a.reshape(b, kv, tq, g, a.shape[-1]).transpose(2, 3)
+    return back(acc), back(m), back(l)
+
+
+def _rows(v: torch.Tensor, kv: int) -> torch.Tensor:
+    """(B,) per-slot vector -> (B*KV,) int32 per-row vector."""
+    return v.to(torch.int32).repeat_interleave(kv).contiguous()
+
+
+def decode_attn_q8(q, cache, k_tok, v_tok, kv_len, *, backend: str = "auto"):
+    """Single-token decode attention against the rotated-int8 cache.
+
+    q (B, KV, G, 1, HD) unrotated; cache {"k","v": (B, KV, T, HD) int8,
+    "k_scale","v_scale": (B, KV, T, 1) f16} NOT yet holding the current
+    token; k_tok/v_tok its encoded (codes (B, KV, 1, HD), scale
+    (B, KV, 1, 1)); kv_len (B,) valid cached positions. The cache pass runs
+    in the kernel; the self term merges here. Returns (B, KV, G, 1, HD)."""
+    b, kv, g, _, hd = q.shape
+    sm_scale = 1.0 / math.sqrt(hd)
+    q_rot = fwht(q[..., 0, :].to(torch.float32))  # (B, KV, G, HD)
+    if _use_kernel(backend, q):
+        r, t = b * kv, cache["k"].shape[2]
+        acc, m, l = attn_q8(
+            q_rot.reshape(r, 1, g, hd).contiguous(),
+            cache["k"].reshape(r, t, hd), cache["k_scale"].reshape(r, t),
+            cache["v"].reshape(r, t, hd), cache["v_scale"].reshape(r, t),
+            _rows(kv_len, kv), torch.zeros(r, dtype=torch.int32, device=q.device),
+            sm_scale=sm_scale, causal=False)
+        acc = acc.reshape(b, kv, g, hd)
+        m = m.reshape(b, kv, g, 1)
+        l = l.reshape(b, kv, g, 1)
+    else:
+        acc, m, l = decode_attn_q8_ref(
+            q_rot, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+            kv_len, sm_scale=sm_scale)
+    kc_tok, ks_tok = k_tok
+    vc_tok, vs_tok = v_tok
+    # self score through the same dequantize-free formula: (Hq).codes * scale
+    s_self = torch.einsum("bkgd,bkd->bkg", q_rot,
+                          kc_tok[..., 0, :].to(torch.float32))[..., None]
+    s_self = s_self * (ks_tok[..., 0, :].to(torch.float32)[:, :, None]
+                       * sm_scale)
+    v_self = vc_tok.to(torch.float32) * vs_tok.to(torch.float32)  # rotated
+    out = _merge_self_token(acc, m, l, s_self, v_self)
+    # sum_t w_t (H v_t) = H (sum_t w_t v_t): one inverse FWHT per step
+    return fwht(out)[..., None, :]
+
+
+def prefill_attn_q8(q, cache, kv_len, q_offset, *, backend: str = "auto"):
+    """Query-span attention against the rotated-int8 cache, whose rows
+    already hold the span's codes at ``q_offset..q_offset+TQ-1``, so the
+    causal mask merges the span's own block into the cache pass.
+
+    q (B, KV, G, TQ, HD) unrotated; kv_len, q_offset (B,). Returns
+    (B, KV, G, TQ, HD) with the rotation undone."""
+    b, kv, g, tq, hd = q.shape
+    sm_scale = 1.0 / math.sqrt(hd)
+    q_rot = fwht(q.transpose(2, 3).to(torch.float32))  # (B, KV, TQ, G, HD)
+    if _use_kernel(backend, q):
+        r, t = b * kv, cache["k"].shape[2]
+        acc, _, l = attn_q8(
+            q_rot.reshape(r, tq, g, hd).contiguous(),
+            cache["k"].reshape(r, t, hd), cache["k_scale"].reshape(r, t),
+            cache["v"].reshape(r, t, hd), cache["v_scale"].reshape(r, t),
+            _rows(kv_len, kv), _rows(q_offset, kv), sm_scale=sm_scale,
+            causal=True)
+        acc = acc.reshape(b, kv, tq, g, hd).transpose(2, 3)
+        l = l.reshape(b, kv, tq, g, 1).transpose(2, 3)
+    else:
+        acc, _, l = prefill_attn_q8_ref(
+            q_rot.transpose(2, 3), cache["k"], cache["k_scale"], cache["v"],
+            cache["v_scale"], kv_len, q_offset, sm_scale=sm_scale)
+    # one inverse FWHT per query span, outside the kernel
+    return fwht(acc / l)

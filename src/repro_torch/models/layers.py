@@ -1,0 +1,222 @@
+"""Transformer building blocks (port of ``repro/models/layers.py``, the
+dense self-attention family).
+
+Every matmul weight flows through :func:`dense`, which dispatches on the
+leaf type: a plain tensor (fp) or a :class:`~repro_torch.core.quantize.QTensor`
+(ITQ3_S-family planes, through :func:`~repro_torch.core.qlinear.qmatmul`).
+
+The KV cache layout is the reference's: (B, KV_heads, T, head_dim). Where
+XLA wrote a functional cache update into a donated buffer, the port writes
+in place into the preallocated cache tensors (``index_put_`` over
+per-row positions, so no host sync is needed to place a ragged batch).
+Compute is float32 throughout, as the reference serving runtime is.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.qlinear import qmatmul
+from repro_torch.core.quantize import QTensor
+from repro_torch.kernels.attn_q8 import decode_attn_q8, prefill_attn_q8
+from repro_torch.serve.kv_quant import kv_encode
+
+__all__ = ["Runtime", "dense", "norm_apply", "rope", "mlp_apply",
+           "attention_apply"]
+
+Params = dict[str, Any]
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """Execution-time knobs threaded through every apply function (the
+    subset of the reference's ``Runtime`` this slice serves)."""
+
+    quant_mode: str = "activations"  # qmatmul mode for QTensor weights
+    backend: str = "auto"  # auto | ref | cuda (qmatmul and q8 attention)
+    kv_quant: bool = False  # rotated-int8 KV cache (serve/kv_quant.py codec)
+    decode_token_cache: bool = True  # decode writes one token per layer
+
+
+def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:
+    """``x @ w (+ bias)`` with QTensor dispatch (the quantization seam)."""
+    if isinstance(w, QTensor):
+        y = qmatmul(x, w, mode=rt.quant_mode, backend=rt.backend)
+    else:
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def norm_apply(p: Params, x: torch.Tensor, kind: str,
+               eps: float = 1e-5) -> torch.Tensor:
+    x = x.to(torch.float32)
+    if kind == "rmsnorm":
+        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    elif kind == "layernorm":
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+        x = (x - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(f"unknown norm {kind!r}")
+    x = x * p["scale"]
+    if "bias" in p:
+        x = x + p["bias"]
+    return x
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         pct: float = 1.0) -> torch.Tensor:
+    """Rotary embedding on the trailing head_dim of x (..., T, HD);
+    ``positions`` (..., T) absolute positions."""
+    hd = x.shape[-1]
+    rot = int(hd * pct)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs  # (..., T, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def mlp_apply(p: Params, x: torch.Tensor, rt: Runtime,
+              activation: str) -> torch.Tensor:
+    if activation != "swiglu":
+        raise NotImplementedError(
+            f"activation {activation!r}: this slice serves swiglu models")
+    h = torch.nn.functional.silu(dense(x, p["gate"], rt)) * dense(
+        x, p["up"], rt)
+    return dense(h, p["down"], rt)
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset, kv_len):
+    """Plain f32 attention over an fp cache. q (B, KV, G, Tq, HD); k, v
+    (B, KV, Tk, HD); q_offset (B,) absolute position of query 0; kv_len
+    (B,) valid keys or None."""
+    b, _, _, tq, hd = q.shape
+    tk = k.shape[2]
+    s = torch.einsum("bkgqd,bktd->bkgqt", q, k) * (1.0 / math.sqrt(hd))
+    kpos = torch.arange(tk, device=q.device)
+    mask = torch.ones((b, 1, 1, tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = q_offset[:, None] + torch.arange(tq, device=q.device)
+        mask = mask & (kpos[None, None, None, None, :]
+                       <= qpos[:, None, None, :, None])
+    if kv_len is not None:
+        mask = mask & (kpos[None, None, None, None, :]
+                       < kv_len[:, None, None, None, None])
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return torch.einsum("bkgqt,bktd->bkgqd", torch.softmax(s, dim=-1), v)
+
+
+def _sdpa_decode_token(q, ck, cv, k_tok, v_tok, *, kv_len):
+    """Decode attention against an fp cache that does NOT yet hold the
+    current token: softmax over [cached scores | self score]."""
+    hd = q.shape[-1]
+    tk = ck.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    s_cache = torch.einsum("bkgqd,bktd->bkgqt", q, ck) * scale
+    kpos = torch.arange(tk, device=q.device)
+    mask = kpos[None, None, None, None, :] < kv_len[:, None, None, None, None]
+    s_cache = torch.where(mask, s_cache, torch.full_like(s_cache, NEG_INF))
+    s_self = torch.einsum("bkgqd,bkqd->bkgq", q, k_tok)[..., None] * scale
+    w = torch.softmax(torch.cat([s_cache, s_self], dim=-1), dim=-1)
+    out = torch.einsum("bkgqt,bktd->bkgqd", w[..., :tk], cv)
+    return out + w[..., tk:] * v_tok[:, :, None]
+
+
+def _write_span(cache: dict, vals: dict, pos_vec: torch.Tensor, t: int):
+    """Write a (B, KV, t, X) span per leaf into the (B, KV, T, X) cache at
+    per-row start ``pos_vec``, in place. The start is clamped so the span
+    fits, as ``lax.dynamic_update_slice`` clamps it in the reference."""
+    b = pos_vec.shape[0]
+    tmax = cache["k"].shape[2]
+    start = torch.clamp(pos_vec, 0, max(tmax - t, 0))
+    span = start[:, None] + torch.arange(t, device=pos_vec.device)  # (B, t)
+    rows = torch.arange(b, device=pos_vec.device)[:, None]
+    for key, val in vals.items():
+        # advanced indices around a slice put (B, t) first: (B, t, KV, X)
+        cache[key][rows, :, span] = val.transpose(1, 2).to(cache[key].dtype)
+
+
+def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
+                    cache: Optional[dict] = None, pos=0,
+                    token_cache: bool = False):
+    """Self-attention with RoPE. Returns (output (B, T, D), cache info).
+
+    * ``cache=None``: causal attention within ``x`` (no cache).
+    * ``token_cache`` and T == 1 (decode): attend the PRE-write cache plus
+      the current token's own (encoded, under kv_quant) K/V, and return
+      the token's K/V for the caller to write at ``pos``.
+    * otherwise (prefill): write the span's K/V (codes and scales under
+      kv_quant) into the cache at ``pos`` in place, then attend the
+      POST-write cache causally with ``kv_len = pos + T``. Pad positions of
+      a bucketed prompt hold finite garbage behind ``kv_len``."""
+    b, t, _ = x.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    g = h // kvh
+
+    q = dense(x, p["wq"], rt, p.get("bq"))
+    k = dense(x, p["wk"], rt, p.get("bk")).reshape(b, t, kvh, hd)
+    v = dense(x, p["wv"], rt, p.get("bv")).reshape(b, t, kvh, hd)
+    pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    pos_vec = pos_vec.expand(b) if pos_vec.dim() == 0 else pos_vec
+    qpos = pos_vec[:, None] + torch.arange(t, device=x.device)  # (B, T)
+    q = rope(q.reshape(b, t, h, hd).transpose(1, 2), qpos[:, None, :],
+             cfg.rope_theta, cfg.rotary_pct).reshape(b, kvh, g, t, hd)
+    k = rope(k.transpose(1, 2), qpos[:, None, :], cfg.rope_theta,
+             cfg.rotary_pct)  # (B, KV, T, HD)
+    v = v.transpose(1, 2)
+
+    quant_cache = cache is not None and "k_scale" in cache
+    out_cache = None
+    if cache is None:
+        out = _sdpa(q, k, v, causal=True, q_offset=pos_vec, kv_len=None)
+    elif t == 1 and token_cache:
+        if quant_cache:
+            # the token goes through the codec here, so its self term sees
+            # exactly the values every later step reads back from the cache
+            kq, ks = kv_encode(k)
+            vq, vs = kv_encode(v)
+            out = decode_attn_q8(q, cache, (kq, ks), (vq, vs), pos_vec,
+                                 backend=rt.backend)
+            out_cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            out = _sdpa_decode_token(q, cache["k"], cache["v"], k, v,
+                                     kv_len=pos_vec)
+            out_cache = {"k": k, "v": v}
+    elif quant_cache:
+        kq, ks = kv_encode(k)
+        vq, vs = kv_encode(v)
+        if t == 1:
+            # single-token decode without the token write-back: attend the
+            # pre-write cache plus the encoded self term, then write
+            out = decode_attn_q8(q, cache, (kq, ks), (vq, vs), pos_vec,
+                                 backend=rt.backend)
+            _write_span(cache, {"k": kq, "v": vq, "k_scale": ks,
+                                "v_scale": vs}, pos_vec, t)
+        else:
+            _write_span(cache, {"k": kq, "v": vq, "k_scale": ks,
+                                "v_scale": vs}, pos_vec, t)
+            out = prefill_attn_q8(q, cache, pos_vec + t, pos_vec,
+                                  backend=rt.backend)
+        out_cache = cache
+    else:
+        _write_span(cache, {"k": k, "v": v}, pos_vec, t)
+        out = _sdpa(q, cache["k"], cache["v"], causal=t > 1,
+                    q_offset=pos_vec, kv_len=pos_vec + t)
+        out_cache = cache
+    out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
+    return dense(out, p["wo"], rt), out_cache

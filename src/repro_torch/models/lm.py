@@ -1,0 +1,210 @@
+"""Model assembly for the dense llama family (port of the dense half of
+``repro/models/lm.py``).
+
+Parameters are a plain dict mirroring the reference pytree: ``embed``
+(V, D), ``ln_f``, optional ``lm_head``, and ``layers`` whose leaves carry a
+leading layer axis L (tensors, or QTensors with stacked planes). Where the
+reference scans over the stacked layers, the port loops over them and
+takes each layer's views.
+
+The serving cache is ``{"attn": {"k", "v"[, "k_scale", "v_scale"]}}`` with
+(L, B, KV, T, X) leaves, preallocated once; prefill and decode write into
+it in place (the reference's donated buffers).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.fwht import is_pow2
+from repro_torch.core.quantize import QTensor
+from repro_torch.models.layers import (
+    Runtime, attention_apply, dense, mlp_apply, norm_apply,
+)
+
+Params = dict[str, Any]
+
+__all__ = ["init_params", "init_cache", "forward", "decode_step",
+           "finite_rows", "sample_tokens", "layer_params"]
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
+    """Seeded random fp weights for the dense family, drawn with numpy:
+    embedding ~ N(0, 0.02^2), projections ~ N(0, 1/K) clipped at 3 sigma,
+    norm scales 1, biases 0. Layer leaves are stacked (L, ...)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: this slice serves the dense family")
+    rng = np.random.default_rng(seed)
+    d, f, n_l = cfg.d_model, cfg.d_ff, cfg.num_layers
+    hd = cfg.resolved_head_dim
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+
+    def w(k, n):
+        x = rng.standard_normal((n_l, k, n), dtype=np.float32)
+        return np.clip(x, -3.0, 3.0) / np.float32(np.sqrt(k))
+
+    ones = np.ones((n_l, d), np.float32)
+    attn = {"wq": w(d, h * hd), "wk": w(d, kvh * hd), "wv": w(d, kvh * hd),
+            "wo": w(h * hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=np.zeros((n_l, h * hd), np.float32),
+                    bk=np.zeros((n_l, kvh * hd), np.float32),
+                    bv=np.zeros((n_l, kvh * hd), np.float32))
+    tree = {
+        "embed": rng.standard_normal((cfg.vocab_size, d),
+                                     dtype=np.float32) * np.float32(0.02),
+        "ln_f": {"scale": np.ones((d,), np.float32)},
+        "layers": {"ln1": {"scale": ones}, "attn": attn,
+                   "ln2": {"scale": ones.copy()},
+                   "mlp": {"gate": w(d, f), "up": w(d, f), "down": w(f, d)}},
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = w(d, cfg.vocab_size)[0]
+
+    def to_torch(node):
+        if isinstance(node, dict):
+            return {k: to_torch(v) for k, v in node.items()}
+        return torch.as_tensor(node, device=device)
+    return to_torch(tree)
+
+
+def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
+               dtype=torch.float32, device="cuda") -> Params:
+    """Zeroed serving cache. ``kv_quant=True`` lays it out as rotated-int8
+    codes plus per-token fp16 scales (8.25 bits/element); it needs a
+    power-of-two head_dim."""
+    kvh, hd, n_l = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    if kv_quant and not is_pow2(hd):
+        raise ValueError(f"kv_quant needs a power-of-two head_dim, got {hd}")
+    shape = (n_l, batch, kvh, max_len)
+    if kv_quant:
+        attn = {"k": torch.zeros(*shape, hd, dtype=torch.int8, device=device),
+                "v": torch.zeros(*shape, hd, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(*shape, 1, dtype=torch.float16,
+                                       device=device),
+                "v_scale": torch.zeros(*shape, 1, dtype=torch.float16,
+                                       device=device)}
+    else:
+        attn = {"k": torch.zeros(*shape, hd, dtype=dtype, device=device),
+                "v": torch.zeros(*shape, hd, dtype=dtype, device=device)}
+    return {"attn": attn}
+
+
+def layer_params(layers: Params, i: int) -> Params:
+    """Layer ``i``'s views of the stacked layer leaves."""
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    if isinstance(layers, QTensor):
+        return layers.layer(i)
+    return layers[i]
+
+
+def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False):
+    h, new_kv = attention_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm),
+                                rt, cfg, cache=cache, pos=pos,
+                                token_cache=token_cache)
+    x = x + h
+    m = mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), rt,
+                  cfg.activation)
+    return x + m, new_kv
+
+
+def _run_decoder(params, x, rt, cfg, *, cache, pos):
+    if cache is not None and x.shape[1] == 1 and rt.decode_token_cache:
+        return _run_decoder_token(params, x, rt, cfg, cache=cache, pos=pos)
+    for i in range(cfg.num_layers):
+        layer_cache = None if cache is None else {
+            k: v[i] for k, v in cache["attn"].items()}
+        x, _ = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
+                                  cfg, cache=layer_cache, pos=pos)
+    return x, cache
+
+
+def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
+    """Single-token decode: each layer attends its pre-write cache plus
+    the token's own K/V, then writes only that token's slice at ``pos``
+    (the O(1)-byte decode write)."""
+    b = x.shape[0]
+    pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    pos_vec = pos_vec.expand(b) if pos_vec.dim() == 0 else pos_vec
+    attn = cache["attn"]
+    tmax = attn["k"].shape[3]
+    # lax.dynamic_update_slice clamps the write index into range
+    at = torch.clamp(pos_vec, 0, tmax - 1)
+    rows = torch.arange(b, device=x.device)
+    for i in range(cfg.num_layers):
+        layer_cache = {k: v[i] for k, v in attn.items()}
+        x, tok = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
+                                    cfg, cache=layer_cache, pos=pos_vec,
+                                    token_cache=True)
+        for k, v in tok.items():  # (B, KV, 1, X) -> layer i, row b, pos_b
+            layer_cache[k][rows, :, at] = v[:, :, 0].to(layer_cache[k].dtype)
+    return x, cache
+
+
+def _embed(params, tokens):
+    table = params["embed"]
+    if isinstance(table, QTensor):
+        raise NotImplementedError(
+            "a quantized embedding table lands with the mixed-policy slice")
+    return table.to(torch.float32)[tokens.to(torch.int64)]
+
+
+def _head(params, x, rt, cfg):
+    x = norm_apply(params["ln_f"], x, cfg.norm)
+    w = params.get("lm_head")
+    if w is None:
+        w = params["embed"].T  # tied head: a plain f32 product
+    return dense(x, w, rt)
+
+
+def _tokens(tokens, params) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=params["embed"].device)
+
+
+def forward(params: Params, tokens, rt: Runtime, cfg, *,
+            cache: Optional[Params] = None, pos=0, last_only: bool = False,
+            last_idx=None):
+    """Full-sequence forward (prefill). Returns (logits (B, T, V), or
+    (B, 1, V) with ``last_only`` / ``last_idx``, and the cache). ``last_idx``
+    (B,) gathers each row's true last prompt position before the head, so
+    a padded-bucket prefill pays one head row per slot."""
+    tokens = _tokens(tokens, params)
+    x = _embed(params, tokens)
+    x, cache = _run_decoder(params, x, rt, cfg, cache=cache, pos=pos)
+    if last_only:
+        x = x[:, -1:]
+    elif last_idx is not None:
+        idx = torch.as_tensor(last_idx, dtype=torch.int64, device=x.device)
+        x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    return _head(params, x, rt, cfg), cache
+
+
+def decode_step(params: Params, tokens, cache: Params, pos, rt: Runtime,
+                cfg):
+    """One autoregressive step against the cache. ``pos`` (B,) or scalar:
+    per-row write index. Returns (logits (B, 1, V), cache)."""
+    tokens = _tokens(tokens, params)
+    x = _embed(params, tokens)
+    x, cache = _run_decoder(params, x, rt, cfg, cache=cache, pos=pos)
+    return _head(params, x, rt, cfg), cache
+
+
+def finite_rows(logits: torch.Tensor) -> torch.Tensor:
+    """Per-row numeric health: True where every logit in the row is
+    finite. Reduces (..., V) -> (...) bool on the device."""
+    return torch.isfinite(logits.to(torch.float32)).all(dim=-1)
+
+
+def sample_tokens(logits: torch.Tensor, key=None,
+                  temperature: float = 0.0) -> torch.Tensor:
+    """Greedy argmax over the last axis (first maximum on ties, as
+    ``jnp.argmax``). Sampled decoding lands with a later slice."""
+    if key is not None or temperature > 0:
+        raise NotImplementedError(
+            "temperature/top-k/top-p sampling lands with the sampled-"
+            "decoding slice (ROADMAP Queue 1 item 9); this slice is greedy")
+    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)

@@ -1,0 +1,52 @@
+"""The PyTorch port stands alone: it imports without JAX and imports
+nothing of the JAX package ``repro``; neither does ``chip_smoke.py``."""
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# `import repro`, `import repro.x`, `from repro import`, `from repro.x`;
+# `repro_torch` does not match
+REFERENCE_IMPORT = re.compile(r"^\s*(from|import)\s+repro(\.|\s|$)", re.M)
+
+
+def test_port_modules_and_chip_smoke_import_without_jax():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None  # any `import jax` now raises
+        sys.path[:0] = [{str(ROOT / "src")!r}, {str(ROOT)!r}]
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        loaded = [m for m in sys.modules
+                  if m == "repro" or m.startswith("repro.")]
+        assert not loaded, loaded
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # every module was imported
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_reference_package_import(path):
+    text = path.read_text()
+    assert not REFERENCE_IMPORT.search(text), path
+    assert not re.search(r"^\s*(from|import)\s+jax\b", text, re.M), path
+
+
+def test_reference_import_pattern():
+    assert REFERENCE_IMPORT.search("from repro.core import fwht")
+    assert REFERENCE_IMPORT.search("import repro.models.lm as lm")
+    assert REFERENCE_IMPORT.search("from repro import configs")
+    assert not REFERENCE_IMPORT.search("from repro_torch.core import fwht")
