@@ -3,28 +3,42 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
-    python3 chip_smoke.py --profile       # and phase 6: trace one serving run
+    python3 chip_smoke.py --profile       # also trace a short run of each path
 
 It drives the port (``src/repro_torch``) and nothing of the JAX package:
 
 1. Report the card: its name and power limit (``nvidia-smi``).
-2. Build the four kernels of the serving path from ``src/repro_torch/csrc``
-   with ``nvcc`` (one process per source, started together).
+2. Build the seven kernels from ``src/repro_torch/csrc`` with ``nvcc`` (one
+   process per source, all started together).
 3. Check each kernel against its plain PyTorch version on the card at the
-   full-width smollm-135m shapes of the serving path, and time the kernel,
-   the plain version and one PyTorch library call that computes the same
-   function (a yardstick only; the port never calls it).
-4. Serve smollm-135m at full width (seeded random weights, quantized by the
-   port to itq3_s, rotated-int8 KV cache, greedy) through ``ServeEngine``:
-   8 requests over 4 slots. Every launch counter is reset just before and
-   read just after the counted run, and each kernel must have launched
-   exactly as often as the path dictates (per layer: 7 projections, each
-   FWHT then matvec or matmul, and one attention).
+   full-width smollm-135m shapes of the serving paths, and time the
+   kernel, the plain version and one PyTorch library call that computes
+   the same function (a yardstick only; the port never calls it). The int8
+   kernels must equal their plain versions exactly with unit scales and
+   within 1e-5 of the largest output with real ones; ``quantize_blocks``
+   is held to the reference's own contract (``z`` equal, ``d`` within rtol
+   1e-3, codes equal on at least 0.999 of the elements: f16 ties only).
+4. The float path: serve smollm-135m at full width (seeded random weights,
+   quantized by the port to itq3_s, rotated-int8 KV cache, greedy) through
+   ``ServeEngine``: 8 requests over 4 slots. The launch counters are reset
+   just before and read just after the counted run, and each kernel must
+   have launched exactly as often as the path dictates (per layer: 7
+   projections, each FWHT then matvec or matmul, and one attention).
 5. Teacher-forced parity: prefill and 4 decode steps through the kernels
    against the same forward with the plain versions on the card, run apart
    (reported) and layer by layer on one cache state (held to 1e-3).
-6. With ``--profile`` only: one more serving run under ``torch.profiler``,
-   for the device's busy time and idle share.
+6. With ``--profile`` only: one shorter serving run (8 new tokens per
+   request) under ``torch.profiler``, for the device's busy time, idle
+   share and host operator calls (phase 7 traces its path the same way).
+7. The W3A8 deployable path: quantize the seeded model under the mixed
+   policy (tied table q8_0, MLP itq3_s_sub, the rest itq3_s through the
+   ``quantize_blocks`` kernel, counted), save it in the reference's
+   checkpoint layout, restore it with no template (planes checked equal),
+   and serve the same 8 requests with ``Runtime(act_quant=True,
+   kv_quant=True)``: every ternary projection through the int8 kernels,
+   with exact launch counts. Then phase 5's parity on this path, and the
+   greedy agreement with the plain-version run and with the float
+   (``act_quant=False``) run of the same checkpoint.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -37,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,24 +66,37 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
+from repro_torch.core.act_quant import act_decode, act_encode  # noqa: E402
 from repro_torch.core.fwht import hadamard_matrix  # noqa: E402
+from repro_torch.core.quantize import to_blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_q8 import attn_q8, attn_q8_ref  # noqa: E402
 from repro_torch.kernels.fwht import fwht, fwht_ref  # noqa: E402
 from repro_torch.kernels.itq3 import (  # noqa: E402
-    dequant_blocks, itq3_matmul, itq3_matmul_ref, itq3_matvec,
+    dequant_blocks, itq3_matmul, itq3_matmul_int8, itq3_matmul_int8_ref,
+    itq3_matmul_ref, itq3_matvec, itq3_matvec_int8,
+)
+from repro_torch.kernels.quantize import (  # noqa: E402
+    quantize_blocks, quantize_blocks_ref,
 )
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32 rate
-# outside the tensor cores. A kernel's bound is the larger of its bytes
-# (inputs read once, outputs written once) over the first and its
-# operations over the second.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
+# f32 rate outside the tensor cores and the int8 tensor-core rate. A
+# kernel's bound is the larger of its bytes (inputs read once, outputs
+# written once) over the first and its operations over the rate of their
+# type: int8 for the two int8 contractions, whatever instruction they use,
+# so a later redesign is judged on the same bound; f32 for the rest.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 # Kernel vs plain version: both f32, summed in a different order (warp
 # shuffles, tiles, online softmax against one matmul / plain softmax), so
 # they agree to a few ulps of the largest magnitude, well inside 1e-4.
 KERNEL_REL_TOL = 1e-4
+# The int8 kernels: exact integer partials, and d, the sums and xscale in
+# the plain version's order, so with real scales they agree to 1e-5 of the
+# largest output (and exactly with unit scales, checked apart).
+INT8_REL_TOL = 1e-5
 # End-to-end logits, the two paths forced layer by layer onto one cache
 # state (see two_paths): 30 layers compound the kernels' differences.
 LOGITS_REL_TOL = 1e-3
@@ -76,6 +104,10 @@ TIMED_RUNS = 20
 # The serving run: 8 requests over 4 slots, 64-token prompt buckets, a
 # 256-position cache, 32 new tokens each.
 SLOTS, MAX_LEN, PROMPT_PAD, MAX_NEW = 4, 256, 64, 32
+# The profiled run (--profile): the same 8 requests with 8 new tokens each,
+# two prefill waves and ~14 decode steps, so the trace stays small enough
+# for the profiler to walk within the usual call time.
+PROFILE_NEW = 8
 DETAILS = ROOT / "chiprun_out" / "chip_smoke_details.json"
 TABLE = ROOT / "chiprun_out" / "chip_smoke_profile.txt"
 
@@ -118,8 +150,9 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+def bound_ms(nbytes: float, flops: float,
+             peak_ops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / peak_ops
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -130,25 +163,27 @@ class Ledger:
         self.rows = []
 
     def add(self, kernel, shape, *, err, rel, ms, plain_ms, library_ms,
-            nbytes, flops):
-        b, by = bound_ms(nbytes, flops)
+            nbytes, flops, peak_ops=PEAK_F32_FLOPS, tol=KERNEL_REL_TOL):
+        b, by = bound_ms(nbytes, flops, peak_ops)
         row = dict(kernel=kernel, shape=shape, max_abs_err=err, max_rel_err=rel,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
         self.rows.append(row)
-        print(f"  {kernel:12s} {shape:34s} abs {err:.2e} rel {rel:.2e} | "
+        print(f"  {kernel:16s} {shape:34s} abs {err:.2e} rel {rel:.2e} | "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
               f"{library_ms:.4f} ms  bound {b:.4f} ms ({by})", flush=True)
-        if not rel <= KERNEL_REL_TOL:
+        if not rel <= tol:
             raise AssertionError(f"{kernel} {shape}: rel error {rel:.3e} > "
-                                 f"{KERNEL_REL_TOL}")
+                                 f"{tol}")
 
     def summary(self, kernel):
         """Sums over the kernel's main-path shapes (activations mode, so
-        no rotate=True rows): one call at each shape. The bound of the sum
-        is the sum of the per-call bounds, labelled by the larger part."""
+        no rotate=True rows, and none of the off-path itq3_x rows): one
+        call at each shape. The bound of the sum is the sum of the per-call
+        bounds, labelled by the larger part."""
         rows = [r for r in self.rows if r["kernel"] == kernel
-                and "rotate=True" not in r["shape"]]
+                and "rotate=True" not in r["shape"]
+                and "itq3_x" not in r["shape"]]
         tot = {k: sum(r[k] for r in rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
@@ -165,6 +200,19 @@ class Ledger:
 
 SMOLLM_PROJ = {"wq": (576, 576), "wk": (576, 192), "gate": (576, 1536),
                "down": (1536, 576)}
+
+
+def weight_bytes(qt) -> int:
+    """Bytes of a ternary leaf that a contraction must read: the 2-bit
+    payload plane, plane1 only under the five-level grid (the other formats
+    keep only the interleave parity bit there, which no decoder reads), the
+    scales, and the zero-points only without sub-blocks (sub-block formats
+    store z = 0)."""
+    d, meta = qt.data, qt.meta
+    return (d["plane2"].numel()
+            + (d["plane1"].numel() if meta.fivelevel else 0)
+            + 2 * d["scales"].numel()
+            + (0 if meta.sub_blocks else 2 * d["zps"].numel()))
 
 
 def check_fwht(led: Ledger, gen: torch.Generator, dev) -> None:
@@ -202,8 +250,7 @@ def check_itq3(led: Ledger, gen: torch.Generator, dev, weights) -> None:
                                            d["scales"], d["zps"],
                                            rotate_weights=rotate)
                 err, rel = rel_err(run(), plain())
-                nbytes = (m * kpad * 4 + n * kb * (64 + 32 + 2 + 2)
-                          + m * n * 4)
+                nbytes = m * kpad * 4 + weight_bytes(qt) + m * n * 4
                 flops = 2 * m * n * kpad + (n * kb * 256 * 9 if rotate else 0)
                 led.add(kernel, f"{name} M={m} rotate={rotate}", err=err,
                         rel=rel, ms=device_ms(run), plain_ms=device_ms(plain),
@@ -283,9 +330,115 @@ def quantize_smollm_projections(gen, dev):
     return out
 
 
+def int8_weights(gen, dev):
+    """The W3A8 main-path shapes under the mixed policy (wq, wk itq3_s;
+    gate, down itq3_s_sub) and one itq3_x shape."""
+    out = {}
+    for name, (k, n), fmt in (("wq", SMOLLM_PROJ["wq"], "itq3_s"),
+                              ("wk", SMOLLM_PROJ["wk"], "itq3_s"),
+                              ("gate", SMOLLM_PROJ["gate"], "itq3_s_sub"),
+                              ("down", SMOLLM_PROJ["down"], "itq3_s_sub"),
+                              ("wq", SMOLLM_PROJ["wq"], "itq3_x")):
+        w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+        out[f"{name} {fmt}"] = formats.quantize(w, fmt)
+    return out
+
+
+def check_itq3_int8(led: Ledger, gen: torch.Generator, dev, weights,
+                    report: dict) -> None:
+    """Each int8 kernel against its plain version: exactly with unit
+    scales (every output an integer below 2**24), to 1e-5 of the largest
+    output with real ones."""
+    unit_errs = {}
+    for name, qt in weights.items():
+        d, meta = qt.data, qt.meta
+        n, kb = d["plane2"].shape[:2]
+        kpad = kb * 256
+        kw = dict(fivelevel=meta.fivelevel, sub_blocks=meta.sub_blocks)
+        w = dequant_blocks(d["plane2"], d["plane1"], d["scales"], d["zps"],
+                           rotate_weights=False,
+                           **kw).reshape(n, kpad).T.contiguous()
+        for kernel, m, fn in (("itq3_matvec_int8", 4, itq3_matvec_int8),
+                              ("itq3_matmul_int8", 256, itq3_matmul_int8)):
+            x = torch.randn(m, kpad, generator=gen, device=dev)
+            xq, xs = act_encode(x)
+            ones = torch.ones_like(d["scales"])
+            unit = (fn(xq, torch.ones_like(xs), d["plane2"], d["plane1"],
+                       ones, d["zps"], **kw)
+                    - itq3_matmul_int8_ref(xq, torch.ones_like(xs),
+                                           d["plane2"], d["plane1"], ones,
+                                           d["zps"], **kw)).abs().max().item()
+            unit_errs[f"{kernel} {name} M={m}"] = unit
+            if unit != 0:
+                raise AssertionError(f"{kernel} {name} M={m}: unit-scale "
+                                     f"outputs differ by {unit}")
+
+            def run(fn=fn, xq=xq, xs=xs):
+                return fn(xq, xs, d["plane2"], d["plane1"], d["scales"],
+                          d["zps"], **kw)
+
+            def plain(xq=xq, xs=xs):
+                return itq3_matmul_int8_ref(xq, xs, d["plane2"], d["plane1"],
+                                            d["scales"], d["zps"], **kw)
+            err, rel = rel_err(run(), plain())
+            xdec = act_decode(xq, xs)
+            nbytes = m * kpad + m * 4 + weight_bytes(qt) + m * n * 4
+            led.add(kernel, f"{name} M={m}", err=err, rel=rel,
+                    ms=device_ms(run), plain_ms=device_ms(plain),
+                    library_ms=device_ms(lambda xdec=xdec: xdec @ w),
+                    nbytes=nbytes, flops=2 * m * n * kpad,
+                    peak_ops=PEAK_INT8_OPS, tol=INT8_REL_TOL)
+    report["int8_unit_scale_abs_err"] = unit_errs
+    print(f"  int8 kernels with unit scales: max abs error "
+          f"{max(unit_errs.values())} over {len(unit_errs)} shapes "
+          f"(exact)", flush=True)
+
+
+# rotation (8 butterfly stages + the normalization), the two statistics
+# (sum; deviation, square, sum), and the codes (divide, round, add z, two
+# clamps, +1): operations per element of quantize_blocks
+QUANT_OPS_PER_ELEM = 19
+
+
+def check_quantize(led: Ledger, gen: torch.Generator, dev,
+                   report: dict) -> None:
+    """quantize_blocks over every block of one stacked wq leaf (30 layers
+    of 576 x 576: 30 x 576 x 3 blocks), held to the reference's own
+    contract for its TPU kernel (tests/test_kernels.py): z equal, d within
+    rtol 1e-3, codes equal on at least 0.999 of the elements."""
+    k, n = SMOLLM_PROJ["wq"]
+    w = torch.randn(30, k, n, generator=gen, device=dev) / math.sqrt(k)
+    wb = to_blocks(w, 256).reshape(-1, 256).contiguous()
+    (ck, dk, zk), (cp, dp, zp) = quantize_blocks(wb), quantize_blocks_ref(wb)
+    agree = (ck == cp).float().mean().item()
+    d_err = (dk.float() - dp.float()).abs()
+    d_rel = (d_err / dp.float().abs().clamp_min(1e-30)).max().item()
+    z_err = (zk.float() - zp.float()).abs().max().item()
+    report["quantize_blocks_check"] = dict(
+        blocks=wb.shape[0], codes_agree=agree, d_max_rel=d_rel,
+        d_differ=int((dk != dp).sum().item()), z_max_abs=z_err)
+    print(f"  quantize_blocks over {wb.shape[0]} blocks: codes agree on "
+          f"{agree:.6f}, d max rel diff {d_rel:.2e} "
+          f"({report['quantize_blocks_check']['d_differ']} differ), z max "
+          f"abs diff {z_err}", flush=True)
+    if not (agree >= 0.999 and z_err == 0):
+        raise AssertionError(f"quantize_blocks: codes agree {agree}, z diff "
+                             f"{z_err}")
+    h = hadamard_matrix(256, device=dev)
+    nb = wb.shape[0]
+    led.add("quantize_blocks", f"wq x30 NB={nb}",
+            err=max(d_err.max().item(), z_err), rel=d_rel,
+            ms=device_ms(lambda: quantize_blocks(wb)),
+            plain_ms=device_ms(lambda: quantize_blocks_ref(wb)),
+            library_ms=device_ms(lambda: wb @ h),
+            nbytes=nb * (256 * 4 + 256 + 2 + 2),
+            flops=nb * 256 * QUANT_OPS_PER_ELEM, tol=1e-3)
+
+
 # --- phases 4 and 5: serve the full-width model ----------------------------
 
-def two_paths(params, cfg, tokens, caches, pos, last_idx, forced: bool):
+def two_paths(params, cfg, tokens, caches, pos, last_idx, forced: bool,
+              act_quant: bool = False):
     """One prefill (or decode step) through the kernel path and the plain
     path, each on its own cache; returns both logits.
 
@@ -301,8 +454,8 @@ def two_paths(params, cfg, tokens, caches, pos, last_idx, forced: bool):
     from repro_torch.models import lm
     from repro_torch.models.layers import Runtime
 
-    rts = [Runtime(kv_quant=True, backend=b, decode_token_cache=not forced)
-           for b in ("auto", "ref")]
+    rts = [Runtime(kv_quant=True, backend=b, decode_token_cache=not forced,
+                   act_quant=act_quant) for b in ("auto", "ref")]
     if not forced:
         step = lm.decode_step if tokens.shape[1] == 1 else None
         return [step(params, tokens, c, pos, rt, cfg)[0] if step else
@@ -325,12 +478,125 @@ def two_paths(params, cfg, tokens, caches, pos, last_idx, forced: bool):
     return [lm._head(params, h, rt, cfg) for h, rt in zip(outs, rts)]
 
 
+def make_prompts(cfg) -> list:
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=int(p)).astype(np.int32)
+            for p in rng.integers(8, 41, size=8)]
+
+
+def serve_run(params, cfg, prompts, dev, *, count: bool,
+              max_new: int = MAX_NEW, **rt_kw):
+    """One serving run of ``prompts`` (8 requests, 4 slots, ``max_new`` new
+    tokens each); with ``count`` the launch counters are reset just before
+    it and read just after."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                      prompt_pad=PROMPT_PAD,
+                      rt=Runtime(kv_quant=True, **rt_kw), device=dev)
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if count:
+        _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches) if count else None
+    return eng, reqs, wall, counts
+
+
+def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul):
+    """Hold a counted serving run to its contract: every request finishes
+    with ``length``, no quarantine, and each kernel launched exactly as the
+    path dictates: per layer, per decode step 7 FWHTs, 7 ``matvec`` and 1
+    attention; per prefill wave 7 FWHTs, 7 ``matmul`` and 1 attention;
+    nothing else. Returns the run's numbers."""
+    st = eng.stats()
+    bad = [r.rid for r in reqs if r.finish_reason != "length"
+           or len(r.out) != MAX_NEW]
+    if bad:
+        raise AssertionError(f"{label}: requests {bad} did not finish with "
+                             f"length")
+    if st["quarantined"]:
+        raise AssertionError(f"{label}: non-finite logits quarantined a slot")
+    proj = cfg.num_layers * 7  # wq wk wv wo gate up down
+    steps, waves = st["decode_steps"], st["prefill_waves"]
+    expected = {"fwht": proj * (steps + waves), matvec: proj * steps,
+                matmul: proj * waves,
+                "attn_q8": cfg.num_layers * (steps + waves)}
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts} != expected "
+                             f"{expected}")
+    out = dict(
+        wall_s=wall, launches=counts, stats=st,
+        decode_tok_s=st["tokens_decoded"] / st["decode_seconds"],
+        decode_ms_per_step=1e3 * st["decode_seconds"] / st["decode_steps"],
+        prefill_ms_per_wave=1e3 * st["prefill_seconds"] / st["prefill_waves"],
+        launches_per_decode_step={
+            k: v / st["decode_steps"] for k, v in counts.items()},
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    print(f"  served {len(reqs)} requests / {sum(len(r.out) for r in reqs)} "
+          f"tokens in {wall:.2f} s: decode {out['decode_tok_s']:.1f} tok/s "
+          f"({out['decode_ms_per_step']:.1f} ms/step over "
+          f"{st['decode_steps']} steps), prefill "
+          f"{out['prefill_ms_per_wave']:.1f} ms/wave over "
+          f"{st['prefill_waves']} waves, {st['syncs_per_token']:.3f} host "
+          f"syncs/token, peak memory {out['peak_mem_bytes'] / 2**20:.0f} MiB",
+          flush=True)
+    print(f"  launches while serving: {counts}", flush=True)
+    return out
+
+
+def parity_phase(params, cfg, prompts, dev, report: dict, key: str,
+                 act_quant: bool = False) -> None:
+    """Teacher-forced logits, kernel path against plain path, prefill then
+    4 decode steps, run apart (reported) and layer-forced (held)."""
+    from repro_torch.models import lm
+
+    n = SLOTS
+    toks = torch.as_tensor(np.stack([np.pad(p, (0, PROMPT_PAD - len(p)))
+                                     for p in prompts[:n]]), device=dev)
+    last = torch.as_tensor([len(p) - 1 for p in prompts[:n]], device=dev)
+    for forced in (False, True):
+        caches = [lm.init_cache(cfg, n, MAX_LEN, kv_quant=True, device=dev)
+                  for _ in range(2)]
+        logits = two_paths(params, cfg, toks, caches, 0, last, forced,
+                           act_quant)
+        errs = [rel_err(*logits)[1]]
+        pos = last + 1
+        for _ in range(4):
+            nxt = logits[1][:, 0].argmax(-1)[:, None]
+            logits = two_paths(params, cfg, nxt, caches, pos, None, forced,
+                               act_quant)
+            errs.append(rel_err(*logits)[1])
+            pos = pos + 1
+        code_diff = (caches[0]["attn"]["k"] != caches[1]["attn"]["k"]
+                     ).float().mean().item()
+        name = "layer_forced" if forced else "free_running"
+        report[f"{key}_{name}"] = dict(logits_rel=errs, k_code_diff=code_diff)
+        print(f"  {name}: logits rel error (max |diff| / max |logit|), "
+              f"prefill then 4 decode steps: "
+              f"{', '.join(f'{e:.2e}' for e in errs)}; K codes differing "
+              f"after the run: {code_diff:.2e}", flush=True)
+    if not max(errs) <= LOGITS_REL_TOL:
+        raise AssertionError(f"{key}: layer-forced logits rel error "
+                             f"{max(errs):.3e} > {LOGITS_REL_TOL}")
+
+
+def agreement(reqs, other) -> tuple[int, int]:
+    same = sum(a == b for r, p in zip(reqs, other)
+               for a, b in zip(r.out, p.out))
+    return same, sum(len(r.out) for r in reqs)
+
+
 def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
     """Phases 4 and 5 (and 6 with ``profile``) on ``cfg``; returns the
     counted run's launches."""
     from repro_torch.models import lm
-    from repro_torch.models.layers import Runtime
-    from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.quantized import quantize_params
 
     t0 = time.perf_counter()
@@ -341,136 +607,171 @@ def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
     print(f"phase 4: {cfg.name} ({cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}), seeded weights quantized "
           f"by the port to itq3_s in {report['quantize_s']:.1f} s", flush=True)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(p)).astype(np.int32)
-               for p in rng.integers(8, 41, size=8)]
+    prompts = make_prompts(cfg)
 
-    def serve(backend, count):
-        eng = ServeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
-                          prompt_pad=PROMPT_PAD,
-                          rt=Runtime(kv_quant=True, backend=backend),
-                          device=dev)
-        reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
-                for i, p in enumerate(prompts)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        if count:
-            _build.reset_launches()
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(_build.launches) if count else None
-        return eng, reqs, wall, counts
+    def serve(backend, count, max_new=MAX_NEW):
+        return serve_run(params, cfg, prompts, dev, count=count,
+                         max_new=max_new, backend=backend)
 
     serve("auto", count=False)  # warm-up: first-use allocations
     eng, reqs, wall, counts = serve("auto", count=True)
-    st = eng.stats()
-    bad = [r.rid for r in reqs if r.finish_reason != "length"
-           or len(r.out) != MAX_NEW]
-    if bad:
-        raise AssertionError(f"requests {bad} did not finish with length")
-    if st["quarantined"]:
-        raise AssertionError("non-finite logits quarantined a slot")
-    missing = [k for k in _build.SOURCES if not counts.get(k)]
-    if missing:
-        raise AssertionError(f"kernels never launched while serving: {missing}")
-    # every projection of every layer: FWHT then matvec (decode, M = slots)
-    # or matmul (prefill, M = slots x bucket); one attention per layer
-    proj = cfg.num_layers * 7  # wq wk wv wo gate up down
-    steps, waves = st["decode_steps"], st["prefill_waves"]
-    expected = {"fwht": proj * (steps + waves), "itq3_matvec": proj * steps,
-                "itq3_matmul": proj * waves,
-                "attn_q8": cfg.num_layers * (steps + waves)}
-    if _build.SOURCES and counts != expected:
-        raise AssertionError(f"launches {counts} != expected {expected}")
-    report["serve"] = dict(
-        wall_s=wall, launches=counts, stats=st,
-        decode_tok_s=st["tokens_decoded"] / st["decode_seconds"],
-        decode_ms_per_step=1e3 * st["decode_seconds"] / st["decode_steps"],
-        prefill_ms_per_wave=1e3 * st["prefill_seconds"] / st["prefill_waves"],
-        launches_per_decode_step={
-            k: v / st["decode_steps"] for k, v in counts.items()},
-        peak_mem_bytes=torch.cuda.max_memory_allocated())
-    s = report["serve"]
-    print(f"  served {len(reqs)} requests / {sum(len(r.out) for r in reqs)} "
-          f"tokens in {wall:.2f} s: decode {s['decode_tok_s']:.1f} tok/s "
-          f"({s['decode_ms_per_step']:.1f} ms/step over "
-          f"{st['decode_steps']} steps), prefill "
-          f"{s['prefill_ms_per_wave']:.1f} ms/wave over "
-          f"{st['prefill_waves']} waves, {st['syncs_per_token']:.3f} host "
-          f"syncs/token, peak memory {s['peak_mem_bytes'] / 2**20:.0f} MiB",
-          flush=True)
-    print(f"  launches while serving: {counts}", flush=True)
+    report["serve"] = check_serving("float path", eng, reqs, wall, counts,
+                                    cfg, matvec="itq3_matvec",
+                                    matmul="itq3_matmul")
 
     # phase 5: the same forward through the kernels and through the plain
     # versions, teacher-forced with the plain path's tokens
     print("phase 5: teacher-forced parity, kernels vs plain versions",
           flush=True)
-    n = SLOTS
-    toks = torch.as_tensor(np.stack([np.pad(p, (0, PROMPT_PAD - len(p)))
-                                     for p in prompts[:n]]), device=dev)
-    last = torch.as_tensor([len(p) - 1 for p in prompts[:n]], device=dev)
-    for forced in (False, True):
-        caches = [lm.init_cache(cfg, n, MAX_LEN, kv_quant=True, device=dev)
-                  for _ in range(2)]
-        logits = two_paths(params, cfg, toks, caches, 0, last, forced)
-        errs = [rel_err(*logits)[1]]
-        pos = last + 1
-        for _ in range(4):
-            nxt = logits[1][:, 0].argmax(-1)[:, None]
-            logits = two_paths(params, cfg, nxt, caches, pos, None, forced)
-            errs.append(rel_err(*logits)[1])
-            pos = pos + 1
-        code_diff = (caches[0]["attn"]["k"] != caches[1]["attn"]["k"]
-                     ).float().mean().item()
-        key = "layer_forced" if forced else "free_running"
-        report[f"parity_{key}"] = dict(logits_rel=errs, k_code_diff=code_diff)
-        print(f"  {key}: logits rel error (max |diff| / max |logit|), "
-              f"prefill then 4 decode steps: "
-              f"{', '.join(f'{e:.2e}' for e in errs)}; K codes differing "
-              f"after the run: {code_diff:.2e}", flush=True)
-    if not max(errs) <= LOGITS_REL_TOL:
-        raise AssertionError(f"layer-forced logits rel error {max(errs):.3e}"
-                             f" > {LOGITS_REL_TOL}")
+    parity_phase(params, cfg, prompts, dev, report, "parity")
     _, plain_reqs, plain_wall, _ = serve("ref", count=False)
-    same = sum(a == b for r, p in zip(reqs, plain_reqs)
-               for a, b in zip(r.out, p.out))
-    total = sum(len(r.out) for r in reqs)
+    same, total = agreement(reqs, plain_reqs)
     report["greedy_agreement"] = same / total
     report["plain_serve_wall_s"] = plain_wall
     print(f"  free-running greedy streams: {same}/{total} tokens agree with "
           f"the plain-version run ({plain_wall:.2f} s)", flush=True)
     if profile:
-        profile_phase(serve, report)
+        print("phase 6: the float path under torch.profiler", flush=True)
+        profile_phase(lambda: serve("auto", count=False,
+                                    max_new=PROFILE_NEW), report)
     return counts
 
 
-def profile_phase(serve, report: dict) -> None:
-    """Phase 6 (``--profile``): one more kernel-path serving run under
-    ``torch.profiler``; the device's busy time is the sum of the self
+def tree_bytes_equal(a, b) -> bool:
+    """Every leaf of ``a`` equal to ``b``'s bit for bit (QTensor data and
+    metas included)."""
+    from repro_torch.core.quantize import QTensor
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_bytes_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, QTensor):
+        return (isinstance(b, QTensor) and a.meta == b.meta
+                and tree_bytes_equal(a.data, b.data))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def w3a8_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
+    """Phase 7: quantize under the mixed policy, save, restore with no
+    template, serve on the W3A8 path. Returns the launches of the counted
+    quantize and serving runs."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import mixed_precision_recipe
+    from repro_torch.models import lm
+    from repro_torch.serve.quantized import (
+        QuantPolicy, describe_quantized, quantize_params, quantized_bytes,
+    )
+
+    policy = QuantPolicy.from_dict(mixed_precision_recipe(cfg))
+    fp = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    params = quantize_params(fp, policy)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quant_counts = dict(_build.launches)
+    fmts = describe_quantized(params)
+    n_itq3 = sum(f == "itq3_s" for f in fmts.values())
+    print(f"phase 7: {cfg.name} quantized under the mixed policy in "
+          f"{quant_s:.2f} s: {sorted(set(fmts.values()))}; launches "
+          f"{quant_counts}", flush=True)
+    if fmts.get("embed") != "q8_0" or quant_counts != {
+            "quantize_blocks": n_itq3} or n_itq3 != 4:
+        raise AssertionError(f"mixed policy: formats {fmts}, launches "
+                             f"{quant_counts}")
+    del fp
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        path = Path(ckpt.save(str(ckpt_dir), 0, params))
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        restored, step = ckpt.restore_params(str(ckpt_dir), device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if step != 0 or not tree_bytes_equal(params, restored):
+        raise AssertionError("restored checkpoint differs from the saved tree")
+    print(f"  saved {ckpt_bytes} bytes in {save_s:.2f} s, restored with no "
+          f"template in {restore_s:.2f} s: every plane, scale and meta equal "
+          f"({quantized_bytes(restored)} bytes resident)", flush=True)
+    del params
+    prompts = make_prompts(cfg)
+
+    def serve(count, **kw):
+        return serve_run(restored, cfg, prompts, dev, count=count, **kw)
+
+    serve(False, act_quant=True)  # warm-up
+    eng, reqs, wall, counts = serve(True, act_quant=True)
+    out = check_serving("W3A8 path", eng, reqs, wall, counts, cfg,
+                        matvec="itq3_matvec_int8", matmul="itq3_matmul_int8")
+    if not eng.stats()["act_quant"]:
+        raise AssertionError("the engine did not report act_quant")
+    out.update(quantize_s=quant_s, quantize_launches=quant_counts,
+               formats=fmts, checkpoint_bytes=ckpt_bytes, save_s=save_s,
+               restore_s=restore_s)
+    parity_phase(restored, cfg, prompts, dev, report, "w3a8_parity",
+                 act_quant=True)
+    _, plain_reqs, plain_wall, _ = serve(False, act_quant=True, backend="ref")
+    _, float_reqs, float_wall, _ = serve(False, act_quant=False)
+    out["greedy_agreement_plain"] = agreement(reqs, plain_reqs)
+    out["greedy_agreement_float"] = agreement(reqs, float_reqs)
+    out["plain_serve_wall_s"], out["float_serve_wall_s"] = plain_wall, \
+        float_wall
+    print(f"  greedy streams: {'/'.join(map(str, out['greedy_agreement_plain']))}"
+          f" tokens agree with the plain-version W3A8 run ({plain_wall:.2f} "
+          f"s), {'/'.join(map(str, out['greedy_agreement_float']))} with the "
+          f"float (act_quant=False) run of the same checkpoint "
+          f"({float_wall:.2f} s); checkpoint {ckpt_bytes / 1e6:.1f} MB",
+          flush=True)
+    report["w3a8"] = out
+    if profile:
+        profile_phase(lambda: serve(False, act_quant=True,
+                                    max_new=PROFILE_NEW), report,
+                      "w3a8_profile", TABLE.with_name(
+                          "chip_smoke_profile_w3a8.txt"))
+    return {**counts, **quant_counts}
+
+
+def profile_phase(run, report: dict, key: str = "profile",
+                  table: Path = TABLE) -> None:
+    """With ``--profile``: one shorter kernel-path serving run (``run()``,
+    ``PROFILE_NEW`` new tokens per request) under ``torch.profiler``; the device's busy time is the sum of the self
     device time of every kernel and copy on the card (one stream, so they
-    never overlap). Tracing slows the host, so the idle share read here is an
-    upper bound on the unprofiled run's."""
+    never overlap). Tracing slows the host, so the idle share read here is
+    an upper bound on the unprofiled run's. Also counts the PyTorch
+    operator calls the host issued (nested calls included), per layer and
+    forward pass."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng, _, wall, _ = serve("auto", count=False)
+        eng, _, wall, _ = run()
     events = prof.key_averages()
     # device-side rows only: the operator rows repeat their kernels' time
     busy_s = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA) / 1e6
-    report["profile"] = dict(wall_s=wall, device_busy_s=busy_s,
-                             idle_share=1 - busy_s / wall,
-                             decode_steps=eng.stats()["decode_steps"])
-    TABLE.parent.mkdir(parents=True, exist_ok=True)
-    TABLE.write_text(events.table(sort_by="self_device_time_total",
+    st = eng.stats()
+    passes = (st["decode_steps"] + st["prefill_waves"]) * eng.cfg.num_layers
+    ops = sum(e.count for e in events if e.device_type == DeviceType.CPU
+              and e.key.startswith("aten::"))
+    report[key] = dict(wall_s=wall, device_busy_s=busy_s,
+                       idle_share=1 - busy_s / wall,
+                       decode_steps=st["decode_steps"],
+                       aten_calls_per_layer_pass=ops / passes)
+    table.parent.mkdir(parents=True, exist_ok=True)
+    table.write_text(events.table(sort_by="self_device_time_total",
                                   row_limit=40))
-    print(f"phase 6: profiled serving run: device busy {busy_s:.3f} s of "
+    print(f"  profiled serving run: device busy {busy_s:.3f} s of "
           f"{wall:.3f} s wall (idle share {1 - busy_s / wall:.3f}); "
-          f"kernel table in {TABLE.relative_to(ROOT)}", flush=True)
+          f"{ops / passes:.0f} aten calls per layer and forward pass; "
+          f"kernel table in {table.relative_to(ROOT)}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -478,7 +779,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building and checking the kernels")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one serving run with torch.profiler")
+                    help="also trace one short serving run of each path "
+                         "with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -513,18 +815,29 @@ def main(argv=None) -> int:
     check_fwht(led, gen, dev)
     check_itq3(led, gen, dev, quantize_smollm_projections(gen, dev))
     check_attn(led, gen, dev)
+    check_itq3_int8(led, gen, dev, int8_weights(gen, dev), report)
+    check_quantize(led, gen, dev, report)
     report["kernel_rows"] = led.rows
 
+    # each kernel's launches from the counted run of its own path: the
+    # float path (phase 4) for the first four, the W3A8 path (phase 7:
+    # quantize, then serve) for the other three
     counts = {}
     if not args.kernels_only:
-        counts = serve_phase(dev, report, get_config("smollm-135m"),
-                             profile=args.profile)
+        cfg = get_config("smollm-135m")
+        counts = serve_phase(dev, report, cfg, profile=args.profile)
+        w3a8 = w3a8_phase(dev, report, cfg, profile=args.profile)
+        counts.update({k: w3a8[k] for k in (
+            "itq3_matvec_int8", "itq3_matmul_int8", "quantize_blocks")})
 
     replaces = {
         "fwht": "src/repro/kernels/fwht_kernel.py:39",
         "itq3_matvec": "src/repro/kernels/itq3_matvec.py:82",
         "itq3_matmul": "src/repro/kernels/itq3_matmul.py:339",
         "attn_q8": "src/repro/kernels/attn_decode.py:230",
+        "itq3_matvec_int8": "src/repro/kernels/itq3_matvec.py:183",
+        "itq3_matmul_int8": "src/repro/kernels/itq3_matmul.py:436",
+        "quantize_blocks": "src/repro/kernels/quantize_kernel.py:51",
     }
     kernels = []
     for name in _build.SOURCES:

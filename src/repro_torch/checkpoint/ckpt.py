@@ -1,0 +1,159 @@
+"""Checkpoints in the reference's on-disk layout (port of
+``repro/checkpoint/ckpt.py``: save, template-free restore).
+
+Layout per checkpoint, byte for byte the reference's:
+
+    <dir>/step_00000123/
+        meta.json          step, leaf paths, shapes, dtypes, QTensor metas
+        <leafpath>.npy     one file per leaf, path keys joined by "__"
+        <leafpath>__Q__<key>.npy   one file per packed array of a QTensor
+        _COMMITTED         marker written last
+
+A save writes into ``step_N.tmp`` and renames it only after every leaf and
+the marker are written, so a crashed save is never taken for a checkpoint
+(restore reads only directories holding ``_COMMITTED``). Leaves are walked
+in sorted key order, as JAX flattens a dict, and a QTensor's arrays in
+sorted key order, so a tree saved here and the same tree saved by the
+reference give the same files; either side restores the other's. A
+QTensor's :class:`~repro_torch.core.quantize.QMeta` travels in
+``meta.json``, so :func:`restore_tree` rebuilds a servable quantized tree
+from a bare directory with no template: quantize -> save -> serve never
+runs Algorithm 1 twice.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.quantize import QMeta, QTensor
+
+__all__ = ["save", "latest_step", "restore_tree", "restore_params"]
+
+_SEP = "__"
+_QMARK = _SEP + "Q" + _SEP  # <leafpath>__Q__<datakey>.npy
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        raise TypeError("bf16 leaves have no numpy dtype here; save them as "
+                        "f32 or fp16")
+    return t.detach().cpu().numpy()
+
+
+def _flatten(tree, prefix: str = "", flat=None, qmetas=None):
+    """Path-flatten ``tree`` in sorted key order; QTensor leaves expand to
+    their packed arrays plus a JSON-able meta record."""
+    flat = {} if flat is None else flat
+    qmetas = {} if qmetas is None else qmetas
+    if isinstance(tree, QTensor):
+        keys = sorted(tree.data)
+        qmetas[prefix] = {"meta": tree.meta.to_dict(), "keys": keys}
+        for dkey in keys:
+            flat[prefix + _QMARK + dkey] = _to_numpy(tree.data[dkey])
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k),
+                     flat, qmetas)
+    else:
+        flat[prefix] = _to_numpy(torch.as_tensor(tree))
+    return flat, qmetas
+
+
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
+    """Write ``tree`` (nested dicts of tensors and QTensors) as checkpoint
+    ``step``; keeps the ``keep`` newest committed steps. Returns its path."""
+    flat, qmetas = _flatten(tree)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    meta: dict[str, Any] = {"step": step, "leaves": {}, "qtensors": qmetas}
+    for key, arr in flat.items():
+        np.save(os.path.join(tmp, key + ".npy"), arr)
+        meta["leaves"][key] = {"shape": list(arr.shape),
+                               "dtype": str(arr.dtype)}
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(tmp, "_COMMITTED"), "w") as f:
+        f.write("ok")
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    _gc(ckpt_dir, keep)
+    return final
+
+
+def _gc(ckpt_dir: str, keep: int) -> None:
+    for s in sorted(_committed_steps(ckpt_dir))[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def _committed_steps(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return [int(name[5:]) for name in os.listdir(ckpt_dir)
+            if name.startswith("step_") and not name.endswith(".tmp")
+            and os.path.exists(os.path.join(ckpt_dir, name, "_COMMITTED"))]
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    steps = _committed_steps(ckpt_dir)
+    return max(steps) if steps else None
+
+
+def _step_dir(ckpt_dir: str, step: Optional[int]) -> tuple[str, int]:
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+    return os.path.join(ckpt_dir, f"step_{step:08d}"), step
+
+
+def restore_tree(ckpt_dir: str, *, step: Optional[int] = None,
+                 device="cuda") -> tuple[dict, int]:
+    """Template-free restore: rebuild the nested-dict tree from
+    ``meta.json``, QTensor leaves from their packed arrays and stored
+    QMeta, every array on ``device``. Returns ``(tree, step)``."""
+    d, step = _step_dir(ckpt_dir, step)
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    qmetas = meta.get("qtensors", {})
+
+    def load(key: str) -> torch.Tensor:
+        arr = np.load(os.path.join(d, key + ".npy"))
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    tree: dict[str, Any] = {}
+
+    def insert(key: str, value) -> None:
+        parts = key.split(_SEP)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+
+    for key, rec in qmetas.items():
+        insert(key, QTensor({k: load(key + _QMARK + k) for k in rec["keys"]},
+                            QMeta.from_dict(rec["meta"])))
+    owned = {k + _QMARK + dk for k, rec in qmetas.items()
+             for dk in rec["keys"]}
+    for key in meta["leaves"]:
+        if key not in owned:
+            insert(key, load(key))
+    return tree, step
+
+
+def restore_params(ckpt_dir: str, *, step: Optional[int] = None,
+                   device="cuda") -> tuple[dict, int]:
+    """Template-free restore of a servable params tree: a bare params
+    checkpoint as it is, a train-state checkpoint unwrapped to its
+    ``params`` member. The serve launcher's way to boot from disk."""
+    tree, step = restore_tree(ckpt_dir, step=step, device=device)
+    if "params" in tree:
+        tree = tree["params"]
+    return tree, step

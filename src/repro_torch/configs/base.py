@@ -12,7 +12,7 @@ import importlib
 from typing import Optional
 
 __all__ = ["ModelConfig", "get_config", "reduced", "ARCH_IDS",
-           "kv_cache_bytes_per_token"]
+           "kv_cache_bytes_per_token", "mixed_precision_recipe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +52,28 @@ def get_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
+
+
+def mixed_precision_recipe(cfg: ModelConfig, *, head_fmt: str = "q8_0",
+                           mlp_fmt: str = "itq3_s_sub",
+                           rest_fmt: str = "itq3_s") -> dict:
+    """Default mixed-precision serving recipe for ``cfg``, as a
+    :class:`~repro_torch.serve.quantized.QuantPolicy` dict (JSON-safe):
+
+      * the LM head at 8-bit; tied-embedding models project through
+        ``embed.T``, so the head rule targets the table there instead,
+      * MLP projections at the sub-block-scale ternary variant,
+      * every other matmul projection at plain ITQ3_S,
+      * norms and biases fp via the policy's no-match default.
+    """
+    from repro_torch.serve.quantized import MATMUL_LEAVES  # leaf vocabulary
+
+    head_pattern = r"(^|\.)embed$" if cfg.tie_embeddings else r"(^|\.)lm_head$"
+    return {"rules": [
+        {"pattern": head_pattern, "fmt": head_fmt},
+        {"pattern": r"(^|\.)(gate|up|down)$", "fmt": mlp_fmt},
+        {"pattern": MATMUL_LEAVES, "fmt": rest_fmt},
+    ]}
 
 
 def kv_cache_bytes_per_token(cfg: ModelConfig, *, kv_quant: bool = False,

@@ -9,20 +9,33 @@ weight tiles inside the contraction kernel), ``activations`` (rotate each
 activation block once with the FWHT kernel, then contract without a weight
 rotation; the serving default), ``auto`` (rotate the smaller operand).
 
-**backend** — ``ref`` runs the plain ``TernaryFormat.contract``; ``cuda``
-runs the kernel path and requires CUDA tensors; ``auto`` runs the kernel
-path, whose wrappers launch the Hopper kernels on CUDA tensors and run
-their plain versions on CPU tensors. The kernel path dispatches by shape:
-M <= 16 rows go to the matvec kernel, larger M to the tiled kernel.
+**backend** — ``ref`` runs the plain ``Format.contract``; ``cuda`` runs the
+kernel path and requires CUDA tensors; ``auto`` runs the kernel path,
+whose wrappers launch the Hopper kernels on CUDA tensors and run their
+plain versions on CPU tensors. The kernel path dispatches by shape: M <= 16
+rows go to the matvec kernel, larger M to the tiled kernel. Formats
+without packed ternary planes (fp16, bf16, q8_0, q4_0) always take the
+plain ``dequant`` contraction, so mixed-precision trees serve through this
+one entry point.
+
+**act_quant** — the W3A8 integer path: rotate the activations with the
+FWHT kernel, quantize them to int8 per row (``core/act_quant.py``) and
+contract against the int8 ``wint`` in the int8 kernels. It is honoured only
+for the ternary family, when the weight's ``QMeta.act_quant`` allows it and
+never for ``mode="dequant"``; ``ref`` then runs ``contract_int8``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import formats as fmt_mod
+from repro_torch.core.act_quant import act_encode
 from repro_torch.core.quantize import QTensor, pad_last_dim
 from repro_torch.kernels.fwht import fwht as fwht_kernel
-from repro_torch.kernels.itq3 import MATVEC_MAX_M, itq3_matmul, itq3_matvec
+from repro_torch.kernels.itq3 import (
+    MATVEC_MAX_M, itq3_matmul, itq3_matmul_int8, itq3_matvec,
+    itq3_matvec_int8,
+)
 
 __all__ = ["qmatmul", "qmatmul_kernel", "resolve_mode", "QLINEAR_MODES",
            "QMATMUL_BACKENDS"]
@@ -42,7 +55,7 @@ def resolve_mode(x: torch.Tensor, m, mode: str) -> str:
 
 
 def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
-            backend: str = "auto") -> torch.Tensor:
+            backend: str = "auto", act_quant: bool = False) -> torch.Tensor:
     """``x (..., K) @ W_hat (K, N) -> (..., N)`` in f32."""
     m = qt.meta
     if len(m.shape) != 2:
@@ -51,24 +64,42 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
         raise ValueError(f"mode {mode!r} not in {QLINEAR_MODES}")
     if backend not in QMATMUL_BACKENDS:
         raise ValueError(f"backend {backend!r} not in {QMATMUL_BACKENDS}")
-    spec = fmt_mod.get_format(m.fmt)
-    mode = resolve_mode(x, m, mode)
     if backend == "cuda" and not x.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors")
+    spec = fmt_mod.get_format(m.fmt)
+    mode = resolve_mode(x, m, mode) if spec.supports_fused else "dequant"
+    act = act_quant and spec.supports_fused and m.act_quant \
+        and mode != "dequant"
     if backend == "ref" or mode == "dequant":
+        if act:
+            return spec.contract_int8(x, qt)
         return spec.contract(x, qt, mode=mode)
-    return qmatmul_kernel(x, qt, mode=mode)
+    return qmatmul_kernel(x, qt, mode=mode, act_quant=act)
 
 
 def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
-                   mode: str = "activations") -> torch.Tensor:
-    """Kernel-path ``x @ W_hat``: pad K to whole blocks, rotate (activations
-    mode) or pre-scale by the sign diagonal (weights mode), then the
-    matvec (M <= 16) or tiled kernel."""
+                   mode: str = "activations",
+                   act_quant: bool = False) -> torch.Tensor:
+    """Kernel-path ``x @ W_hat``: pad K to whole blocks, then
+
+    * ``act_quant``: rotate with the FWHT kernel and int8-encode the rows,
+      then the int8 matvec (M <= 16) or tiled kernel;
+    * otherwise rotate (activations mode) or pre-scale by the sign diagonal
+      (weights mode), then the float matvec or tiled kernel."""
     m = qt.meta
     lead = x.shape[:-1]
     xp = pad_last_dim(x.reshape(-1, x.shape[-1]).to(torch.float32), m.block)
     dsign = qt.data.get("dsign")
+    d = qt.data
+    if act_quant:
+        xq, xs = act_encode(xp, block=m.block, rotate=m.rotate, dsign=dsign,
+                            fwht_fn=lambda a, b: fwht_kernel(a.contiguous(),
+                                                             b))
+        fn = itq3_matvec_int8 if xq.shape[0] <= MATVEC_MAX_M \
+            else itq3_matmul_int8
+        out = fn(xq, xs, d["plane2"], d["plane1"], d["scales"], d["zps"],
+                 fivelevel=m.fivelevel, sub_blocks=m.sub_blocks)
+        return out.reshape(*lead, m.n)
     rotate_weights = False
     if m.rotate:
         if dsign is not None:
@@ -83,7 +114,7 @@ def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
             raise ValueError(f"unknown kernel mode {mode!r}")
     xp = xp.contiguous()
     fn = itq3_matvec if xp.shape[0] <= MATVEC_MAX_M else itq3_matmul
-    out = fn(xp, qt.data["plane2"], qt.data["plane1"], qt.data["scales"],
-             qt.data["zps"], rotate_weights=rotate_weights,
-             fivelevel=m.fivelevel, sub_blocks=m.sub_blocks)
+    out = fn(xp, d["plane2"], d["plane1"], d["scales"], d["zps"],
+             rotate_weights=rotate_weights, fivelevel=m.fivelevel,
+             sub_blocks=m.sub_blocks)
     return out.reshape(*lead, m.n)

@@ -28,7 +28,8 @@ from repro_torch.core.fwht import fwht
 __all__ = [
     "QMeta", "QTensor", "quantize_blocks_ternary", "dequantize_blocks_ternary",
     "pad_reduction_dim", "pad_last_dim", "to_blocks", "from_blocks",
-    "decode_values", "decode_wint", "DEFAULT_BLOCK",
+    "decode_values", "decode_wint", "ternary_levels", "pack_ternary_codes",
+    "DEFAULT_BLOCK",
 ]
 
 DEFAULT_BLOCK = 256
@@ -47,7 +48,7 @@ class QMeta:
     sub_blocks: int = 0  # 0 = single block scale; 8 = sub-block variant
     fivelevel: bool = False
     bits_per_weight: float = 3.125
-    act_quant: bool = True  # W3A8 eligibility (read by a later slice)
+    act_quant: bool = True  # W3A8 eligibility (QuantRule can opt out)
 
     @property
     def k(self) -> int:
@@ -102,6 +103,10 @@ class QTensor:
     @property
     def shape(self) -> tuple[int, ...]:
         return self.meta.shape
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.data.values())).device
 
     def nbytes(self) -> int:
         return sum(v.numel() * v.element_size() for v in self.data.values())
@@ -161,28 +166,13 @@ def _to_f16_f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float16).to(torch.float32)
 
 
-def quantize_blocks_ternary(
-    wb: torch.Tensor,
-    *,
-    rotate: bool = True,
-    rule: str = "paper",
-    sub_blocks: int = 0,
-    fivelevel: bool = False,
-    dsign: torch.Tensor | None = None,
-) -> dict[str, torch.Tensor]:
-    """Quantize blocks ``wb`` (..., block) -> packed planes + scales + zps.
-
-    Algorithm 1 for the defaults; ``rotate=False`` is the IQ3_S baseline,
-    ``sub_blocks=8`` the sub-block-scale variant, ``fivelevel=True`` the
-    five-level escape grid."""
-    wb = wb.to(torch.float32)
-    if rotate:
-        if dsign is not None:
-            wb = wb * dsign.to(wb.dtype)
-        wb = fwht(wb)
+def ternary_levels(wb: torch.Tensor, *, alpha: float, sub_blocks: int = 0,
+                   fivelevel: bool = False):
+    """Algorithm 1's statistics and codes on already rotated f32 blocks
+    ``wb (..., block)``: returns the grid values ``q`` (f32, in {-1, 0, 1},
+    or {-2..2} with ``fivelevel``), the scales (f32 rounded through f16;
+    ``(..., sub_blocks)`` for the sub-block variant) and the zero-points."""
     block = wb.shape[-1]
-    alpha = grids.fivelevel_alpha() if fivelevel else grids.SCALE_RULES[rule]
-
     if sub_blocks:
         sub = wb.reshape(*wb.shape[:-1], sub_blocks, block // sub_blocks)
         d_sub = _to_f16_f32(alpha * _std(sub))  # (..., sub)
@@ -203,22 +193,50 @@ def quantize_blocks_ternary(
 
     safe_d = torch.where(d_for_codes > 0, d_for_codes,
                          torch.ones_like(d_for_codes))
+    qmax = 2.0 if fivelevel else 1.0
+    q = torch.clamp(torch.round(wb / safe_d) + z_for_codes, -qmax, qmax)
+    return q, scales, zp
+
+
+def pack_ternary_codes(codes: torch.Tensor):
+    """Three-level codes ``(..., block)`` uint8 in {0, 1, 2} -> ``(plane2,
+    plane1)``. The selector plane carries the interleave parity bit (paper
+    Eq. 9's high nibble bit): informational, NOT zero — a decoder must not
+    read it as a five-level escape."""
+    parity = (torch.arange(codes.shape[-1], device=codes.device) & 1
+              ).to(torch.uint8)
+    return packing.pack_codes(codes | (parity << 2))
+
+
+def quantize_blocks_ternary(
+    wb: torch.Tensor,
+    *,
+    rotate: bool = True,
+    rule: str = "paper",
+    sub_blocks: int = 0,
+    fivelevel: bool = False,
+    dsign: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """Quantize blocks ``wb`` (..., block) -> packed planes + scales + zps.
+
+    Algorithm 1 for the defaults; ``rotate=False`` is the IQ3_S baseline,
+    ``sub_blocks=8`` the sub-block-scale variant, ``fivelevel=True`` the
+    five-level escape grid."""
+    wb = wb.to(torch.float32)
+    if rotate:
+        if dsign is not None:
+            wb = wb * dsign.to(wb.dtype)
+        wb = fwht(wb)
+    alpha = grids.fivelevel_alpha() if fivelevel else grids.SCALE_RULES[rule]
+    q, scales, zp = ternary_levels(wb, alpha=alpha, sub_blocks=sub_blocks,
+                                   fivelevel=fivelevel)
     if fivelevel:
-        q = torch.clamp(torch.round(wb / safe_d) + z_for_codes, -2, 2)
         q = q.to(torch.int8)
         payload = (torch.clamp(q, -1, 1) + 1).to(torch.uint8)
         sel = (q.abs() == 2).to(torch.uint8)
-        codes3 = payload | (sel << 2)
+        plane2, plane1 = packing.pack_codes(payload | (sel << 2))
     else:
-        q = torch.clamp(torch.round(wb / safe_d) + z_for_codes, -1, 1)
-        # payload {0,1,2}; the selector plane carries the interleave parity
-        # bit (paper Eq. 9's high nibble bit): informational, NOT zero —
-        # a decoder must not read it as a five-level escape
-        payload = (q + 1).to(torch.uint8)
-        parity = (torch.arange(block, device=wb.device) & 1).to(torch.uint8)
-        codes3 = payload | (parity << 2)
-
-    plane2, plane1 = packing.pack_codes(codes3)
+        plane2, plane1 = pack_ternary_codes((q + 1).to(torch.uint8))
     out = {"plane2": plane2, "plane1": plane1,
            "scales": scales.to(torch.float16), "zps": zp.to(torch.float16)}
     if dsign is not None:

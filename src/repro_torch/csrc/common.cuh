@@ -1,6 +1,8 @@
 // Shared device helpers for the ITQ3_S kernels: warp reductions, the
-// planar 3-bit decode of one 256-element block, and the 256-point
-// Walsh-Hadamard butterfly on a warp's registers.
+// planar 3-bit decode of one 256-element block (to floats or to the exact
+// int8 `wint = q - z`), and two Walsh-Hadamard butterflies on a warp's
+// registers: one over the decode layout below, one over the strided layout
+// of fwht.cu and quantize_blocks.cu (lane L holds element v*32 + L).
 //
 // Lane layout of one decoded block (32 lanes x 8 values): lane L holds
 // elements e = c*64 + 2*L + j for c in 0..3, j in 0..1, in register
@@ -20,6 +22,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
   return v;
+}
+
+__device__ __forceinline__ int warp_isum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// acc + d * p for an exact int32 partial p, rounded as two separate f32
+// operations (no FMA contraction): the order of the W3A8 plain version,
+// which the int8 kernels match to the last bit.
+__device__ __forceinline__ float scaled_add(float acc, int p, float d) {
+  return __fadd_rn(acc, __fmul_rn((float)p, d));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -68,6 +83,60 @@ __device__ __forceinline__ void itq3_decode_lane(
       w[r] = __half2float(scales[blk * sub_blocks + s]) * (float)q;
     } else {
       w[r] = d * ((float)q - z);
+    }
+  }
+}
+
+// Decode block `blk` (= n*KB + kb) into the exact integer weights
+// wint[8] = q - z of the same lane layout: {-2..2} for ternary formats,
+// {-4..4} for the five-level escape; sub-block formats store z = 0. The
+// zero-point is an integer-valued fp16, so the conversion is exact.
+__device__ __forceinline__ void itq3_decode_wint_lane(
+    const uint8_t* __restrict__ plane2, const uint8_t* __restrict__ plane1,
+    const __half* __restrict__ zps, long long blk, int sub_blocks,
+    int fivelevel, int lane, int wint[8]) {
+  const unsigned short b2 =
+      *reinterpret_cast<const unsigned short*>(plane2 + blk * 64 + 2 * lane);
+  const unsigned q2[2] = {b2 & 0xffu, (unsigned)(b2 >> 8)};
+  unsigned q1[2] = {0u, 0u};
+  if (fivelevel) {
+    const uint8_t* p1 = plane1 + blk * 32;
+    q1[0] = p1[(2 * lane) & 31];
+    q1[1] = p1[(2 * lane + 1) & 31];
+  }
+  const int hi = lane >= 16;
+  const int z = sub_blocks ? 0 : (int)__half2float(zps[blk]);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int c = r >> 1, j = r & 1;
+    int q = (int)((q2[j] >> (2 * c)) & 3u) - 1;
+    if (fivelevel) q *= 1 + (int)((q1[j] >> (2 * c + hi)) & 1u);
+    wint[r] = q - z;
+  }
+}
+
+// Unnormalized FWHT of a V*32-point vector held as r[v] = element v*32 +
+// lane, stages h = 1, 2, 4, ... in the reference's order: lane bits by
+// shuffle, then register bits. (a, b) -> (a+b, a-b) at every stage.
+template <int V>
+__device__ __forceinline__ void warp_fwht_strided(float r[V], int lane) {
+#pragma unroll
+  for (int h = 1; h < 32; h <<= 1) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float o = __shfl_xor_sync(FULL_MASK, r[v], h);
+      r[v] = (lane & h) ? (o - r[v]) : (r[v] + o);
+    }
+  }
+#pragma unroll
+  for (int s = 1; s < V; s <<= 1) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if ((v & s) == 0) {
+        const float a = r[v], b = r[v + s];
+        r[v] = a + b;
+        r[v + s] = a - b;
+      }
     }
   }
 }

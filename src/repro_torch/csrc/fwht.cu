@@ -6,7 +6,8 @@
 // A port of that matmul form would cost 32x the FLOPs of the butterfly; here
 // each lane holds V = block/32 values (element v*32 + lane), runs the 5
 // lane-bit stages with __shfl_xor_sync and the log2(V) remaining stages in
-// registers, in the reference's stage order, then scales once.
+// registers, in the reference's stage order (warp_fwht_strided in
+// common.cuh, shared with quantize_blocks.cu), then scales once.
 // Bound on the H100: bytes (read x once, write y once; log2(block) adds per
 // element are far below the f32 rate), so loads and stores are coalesced
 // 128-byte rows per warp and nothing touches shared memory.
@@ -24,25 +25,7 @@ __global__ void fwht_kernel(const float* __restrict__ x, float* __restrict__ y,
   float r[V];
 #pragma unroll
   for (int v = 0; v < V; ++v) r[v] = src[v * 32 + lane];
-#pragma unroll
-  for (int h = 1; h < 32; h <<= 1) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float o = __shfl_xor_sync(FULL_MASK, r[v], h);
-      r[v] = (lane & h) ? (o - r[v]) : (r[v] + o);
-    }
-  }
-#pragma unroll
-  for (int s = 1; s < V; s <<= 1) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      if ((v & s) == 0) {
-        const float a = r[v], b = r[v + s];
-        r[v] = a + b;
-        r[v + s] = a - b;
-      }
-    }
-  }
+  warp_fwht_strided<V>(r, lane);
 #pragma unroll
   for (int v = 0; v < V; ++v) dst[v * 32 + lane] = r[v] * scale;
 }

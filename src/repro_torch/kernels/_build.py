@@ -28,7 +28,10 @@ from pathlib import Path
 __all__ = ["SOURCES", "build", "library", "check", "check_operands",
            "launches", "reset_launches", "stream_of"]
 
-SOURCES = ("fwht", "itq3_matvec", "itq3_matmul", "attn_q8")
+#: Every kernel, in the order of the kernel table in PERF.md; ``build``
+#: starts one nvcc per source, all together.
+SOURCES = ("fwht", "itq3_matvec", "itq3_matmul", "attn_q8",
+           "itq3_matvec_int8", "itq3_matmul_int8", "quantize_blocks")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

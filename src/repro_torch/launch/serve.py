@@ -1,38 +1,73 @@
 """Serving launcher of the port: seeded random weights, quantized by the
-port, served greedily through the continuous-batching engine.
+port with a format or a QuantPolicy, served greedily through the
+continuous-batching engine.
 
     python -m repro_torch.launch.serve --reduced --kv-quant --device cpu
     python -m repro_torch.launch.serve --arch smollm-135m --kv-quant   # GPU
 
-On a CUDA device every quantized projection, activation rotation and
-q8-cache attention runs on the hand-written kernels in ``csrc/``; with
-``--device cpu`` the same path runs their plain PyTorch versions.
+Mixed precision through a policy (the arch's default recipe, or a JSON
+file ``{"rules": [{"pattern": ..., "fmt": ...}, ...]}``), the packed tree
+checkpointed and served straight from disk, on the W3A8 integer path:
+
+    ... --act-quant --policy mixed --save-quantized /tmp/q   # quantize, save
+    ... --act-quant --load-quantized /tmp/q                  # boot from planes
+
+On a CUDA device every quantized projection, activation rotation, int8
+contraction and q8-cache attention runs on the hand-written kernels in
+``csrc/``, and the quantizer's ``itq3_s`` blocks go through the
+``quantize_blocks`` kernel; with ``--device cpu`` the same path runs their
+plain PyTorch versions.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.checkpoint import ckpt as ckpt_mod
+from repro_torch.configs import (
+    ARCH_IDS, get_config, mixed_precision_recipe, reduced,
+)
+from repro_torch.core import grids
 from repro_torch.models import lm
 from repro_torch.models.layers import Runtime
 from repro_torch.serve.engine import Request, ServeEngine
-from repro_torch.serve.quantized import quantize_params, quantized_bytes
+from repro_torch.serve.quantized import (
+    QuantPolicy, describe_quantized, quantize_params, quantized_bytes,
+)
+
+
+def _load_policy(spec: str, cfg) -> QuantPolicy:
+    if spec == "mixed":
+        return QuantPolicy.from_dict(mixed_precision_recipe(cfg))
+    with open(spec) as f:
+        return QuantPolicy.from_dict(json.load(f))
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="smollm-135m", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--fmt", default="itq3_s",
-                    choices=["iq3_s", "itq3_s", "itq3_s_sub", "itq3_x"])
+    ap.add_argument("--fmt", default="itq3_s")
+    ap.add_argument("--rule", default="paper", choices=sorted(grids.SCALE_RULES))
+    ap.add_argument("--policy", default=None,
+                    help="'mixed' or path to a QuantPolicy JSON; overrides --fmt")
+    ap.add_argument("--save-quantized", default=None,
+                    help="write the quantized param tree as a checkpoint")
+    ap.add_argument("--load-quantized", default=None,
+                    help="serve a previously saved quantized checkpoint")
     ap.add_argument("--quant-mode", default="activations",
                     choices=["activations", "weights", "dequant", "auto"])
     ap.add_argument("--kv-quant", action="store_true",
                     help="rotated-int8 KV cache (8.25 bits/element)")
+    ap.add_argument("--act-quant", action="store_true",
+                    help="W3A8 integer compute path: quantize activations "
+                         "to int8 in the rotation domain and contract "
+                         "against ternary codes with int32 accumulation "
+                         "(QuantPolicy act_quant=False pins paths to float)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
@@ -43,16 +78,40 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    t0 = time.perf_counter()
-    params = quantize_params(lm.init_params(cfg, seed=0, device=args.device),
-                             args.fmt)
-    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"quantized to {args.fmt} in {time.perf_counter() - t0:.1f}s "
-          f"({quantized_bytes(params) / 1e6:.1f} MB)")
+    if args.load_quantized:
+        t0 = time.perf_counter()
+        params, step = ckpt_mod.restore_params(args.load_quantized,
+                                               device=args.device)
+        print(f"loaded quantized step-{step} tree from {args.load_quantized} "
+              f"in {time.perf_counter() - t0:.1f}s "
+              f"({quantized_bytes(params) / 1e6:.1f}MB)")
+    else:
+        params = lm.init_params(cfg, seed=0, device=args.device)
+        fp_bytes = sum(leaf.numel() * 2 for leaf in _leaves(params))
+        t0 = time.perf_counter()
+        if args.policy:
+            policy = _load_policy(args.policy, cfg)
+            params = quantize_params(params, policy)
+            fmts = sorted(set(describe_quantized(params).values()))
+            print(f"policy quantized ({len(policy.rules)} rules -> {fmts})")
+        elif args.fmt not in ("fp16", "bf16"):
+            params = quantize_params(params, args.fmt, rule=args.rule)
+        qb = quantized_bytes(params)
+        print(f"quantized in {time.perf_counter() - t0:.1f}s: "
+              f"{qb / 1e6:.1f}MB vs bf16 {fp_bytes / 1e6:.1f}MB "
+              f"({fp_bytes / max(qb, 1):.2f}x smaller)")
+        if args.save_quantized:
+            path = ckpt_mod.save(args.save_quantized, 0, params)
+            print(f"saved quantized tree to {path}")
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}")
     eng = ServeEngine(params, cfg, slots=args.slots, max_len=args.max_len,
                       rt=Runtime(quant_mode=args.quant_mode,
-                                 kv_quant=args.kv_quant),
+                                 kv_quant=args.kv_quant,
+                                 act_quant=args.act_quant),
                       device=args.device)
+    if args.act_quant:
+        print("act_quant: W3A8 integer compute path "
+              "(int8 rotation-domain activations, int32 accumulation)")
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                size=8 + i % 5),
@@ -70,6 +129,14 @@ def main(argv=None) -> None:
           f"{st['cache_bytes_per_token']:.0f} B/token)")
     for r in done[:3]:
         print(f"  rid={r.rid} -> {r.out[:10]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

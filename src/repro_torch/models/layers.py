@@ -3,7 +3,8 @@ dense self-attention family).
 
 Every matmul weight flows through :func:`dense`, which dispatches on the
 leaf type: a plain tensor (fp) or a :class:`~repro_torch.core.quantize.QTensor`
-(ITQ3_S-family planes, through :func:`~repro_torch.core.qlinear.qmatmul`).
+(any registered format, through :func:`~repro_torch.core.qlinear.qmatmul`,
+which also takes the W3A8 ``act_quant`` knob).
 
 The KV cache layout is the reference's: (B, KV_heads, T, head_dim). Where
 XLA wrote a functional cache update into a donated buffer, the port writes
@@ -40,12 +41,17 @@ class Runtime:
     backend: str = "auto"  # auto | ref | cuda (qmatmul and q8 attention)
     kv_quant: bool = False  # rotated-int8 KV cache (serve/kv_quant.py codec)
     decode_token_cache: bool = True  # decode writes one token per layer
+    # W3A8 integer compute path: rotate and int8-quantize the activations
+    # and contract against the ternary codes with int32 partials
+    # (core/act_quant.py). QMeta.act_quant opts single weights out.
+    act_quant: bool = False
 
 
 def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:
     """``x @ w (+ bias)`` with QTensor dispatch (the quantization seam)."""
     if isinstance(w, QTensor):
-        y = qmatmul(x, w, mode=rt.quant_mode, backend=rt.backend)
+        y = qmatmul(x, w, mode=rt.quant_mode, backend=rt.backend,
+                    act_quant=rt.act_quant)
     else:
         y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     if bias is not None:

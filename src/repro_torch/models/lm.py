@@ -2,10 +2,11 @@
 ``repro/models/lm.py``).
 
 Parameters are a plain dict mirroring the reference pytree: ``embed``
-(V, D), ``ln_f``, optional ``lm_head``, and ``layers`` whose leaves carry a
-leading layer axis L (tensors, or QTensors with stacked planes). Where the
-reference scans over the stacked layers, the port loops over them and
-takes each layer's views.
+(V, D), or a QTensor of the transposed table (D, V) when a policy
+quantized it, ``ln_f``, optional ``lm_head``, and ``layers`` whose leaves
+carry a leading layer axis L (tensors, or QTensors with stacked planes).
+Where the reference scans over the stacked layers, the port loops over
+them and takes each layer's views.
 
 The serving cache is ``{"attn": {"k", "v"[, "k_scale", "v_scale"]}}`` with
 (L, B, KV, T, X) leaves, preallocated once; prefill and decode write into
@@ -18,6 +19,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import formats
 from repro_torch.core.fwht import is_pow2
 from repro_torch.core.quantize import QTensor
 from repro_torch.models.layers import (
@@ -148,16 +150,23 @@ def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
 def _embed(params, tokens):
     table = params["embed"]
     if isinstance(table, QTensor):
-        raise NotImplementedError(
-            "a quantized embedding table lands with the mixed-policy slice")
-    return table.to(torch.float32)[tokens.to(torch.int64)]
+        # a policy quantized the tied table: stored transposed (D, V),
+        # blocked along D, so the tied head contracts it directly; the
+        # gather reconstructs the table first, O(D*V) work per call, the
+        # price of keeping only the packed table resident
+        emb = formats.dequantize(table).T
+    else:
+        emb = table.to(torch.float32)
+    return emb[tokens.to(torch.int64)]
 
 
 def _head(params, x, rt, cfg):
     x = norm_apply(params["ln_f"], x, cfg.norm)
     w = params.get("lm_head")
     if w is None:
-        w = params["embed"].T  # tied head: a plain f32 product
+        w = params["embed"]
+        if not isinstance(w, QTensor):  # a QTensor table is stored (D, V)
+            w = w.T  # tied head: a plain f32 product
     return dense(x, w, rt)
 
 

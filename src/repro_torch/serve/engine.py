@@ -366,4 +366,5 @@ class ServeEngine:
             "quarantined": self.quarantined,
             "backend": self.rt.backend,
             "kv_quant": self.rt.kv_quant,
+            "act_quant": self.rt.act_quant,
         }

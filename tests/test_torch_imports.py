@@ -50,3 +50,12 @@ def test_reference_import_pattern():
     assert REFERENCE_IMPORT.search("import repro.models.lm as lm")
     assert REFERENCE_IMPORT.search("from repro import configs")
     assert not REFERENCE_IMPORT.search("from repro_torch.core import fwht")
+
+
+def test_every_port_module_is_checked():
+    """The import guards above cover the modules of every slice (the
+    W3A8 path, the quantizer kernel and the checkpoints included)."""
+    names = {p.relative_to(PORT).with_suffix("").as_posix() for p in SOURCES
+             if PORT in p.parents}
+    assert {"core/act_quant", "kernels/quantize", "kernels/itq3",
+            "checkpoint/ckpt", "serve/quantized", "launch/serve"} <= names
