@@ -8,8 +8,9 @@
 It drives the port (``src/repro_torch``) and nothing of the JAX package:
 
 1. Report the card: its name and power limit (``nvidia-smi``).
-2. Build the seven kernels from ``src/repro_torch/csrc`` with ``nvcc`` (one
-   process per source, all started together).
+2. Build the kernels from ``src/repro_torch/csrc`` with ``nvcc`` (one
+   process per source, all started together): eight kernels in seven
+   sources (``attn_q8.cu`` holds the dense and the paged attention).
 3. Check each kernel against its plain PyTorch version on the card at the
    full-width smollm-135m shapes of the serving paths, and time the
    kernel, the plain version and one PyTorch library call that computes
@@ -18,6 +19,8 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    within 1e-5 of the largest output with real ones; ``quantize_blocks``
    is held to the reference's own contract (``z`` equal, ``d`` within rtol
    1e-3, codes equal on at least 0.999 of the elements: f16 ties only).
+   The paged attention must give the dense kernel's bits over the gathered
+   view of the same pool, and agree with its plain version within 1e-4.
 4. The float path: serve smollm-135m at full width (seeded random weights,
    quantized by the port to itq3_s, rotated-int8 KV cache, greedy) through
    ``ServeEngine``: 8 requests over 4 slots. The launch counters are reset
@@ -29,7 +32,8 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    (reported) and layer by layer on one cache state (held to 1e-3).
 6. With ``--profile`` only: one shorter serving run (8 new tokens per
    request) under ``torch.profiler``, for the device's busy time, idle
-   share and host operator calls (phase 7 traces its path the same way).
+   share and host operator calls (phases 7 and 8 trace their paths the
+   same way).
 7. The W3A8 deployable path: quantize the seeded model under the mixed
    policy (tied table q8_0, MLP itq3_s_sub, the rest itq3_s through the
    ``quantize_blocks`` kernel, counted), save it in the reference's
@@ -39,6 +43,16 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    with exact launch counts. Then phase 5's parity on this path, and the
    greedy agreement with the plain-version run and with the float
    (``act_quant=False``) run of the same checkpoint.
+8. The paged path on phase 4's model (``ServeEngine(paged=True)``, block
+   size 16). (a) Phase 4's requests on the dense-equivalent pool: exact
+   launch counts, the paged attention and never the dense one, and the
+   greedy streams of phase 4's counted run token for token; then dense and
+   paged runs in turns for their step and wave times. (b) Eight
+   requests over one shared 32-token prefix on a 13-block pool, too small
+   for four live requests: the engine must share prefix blocks, preempt
+   and resume, finish every request with ``length`` and leave the pool
+   drained; its agreement with a dense run of the same requests is
+   reported.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -70,7 +84,9 @@ from repro_torch.core.act_quant import act_decode, act_encode  # noqa: E402
 from repro_torch.core.fwht import hadamard_matrix  # noqa: E402
 from repro_torch.core.quantize import to_blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.attn_q8 import attn_q8, attn_q8_ref  # noqa: E402
+from repro_torch.kernels.attn_q8 import (  # noqa: E402
+    attn_q8, attn_q8_paged, attn_q8_paged_ref, attn_q8_ref, paged_row_table,
+)
 from repro_torch.kernels.fwht import fwht, fwht_ref  # noqa: E402
 from repro_torch.kernels.itq3 import (  # noqa: E402
     dequant_blocks, itq3_matmul, itq3_matmul_int8, itq3_matmul_int8_ref,
@@ -108,6 +124,10 @@ SLOTS, MAX_LEN, PROMPT_PAD, MAX_NEW = 4, 256, 64, 32
 # two prefill waves and ~14 decode steps, so the trace stays small enough
 # for the profiler to walk within the usual call time.
 PROFILE_NEW = 8
+# The paged path: 16-key blocks (the engine's default); the short pool of
+# phase 8 (b) holds 12 usable blocks, and its requests share a 32-token
+# prefix (two full blocks).
+BLOCK_SIZE, SHORT_POOL, SHARED_PREFIX = 16, 13, 32
 DETAILS = ROOT / "chiprun_out" / "chip_smoke_details.json"
 TABLE = ROOT / "chiprun_out" / "chip_smoke_profile.txt"
 
@@ -286,40 +306,101 @@ def attn_extent(kv_len, q_offset, tq: int, t: int, causal: bool):
     return mask, keys_read, int(mask.sum())
 
 
+ATTN_CASES = (
+    ("decode TQ=1", 1, [5, 64, 130, 255], [0, 0, 0, 0], False),
+    ("prefill TQ=64", 64, [64, 74, 164, 256], [0, 10, 100, 192], True),
+)
+
+
 def check_attn(led: Ledger, gen: torch.Generator, dev) -> None:
     slots, kvh, g, hd, t = 4, 3, 3, 64, 256
-    cases = (
-        ("decode TQ=1", 1, [5, 64, 130, 255], [0, 0, 0, 0], False),
-        ("prefill TQ=64", 64, [64, 74, 164, 256], [0, 10, 100, 192], True),
-    )
-    for label, tq, lens, offs, causal in cases:
+    for label, tq, lens, offs, causal in ATTN_CASES:
         kv_len = [x for x in lens for _ in range(kvh)]
         q_off = [x for x in offs for _ in range(kvh)]
         args, kw = _attn_case(gen, dev, r=slots * kvh, tq=tq, g=g, hd=hd, t=t,
                               kv_len=kv_len, q_offset=q_off, causal=causal)
         got, want = attn_q8(*args, **kw), attn_q8_ref(*args, **kw)
-        acc_err, acc_rel = rel_err(got[0], want[0])
-        l_err, l_rel = rel_err(got[2], want[2])
-        m_err, _ = rel_err(got[1], want[1])
         q, kc, ks, vc, vs, _, _ = args
-        kd = (kc.float() * ks.float()[..., None])[:, None].expand(-1, g, -1, -1)
-        vd = (vc.float() * vs.float()[..., None])[:, None].expand(-1, g, -1, -1)
-        qh = q.permute(0, 2, 1, 3)  # (R, G, TQ, HD)
         mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
-        mask = torch.as_tensor(mask, device=dev)[:, None]  # (R, 1, TQ, T)
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qh, kd, vd, attn_mask=mask, scale=kw["sm_scale"])
-        rows = q.numel() // hd  # (query, group) rows
         nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
-                  + 2 * len(kv_len) * 4 + 2 * rows * 4)
-        flops = pairs * g * 4 * hd
+                  + 2 * len(kv_len) * 4 + 2 * (q.numel() // hd) * 4)
         led.add("attn_q8", f"{label} R=12 G=3 HD=64 T=256",
-                err=max(acc_err, l_err, m_err), rel=max(acc_rel, l_rel),
+                **_attn_errs(got, want),
                 ms=device_ms(lambda: attn_q8(*args, **kw)),
                 plain_ms=device_ms(lambda: attn_q8_ref(*args, **kw)),
-                library_ms=device_ms(library), nbytes=nbytes, flops=flops)
+                library_ms=device_ms(_attn_library(args, kw, mask, dev)),
+                nbytes=nbytes, flops=pairs * g * 4 * hd)
+
+
+def _attn_errs(got, want) -> dict:
+    acc_err, acc_rel = rel_err(got[0], want[0])
+    l_err, l_rel = rel_err(got[2], want[2])
+    m_err, _ = rel_err(got[1], want[1])
+    return dict(err=max(acc_err, l_err, m_err), rel=max(acc_rel, l_rel))
+
+
+def _attn_library(args, kw, mask, dev):
+    """The yardstick: scaled_dot_product_attention over the dequantized
+    dense K/V, masked as the kernel masks."""
+    q, kc, ks, vc, vs, _, _ = args
+    g = q.shape[2]
+    kd = (kc.float() * ks.float()[..., None])[:, None].expand(-1, g, -1, -1)
+    vd = (vc.float() * vs.float()[..., None])[:, None].expand(-1, g, -1, -1)
+    qh = q.permute(0, 2, 1, 3)  # (R, G, TQ, HD)
+    m = torch.as_tensor(mask, device=dev)[:, None]  # (R, 1, TQ, T)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=m, scale=kw["sm_scale"])
+
+
+def check_attn_paged(led: Ledger, gen: torch.Generator, dev,
+                     report: dict) -> None:
+    """The paged kernel on phase 3's attention rows, their 256 keys cut
+    into 16-key blocks scattered over a shuffled pool (the dense-equivalent
+    pool of 4 x 16 blocks plus the null block): the same bits as the dense
+    kernel over the gathered view, within 1e-4 of the plain version."""
+    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
+    maxb = t // BLOCK_SIZE
+    nb = slots * maxb + 1
+    table = (1 + torch.randperm(slots * maxb, generator=gen, device=dev)
+             ).reshape(slots, maxb).to(torch.int32)
+    rows = paged_row_table(table, kvh)  # (R, MAXB) pool rows
+    exact = {}
+    for label, tq, lens, offs, causal in ATTN_CASES:
+        kv_len = [x for x in lens for _ in range(kvh)]
+        q_off = [x for x in offs for _ in range(kvh)]
+        args, kw = _attn_case(gen, dev, r=nb * kvh, tq=1, g=g, hd=hd,
+                              t=BLOCK_SIZE, kv_len=[0] * (nb * kvh),
+                              q_offset=[0] * (nb * kvh), causal=causal)
+        _, kp, ksp, vp, vsp, _, _ = args  # pooled planes (PR, BS, ...)
+        q = torch.randn(slots * kvh, tq, g, hd, generator=gen, device=dev)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        off = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        pargs = (q, kp, ksp, vp, vsp, kl, off, rows)
+        pkw = dict(kw, block_size=BLOCK_SIZE)
+        got = attn_q8_paged(*pargs, **pkw)
+        dense = (q, kp[rows].reshape(-1, t, hd).contiguous(),
+                 ksp[rows].reshape(-1, t).contiguous(),
+                 vp[rows].reshape(-1, t, hd).contiguous(),
+                 vsp[rows].reshape(-1, t).contiguous(), kl, off)
+        vs_dense = attn_q8(*dense, **kw)
+        exact[label] = max((a - b).abs().max().item()
+                           for a, b in zip(got, vs_dense))
+        if exact[label] != 0:
+            raise AssertionError(f"attn_q8_paged {label}: differs from the "
+                                 f"dense kernel by {exact[label]}")
+        mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
+        nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
+                  + sum(-(-k // BLOCK_SIZE) for k in keys_read) * 4
+                  + 2 * len(kv_len) * 4 + 2 * (q.numel() // hd) * 4)
+        led.add("attn_q8_paged", f"{label} R=12 G=3 HD=64 BS=16 MAXB=16",
+                **_attn_errs(got, attn_q8_paged_ref(*pargs, **pkw)),
+                ms=device_ms(lambda: attn_q8_paged(*pargs, **pkw)),
+                plain_ms=device_ms(lambda: attn_q8_paged_ref(*pargs, **pkw)),
+                library_ms=device_ms(_attn_library(dense, kw, mask, dev)),
+                nbytes=nbytes, flops=pairs * g * 4 * hd)
+    report["attn_q8_paged_vs_dense_kernel_abs_err"] = exact
+    print(f"  attn_q8_paged vs the dense kernel over the gathered view: max "
+          f"abs error {max(exact.values())} (exact)", flush=True)
 
 
 def quantize_smollm_projections(gen, dev):
@@ -485,16 +566,18 @@ def make_prompts(cfg) -> list:
 
 
 def serve_run(params, cfg, prompts, dev, *, count: bool,
-              max_new: int = MAX_NEW, **rt_kw):
+              max_new: int = MAX_NEW, engine_kw=None, **rt_kw):
     """One serving run of ``prompts`` (8 requests, 4 slots, ``max_new`` new
     tokens each); with ``count`` the launch counters are reset just before
-    it and read just after."""
+    it and read just after. ``engine_kw`` goes to the engine (the paged
+    path's options)."""
     from repro_torch.models.layers import Runtime
     from repro_torch.serve.engine import Request, ServeEngine
 
     eng = ServeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
                       prompt_pad=PROMPT_PAD,
-                      rt=Runtime(kv_quant=True, **rt_kw), device=dev)
+                      rt=Runtime(kv_quant=True, **rt_kw), device=dev,
+                      **(engine_kw or {}))
     reqs = [Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -509,11 +592,12 @@ def serve_run(params, cfg, prompts, dev, *, count: bool,
     return eng, reqs, wall, counts
 
 
-def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul):
+def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul,
+                  attn="attn_q8"):
     """Hold a counted serving run to its contract: every request finishes
     with ``length``, no quarantine, and each kernel launched exactly as the
     path dictates: per layer, per decode step 7 FWHTs, 7 ``matvec`` and 1
-    attention; per prefill wave 7 FWHTs, 7 ``matmul`` and 1 attention;
+    ``attn``; per prefill wave 7 FWHTs, 7 ``matmul`` and 1 ``attn``;
     nothing else. Returns the run's numbers."""
     st = eng.stats()
     bad = [r.rid for r in reqs if r.finish_reason != "length"
@@ -527,7 +611,7 @@ def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul):
     steps, waves = st["decode_steps"], st["prefill_waves"]
     expected = {"fwht": proj * (steps + waves), matvec: proj * steps,
                 matmul: proj * waves,
-                "attn_q8": cfg.num_layers * (steps + waves)}
+                attn: cfg.num_layers * (steps + waves)}
     if counts != expected:
         raise AssertionError(f"{label}: launches {counts} != expected "
                              f"{expected}")
@@ -593,15 +677,20 @@ def agreement(reqs, other) -> tuple[int, int]:
     return same, sum(len(r.out) for r in reqs)
 
 
-def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
-    """Phases 4 and 5 (and 6 with ``profile``) on ``cfg``; returns the
-    counted run's launches."""
+def float_path_params(cfg, dev):
+    """Phase 4's model: seeded random weights quantized by the port to
+    itq3_s (deterministic, so phase 8 rebuilds the same planes)."""
     from repro_torch.models import lm
     from repro_torch.serve.quantized import quantize_params
 
+    return quantize_params(lm.init_params(cfg, seed=0, device=dev), "itq3_s")
+
+
+def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
+    """Phases 4 and 5 (and 6 with ``profile``) on ``cfg``; returns the
+    counted run's launches and its requests."""
     t0 = time.perf_counter()
-    params = quantize_params(lm.init_params(cfg, seed=0, device=dev),
-                             "itq3_s")
+    params = float_path_params(cfg, dev)
     torch.cuda.synchronize()
     report["quantize_s"] = time.perf_counter() - t0
     print(f"phase 4: {cfg.name} ({cfg.num_layers} layers, d_model "
@@ -634,7 +723,7 @@ def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
         print("phase 6: the float path under torch.profiler", flush=True)
         profile_phase(lambda: serve("auto", count=False,
                                     max_new=PROFILE_NEW), report)
-    return counts
+    return counts, reqs
 
 
 def tree_bytes_equal(a, b) -> bool:
@@ -738,6 +827,109 @@ def w3a8_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
     return {**counts, **quant_counts}
 
 
+def shared_prefix_prompts(cfg) -> list:
+    """Phase 8 (b)'s requests: one 32-token prefix (two full blocks) and
+    8-24 private tokens each."""
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, size=SHARED_PREFIX)
+    return [np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                 size=int(n))]).astype(np.int32)
+            for n in rng.integers(8, 25, size=8)]
+
+
+def paged_phase(dev, report: dict, cfg, dense_reqs,
+                profile: bool = False) -> dict:
+    """Phase 8: the paged path on phase 4's model, rebuilt from its seed
+    (phase 7's peak memory does not carry it); with ``profile`` also one
+    short traced run on the full pool. Returns the counted run's
+    launches."""
+    params = float_path_params(cfg, dev)
+    paged_kw = dict(paged=True, block_size=BLOCK_SIZE)
+    prompts = make_prompts(cfg)
+    serve_run(params, cfg, prompts, dev, count=False, engine_kw=paged_kw)
+    eng, reqs, wall, counts = serve_run(params, cfg, prompts, dev, count=True,
+                                        engine_kw=paged_kw)
+    st = eng.stats()
+    print(f"phase 8 (a): paged, dense-equivalent pool of {st['pool_blocks']} "
+          f"blocks x {BLOCK_SIZE} tokens", flush=True)
+    out = {"full_pool": check_serving(
+        "paged path", eng, reqs, wall, counts, cfg, matvec="itq3_matvec",
+        matmul="itq3_matmul", attn="attn_q8_paged")}
+    same, total = agreement(reqs, dense_reqs)
+    out["full_pool"].update(agreement_with_phase4=(same, total),
+                            pool_bytes=eng.cache_bytes)
+    print(f"  greedy streams: {same}/{total} tokens equal to phase 4's "
+          f"counted run; pool {eng.cache_bytes} B", flush=True)
+    if same != total:
+        raise AssertionError("paged streams differ from the dense path's")
+    if st["pool_blocks_used"] != 0:
+        raise AssertionError("blocks still held after the run")
+    # the paged step against the dense one in turns (dense, paged, paged,
+    # dense), so the host's drift during the call shows in each pair
+    turns: dict = {"dense": [], "paged": []}
+    for label in ("dense", "paged", "paged", "dense"):
+        e, _, _, _ = serve_run(params, cfg, prompts, dev, count=False,
+                               engine_kw=paged_kw if label == "paged" else None)
+        es = e.stats()
+        turns[label].append((1e3 * es["decode_seconds"] / es["decode_steps"],
+                             1e3 * es["prefill_seconds"] / es["prefill_waves"]))
+    out["full_pool"]["turns_ms_step_wave"] = turns
+    print("  in turns (dense, paged, paged, dense): "
+          + "; ".join(f"{what} dense {turns['dense'][0][i]:.1f} / "
+                      f"{turns['dense'][1][i]:.1f}, paged "
+                      f"{turns['paged'][0][i]:.1f} / {turns['paged'][1][i]:.1f}"
+                      for i, what in enumerate(("ms/step", "ms/wave"))),
+          flush=True)
+
+    del e, eng  # their caches would count in (b)'s peak memory
+    prompts = shared_prefix_prompts(cfg)
+    eng, reqs, wall, _ = serve_run(
+        params, cfg, prompts, dev, count=False,
+        engine_kw=dict(paged_kw, num_blocks=SHORT_POOL))
+    st, peak = eng.stats(), torch.cuda.max_memory_allocated()
+    deng, dreqs, _, _ = serve_run(params, cfg, prompts, dev, count=False)
+    same, total = agreement(reqs, dreqs)
+    dense_bytes = deng.cache_bytes
+    short = dict(
+        wall_s=wall, stats=st, peak_mem_bytes=peak,
+        decode_tok_s=st["tokens_decoded"] / st["decode_seconds"],
+        decode_ms_per_step=1e3 * st["decode_seconds"] / st["decode_steps"],
+        prefill_ms_per_wave=1e3 * st["prefill_seconds"] / st["prefill_waves"],
+        pool_bytes=st["cache_bytes"], dense_cache_bytes=int(dense_bytes),
+        agreement_with_dense=(same, total),
+        differing_rids=[r.rid for r, d in zip(reqs, dreqs) if r.out != d.out])
+    out["short_pool"] = short
+    print(f"phase 8 (b): {len(reqs)} requests over a shared "
+          f"{SHARED_PREFIX}-token prefix on a {SHORT_POOL}-block pool: "
+          f"{st['preemptions']} preemptions, {st['resumes']} resumes, "
+          f"{st['blocks_swapped']} blocks swapped, {st['prefix_hits']} prefix "
+          f"hits, {st['max_concurrent']} live at most; decode "
+          f"{short['decode_tok_s']:.1f} tok/s ({short['decode_ms_per_step']:.1f}"
+          f" ms/step over {st['decode_steps']} steps), prefill "
+          f"{short['prefill_ms_per_wave']:.1f} ms/wave over "
+          f"{st['prefill_waves']} waves; pool {st['cache_bytes']} B against "
+          f"the dense cache's {int(dense_bytes)} B; peak memory "
+          f"{short['peak_mem_bytes'] / 2**20:.0f} MiB; {same}/{total} tokens "
+          f"equal to a dense run (differing rids {short['differing_rids']})",
+          flush=True)
+    bad = [r.rid for r in reqs if r.finish_reason != "length"
+           or len(r.out) != MAX_NEW]
+    eng.pool.check(eng._table)
+    if (bad or st["preemptions"] < 1 or st["resumes"] < 1
+            or st["prefix_hits"] < 6 or st["pool_blocks_used"] != 0
+            or st["quarantined"]):
+        raise AssertionError(f"short pool: requests {bad} did not finish "
+                             f"with length, or stats {st}")
+    report["paged"] = out
+    if profile:
+        profile_phase(lambda: serve_run(params, cfg, make_prompts(cfg), dev,
+                                        count=False, max_new=PROFILE_NEW,
+                                        engine_kw=paged_kw),
+                      report, "paged_profile",
+                      TABLE.with_name("chip_smoke_profile_paged.txt"))
+    return counts
+
+
 def profile_phase(run, report: dict, key: str = "profile",
                   table: Path = TABLE) -> None:
     """With ``--profile``: one shorter kernel-path serving run (``run()``,
@@ -817,34 +1009,46 @@ def main(argv=None) -> int:
     check_attn(led, gen, dev)
     check_itq3_int8(led, gen, dev, int8_weights(gen, dev), report)
     check_quantize(led, gen, dev, report)
+    check_attn_paged(led, gen, dev, report)
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the
     # float path (phase 4) for the first four, the W3A8 path (phase 7:
-    # quantize, then serve) for the other three
+    # quantize, then serve) for the next three, the paged path (phase 8 a)
+    # for the last
     counts = {}
     if not args.kernels_only:
         cfg = get_config("smollm-135m")
-        counts = serve_phase(dev, report, cfg, profile=args.profile)
+        counts, dense_reqs = serve_phase(dev, report, cfg,
+                                         profile=args.profile)
         w3a8 = w3a8_phase(dev, report, cfg, profile=args.profile)
         counts.update({k: w3a8[k] for k in (
             "itq3_matvec_int8", "itq3_matmul_int8", "quantize_blocks")})
+        paged = paged_phase(dev, report, cfg, dense_reqs,
+                            profile=args.profile)
+        counts["attn_q8_paged"] = paged["attn_q8_paged"]
 
-    replaces = {
-        "fwht": "src/repro/kernels/fwht_kernel.py:39",
-        "itq3_matvec": "src/repro/kernels/itq3_matvec.py:82",
-        "itq3_matmul": "src/repro/kernels/itq3_matmul.py:339",
-        "attn_q8": "src/repro/kernels/attn_decode.py:230",
-        "itq3_matvec_int8": "src/repro/kernels/itq3_matvec.py:183",
-        "itq3_matmul_int8": "src/repro/kernels/itq3_matmul.py:436",
-        "quantize_blocks": "src/repro/kernels/quantize_kernel.py:51",
+    # kernel -> (source, the TPU kernel it replaces)
+    kernel_table = {
+        "fwht": ("fwht", "src/repro/kernels/fwht_kernel.py:39"),
+        "itq3_matvec": ("itq3_matvec", "src/repro/kernels/itq3_matvec.py:82"),
+        "itq3_matmul": ("itq3_matmul", "src/repro/kernels/itq3_matmul.py:339"),
+        "attn_q8": ("attn_q8", "src/repro/kernels/attn_decode.py:230"),
+        "itq3_matvec_int8": ("itq3_matvec_int8",
+                             "src/repro/kernels/itq3_matvec.py:183"),
+        "itq3_matmul_int8": ("itq3_matmul_int8",
+                             "src/repro/kernels/itq3_matmul.py:436"),
+        "quantize_blocks": ("quantize_blocks",
+                            "src/repro/kernels/quantize_kernel.py:51"),
+        "attn_q8_paged": ("attn_q8",
+                          "src/repro/kernels/attn_decode.py:230 (table)"),
     }
     kernels = []
-    for name in _build.SOURCES:
+    for name, (source, replaces) in kernel_table.items():
         s = led.summary(name)
         kernels.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=replaces[name], launches=int(counts.get(name, 0)),
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{source}.cu",
+            replaces=replaces, launches=int(counts.get(name, 0)),
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"], shapes=s["shapes"]))

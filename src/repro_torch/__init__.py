@@ -7,8 +7,8 @@ This package imports ``torch`` and numpy only: never ``jax`` and nothing
 of ``repro``.
 
 Every entry point takes a ``device`` and defaults to ``"cuda"``; the CPU is
-used only when a caller asks for it (the parity tests do). The seven
-hand-written Hopper kernels (the float and W3A8 serving paths and the
-offline quantizer) live in ``csrc/`` and are bound through ``kernels/``
-(see ``kernels/_build.py``).
+used only when a caller asks for it (the parity tests do). The eight
+hand-written Hopper kernels (the float and W3A8 serving paths, the paged
+KV cache's attention and the offline quantizer) live in ``csrc/`` and are
+bound through ``kernels/`` (see ``kernels/_build.py``).
 """

@@ -9,11 +9,16 @@ the weighted V sum.
 
 :func:`attn_q8` (the kernel wrapper; plain version :func:`attn_q8_ref`)
 works on the kernel layout ``q_rot (R, TQ, G, HD)`` with R = B*KV rows and
-returns the unnormalized ``(acc, m, l)``. :func:`decode_attn_q8` and
+returns the unnormalized ``(acc, m, l)``. :func:`attn_q8_paged` (plain
+version :func:`attn_q8_paged_ref`) is the same kernel over a block pool
+(``serve/paged.py``): key ``t`` of row ``i`` lies in pool row
+``table[i, t // BS]`` at offset ``t % BS``. :func:`decode_attn_q8` and
 :func:`prefill_attn_q8` are the serving entry points: they rotate q, call
 the kernel (or, with ``backend="ref"``, the plain versions
-:func:`decode_attn_q8_ref` / :func:`prefill_attn_q8_ref`), merge the
-decode self token, normalize and apply the final inverse FWHT in PyTorch.
+:func:`decode_attn_q8_ref` / :func:`prefill_attn_q8_ref`, over
+:func:`paged_to_dense` of a paged cache), merge the decode self token,
+normalize and apply the final inverse FWHT in PyTorch. A cache dict with a
+``"table"`` entry is paged.
 """
 from __future__ import annotations
 
@@ -25,14 +30,18 @@ import torch
 from repro_torch.core.fwht import fwht, is_pow2
 from repro_torch.kernels import _build
 
-__all__ = ["attn_q8", "attn_q8_ref", "decode_attn_q8", "decode_attn_q8_ref",
-           "prefill_attn_q8", "prefill_attn_q8_ref", "ATTN_BACKENDS"]
+__all__ = ["attn_q8", "attn_q8_ref", "attn_q8_paged", "attn_q8_paged_ref",
+           "decode_attn_q8", "decode_attn_q8_ref", "prefill_attn_q8",
+           "prefill_attn_q8_ref", "paged_row_table", "paged_to_dense",
+           "ATTN_BACKENDS"]
 
 NEG_INF = -1e30
 ATTN_BACKENDS = ("auto", "ref", "cuda")
 _ROWS_PER_BLOCK = 32  # query rows (TQB * G) one thread block holds
 
 _SIG = {"attn_q8_launch": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+        + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p),
+        "attn_q8_paged_launch": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 8
         + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)}
 
 
@@ -64,6 +73,19 @@ def attn_q8_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset,
     return acc, m, l
 
 
+def _check_head_dim(what: str, hd: int) -> None:
+    if not is_pow2(hd) or not 32 <= hd <= 128:
+        raise ValueError(f"{what}: head_dim {hd} must be a power of two "
+                         f"in [32, 128]")
+
+
+def _outputs(q_rot):
+    r, tq, g, hd = q_rot.shape
+    acc = torch.empty((r, tq, g, hd), dtype=torch.float32, device=q_rot.device)
+    m = torch.empty((r, tq, g, 1), dtype=torch.float32, device=q_rot.device)
+    return acc, m, torch.empty_like(m), max(1, min(tq, _ROWS_PER_BLOCK // g))
+
+
 def attn_q8(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset, *,
             sm_scale: float, causal: bool):
     """Online-softmax attention of rotated queries over int8 K/V codes:
@@ -75,9 +97,7 @@ def attn_q8(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset, *,
             or kv_len.shape != (r,) or q_offset.shape != (r,)):
         raise ValueError("attn_q8: operand shapes do not match q_rot "
                          f"{tuple(q_rot.shape)} and codes {tuple(k_codes.shape)}")
-    if not is_pow2(hd) or not 32 <= hd <= 128:
-        raise ValueError(f"attn_q8: head_dim {hd} must be a power of two "
-                         f"in [32, 128]")
+    _check_head_dim("attn_q8", hd)
     _build.check_operands("attn_q8", q_rot.device, zip(
         (q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset),
         (torch.float32, torch.int8, torch.float16, torch.int8, torch.float16,
@@ -87,10 +107,7 @@ def attn_q8(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset, *,
                            q_offset, sm_scale=sm_scale, causal=causal)
     if not q_rot.is_cuda:
         raise ValueError(f"attn_q8: unsupported device {q_rot.device}")
-    acc = torch.empty((r, tq, g, hd), dtype=torch.float32, device=q_rot.device)
-    m = torch.empty((r, tq, g, 1), dtype=torch.float32, device=q_rot.device)
-    l = torch.empty_like(m)
-    tqb = max(1, min(tq, _ROWS_PER_BLOCK // g))
+    acc, m, l, tqb = _outputs(q_rot)
     lib = _build.library("attn_q8", _SIG)
     _build.check(lib.attn_q8_launch(
         q_rot.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
@@ -100,6 +117,102 @@ def attn_q8(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset, *,
         _build.stream_of(q_rot)), "attn_q8")
     _build.launches["attn_q8"] += 1
     return acc, m, l
+
+
+def attn_q8_paged_ref(q_rot, k_pool, k_scale_pool, v_pool, v_scale_pool,
+                      kv_len, q_offset, table, *, block_size: int,
+                      sm_scale: float, causal: bool):
+    """Plain version of the paged kernel: gather each row's keys through
+    the table into the dense view (R, MAXB*BS, ...), then
+    :func:`attn_q8_ref`.
+
+    Pooled planes: codes (PR, BS, HD) int8, scales (PR, BS) f16, PR =
+    num_blocks*KV pool rows; table (R, MAXB) int32 pool-row table
+    (:func:`paged_row_table`)."""
+    if k_pool.shape[1] != block_size:
+        raise ValueError(f"pooled planes {tuple(k_pool.shape)} are not cut "
+                         f"in blocks of {block_size}")
+    r, maxb = table.shape
+    t = maxb * block_size
+    hd = k_pool.shape[-1]
+    return attn_q8_ref(q_rot, k_pool[table].reshape(r, t, hd),
+                       k_scale_pool[table].reshape(r, t),
+                       v_pool[table].reshape(r, t, hd),
+                       v_scale_pool[table].reshape(r, t), kv_len, q_offset,
+                       sm_scale=sm_scale, causal=causal)
+
+
+def attn_q8_paged(q_rot, k_pool, k_scale_pool, v_pool, v_scale_pool, kv_len,
+                  q_offset, table, *, block_size: int, sm_scale: float,
+                  causal: bool):
+    """:func:`attn_q8` over a block pool (the reference's ``table``
+    contract, ``attn_decode.py:230-247``): key ``t`` of row ``i`` is pool
+    row ``table[i, t // block_size]`` at offset ``t % block_size``; masks
+    use logical positions, so the result equals :func:`attn_q8` over the
+    gathered dense view bit for bit. Table entries must lie in [0, PR).
+    The kernel on a CUDA tensor, :func:`attn_q8_paged_ref` on a CPU
+    tensor."""
+    r, tq, g, hd = q_rot.shape
+    pr = k_pool.shape[0]
+    maxb = table.shape[1] if table.dim() == 2 else -1
+    if (k_pool.shape != (pr, block_size, hd)
+            or v_pool.shape != (pr, block_size, hd)
+            or k_scale_pool.shape != (pr, block_size)
+            or v_scale_pool.shape != (pr, block_size)
+            or table.shape != (r, maxb) or kv_len.shape != (r,)
+            or q_offset.shape != (r,)):
+        raise ValueError(
+            f"attn_q8_paged: operand shapes do not match q_rot "
+            f"{tuple(q_rot.shape)}, pooled codes {tuple(k_pool.shape)}, "
+            f"block_size {block_size} and table {tuple(table.shape)}")
+    _check_head_dim("attn_q8_paged", hd)
+    _build.check_operands("attn_q8_paged", q_rot.device, zip(
+        (q_rot, k_pool, k_scale_pool, v_pool, v_scale_pool, kv_len, q_offset,
+         table),
+        (torch.float32, torch.int8, torch.float16, torch.int8, torch.float16,
+         torch.int32, torch.int32, torch.int32)))
+    if q_rot.device.type == "cpu":
+        return attn_q8_paged_ref(q_rot, k_pool, k_scale_pool, v_pool,
+                                 v_scale_pool, kv_len, q_offset, table,
+                                 block_size=block_size, sm_scale=sm_scale,
+                                 causal=causal)
+    if not q_rot.is_cuda:
+        raise ValueError(f"attn_q8_paged: unsupported device {q_rot.device}")
+    acc, m, l, tqb = _outputs(q_rot)
+    lib = _build.library("attn_q8", _SIG)
+    _build.check(lib.attn_q8_paged_launch(
+        q_rot.data_ptr(), k_pool.data_ptr(), k_scale_pool.data_ptr(),
+        v_pool.data_ptr(), v_scale_pool.data_ptr(), kv_len.data_ptr(),
+        q_offset.data_ptr(), table.data_ptr(), acc.data_ptr(), m.data_ptr(),
+        l.data_ptr(), r, tq, g, hd, pr, block_size, maxb, tqb,
+        float(sm_scale), int(causal), _build.stream_of(q_rot)),
+        "attn_q8_paged")
+    _build.launches["attn_q8_paged"] += 1
+    return acc, m, l
+
+
+def paged_row_table(table: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """Per-slot pool-BLOCK table (B, MAXB) -> per-(slot, kv head) pool-ROW
+    table (B*KV, MAXB): the pooled planes flatten (num_blocks, KV, ...) to
+    row ``block*KV + head``."""
+    b, maxb = table.shape
+    heads = torch.arange(kv_heads, dtype=table.dtype, device=table.device)
+    rows = table[:, None, :] * kv_heads + heads[None, :, None]
+    return rows.reshape(b * kv_heads, maxb)
+
+
+def paged_to_dense(cache: dict) -> dict:
+    """The dense per-slot view of a paged cache dict, ``pool[table]`` per
+    plane: (NB, KV, BS, X) planes and a (B, MAXB) table give
+    (B, KV, MAXB*BS, X). The plain path runs the dense math over it."""
+    kvh = cache["k"].shape[1]
+    tbl = cache["table"]
+
+    def g(leaf):
+        x = leaf[tbl].transpose(1, 2)  # (B, KV, MAXB, BS, X)
+        return x.reshape(x.shape[0], kvh, -1, x.shape[-1])
+
+    return {key: g(cache[key]) for key in ("k", "v", "k_scale", "v_scale")}
 
 
 def _merge_self_token(acc, m, l, s_self, v_self):
@@ -164,11 +277,38 @@ def _rows(v: torch.Tensor, kv: int) -> torch.Tensor:
     return v.to(torch.int32).repeat_interleave(kv).contiguous()
 
 
+def _kernel_pass(q_rot, cache, kv_len, q_offset, *, kv: int,
+                 sm_scale: float, causal: bool):
+    """The cache pass through the kernel, dense or paged by the cache
+    dict: q_rot (R, TQ, G, HD) with R = B*KV; kv_len (B,); q_offset (B,)
+    or None for zeros (decode)."""
+    hd = q_rot.shape[-1]
+    lens = _rows(kv_len, kv)
+    offs = (torch.zeros_like(lens) if q_offset is None
+            else _rows(q_offset, kv))
+    if "table" in cache:
+        nb, _, bs, _ = cache["k"].shape
+        pr = nb * kv
+        return attn_q8_paged(
+            q_rot.contiguous(), cache["k"].reshape(pr, bs, hd),
+            cache["k_scale"].reshape(pr, bs), cache["v"].reshape(pr, bs, hd),
+            cache["v_scale"].reshape(pr, bs), lens, offs,
+            paged_row_table(cache["table"].to(torch.int32), kv),
+            block_size=bs, sm_scale=sm_scale, causal=causal)
+    r, t = q_rot.shape[0], cache["k"].shape[2]
+    return attn_q8(
+        q_rot.contiguous(), cache["k"].reshape(r, t, hd),
+        cache["k_scale"].reshape(r, t), cache["v"].reshape(r, t, hd),
+        cache["v_scale"].reshape(r, t), lens, offs, sm_scale=sm_scale,
+        causal=causal)
+
+
 def decode_attn_q8(q, cache, k_tok, v_tok, kv_len, *, backend: str = "auto"):
     """Single-token decode attention against the rotated-int8 cache.
 
     q (B, KV, G, 1, HD) unrotated; cache {"k","v": (B, KV, T, HD) int8,
-    "k_scale","v_scale": (B, KV, T, 1) f16} NOT yet holding the current
+    "k_scale","v_scale": (B, KV, T, 1) f16} (or, paged, (NB, KV, BS, X)
+    pool planes plus a (B, MAXB) "table") NOT yet holding the current
     token; k_tok/v_tok its encoded (codes (B, KV, 1, HD), scale
     (B, KV, 1, 1)); kv_len (B,) valid cached positions. The cache pass runs
     in the kernel; the self term merges here. Returns (B, KV, G, 1, HD)."""
@@ -176,20 +316,17 @@ def decode_attn_q8(q, cache, k_tok, v_tok, kv_len, *, backend: str = "auto"):
     sm_scale = 1.0 / math.sqrt(hd)
     q_rot = fwht(q[..., 0, :].to(torch.float32))  # (B, KV, G, HD)
     if _use_kernel(backend, q):
-        r, t = b * kv, cache["k"].shape[2]
-        acc, m, l = attn_q8(
-            q_rot.reshape(r, 1, g, hd).contiguous(),
-            cache["k"].reshape(r, t, hd), cache["k_scale"].reshape(r, t),
-            cache["v"].reshape(r, t, hd), cache["v_scale"].reshape(r, t),
-            _rows(kv_len, kv), torch.zeros(r, dtype=torch.int32, device=q.device),
-            sm_scale=sm_scale, causal=False)
+        acc, m, l = _kernel_pass(q_rot.reshape(b * kv, 1, g, hd), cache,
+                                 kv_len, None, kv=kv,
+                                 sm_scale=sm_scale, causal=False)
         acc = acc.reshape(b, kv, g, hd)
         m = m.reshape(b, kv, g, 1)
         l = l.reshape(b, kv, g, 1)
     else:
+        dc = paged_to_dense(cache) if "table" in cache else cache
         acc, m, l = decode_attn_q8_ref(
-            q_rot, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
-            kv_len, sm_scale=sm_scale)
+            q_rot, dc["k"], dc["k_scale"], dc["v"], dc["v_scale"], kv_len,
+            sm_scale=sm_scale)
     kc_tok, ks_tok = k_tok
     vc_tok, vs_tok = v_tok
     # self score through the same dequantize-free formula: (Hq).codes * scale
@@ -214,18 +351,15 @@ def prefill_attn_q8(q, cache, kv_len, q_offset, *, backend: str = "auto"):
     sm_scale = 1.0 / math.sqrt(hd)
     q_rot = fwht(q.transpose(2, 3).to(torch.float32))  # (B, KV, TQ, G, HD)
     if _use_kernel(backend, q):
-        r, t = b * kv, cache["k"].shape[2]
-        acc, _, l = attn_q8(
-            q_rot.reshape(r, tq, g, hd).contiguous(),
-            cache["k"].reshape(r, t, hd), cache["k_scale"].reshape(r, t),
-            cache["v"].reshape(r, t, hd), cache["v_scale"].reshape(r, t),
-            _rows(kv_len, kv), _rows(q_offset, kv), sm_scale=sm_scale,
-            causal=True)
+        acc, _, l = _kernel_pass(q_rot.reshape(b * kv, tq, g, hd), cache,
+                                 kv_len, q_offset, kv=kv, sm_scale=sm_scale,
+                                 causal=True)
         acc = acc.reshape(b, kv, tq, g, hd).transpose(2, 3)
         l = l.reshape(b, kv, tq, g, 1).transpose(2, 3)
     else:
+        dc = paged_to_dense(cache) if "table" in cache else cache
         acc, _, l = prefill_attn_q8_ref(
-            q_rot.transpose(2, 3), cache["k"], cache["k_scale"], cache["v"],
-            cache["v_scale"], kv_len, q_offset, sm_scale=sm_scale)
+            q_rot.transpose(2, 3), dc["k"], dc["k_scale"], dc["v"],
+            dc["v_scale"], kv_len, q_offset, sm_scale=sm_scale)
     # one inverse FWHT per query span, outside the kernel
     return fwht(acc / l)

@@ -12,6 +12,11 @@ checkpointed and served straight from disk, on the W3A8 integer path:
     ... --act-quant --policy mixed --save-quantized /tmp/q   # quantize, save
     ... --act-quant --load-quantized /tmp/q                  # boot from planes
 
+The paged rotated-int8 KV cache (a shared block pool with prefix sharing,
+preempting a request when the pool runs dry):
+
+    ... --kv-quant --paged --num-blocks 6 --block-size 16
+
 On a CUDA device every quantized projection, activation rotation, int8
 contraction and q8-cache attention runs on the hand-written kernels in
 ``csrc/``, and the quantizer's ``itq3_s`` blocks go through the
@@ -63,6 +68,14 @@ def main(argv=None) -> None:
                     choices=["activations", "weights", "dequant", "auto"])
     ap.add_argument("--kv-quant", action="store_true",
                     help="rotated-int8 KV cache (8.25 bits/element)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: block pool + per-slot block table "
+                         "over the rotated-int8 planes (requires --kv-quant)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="pool size for --paged (default: enough for every "
+                         "slot to reach max_len, i.e. dense-equivalent)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per pool block for --paged")
     ap.add_argument("--act-quant", action="store_true",
                     help="W3A8 integer compute path: quantize activations "
                          "to int8 in the rotation domain and contract "
@@ -108,7 +121,13 @@ def main(argv=None) -> None:
                       rt=Runtime(quant_mode=args.quant_mode,
                                  kv_quant=args.kv_quant,
                                  act_quant=args.act_quant),
-                      device=args.device)
+                      device=args.device, paged=args.paged,
+                      num_blocks=args.num_blocks, block_size=args.block_size)
+    if args.paged:
+        st0 = eng.stats()
+        print(f"paged pool: {st0['pool_blocks']} blocks x "
+              f"{st0['block_size']} tokens "
+              f"({st0['cache_bytes_reserved'] / 1e6:.2f}MB reserved)")
     if args.act_quant:
         print("act_quant: W3A8 integer compute path "
               "(int8 rotation-domain activations, int32 accumulation)")
@@ -127,6 +146,10 @@ def main(argv=None) -> None:
           f"{args.device} ({st['syncs_per_token']:.2f} host syncs/token, "
           f"cache {st['cache_bytes'] / 1e6:.1f} MB, "
           f"{st['cache_bytes_per_token']:.0f} B/token)")
+    if args.paged:
+        print(f"paged: {st['preemptions']} preemptions, {st['resumes']} "
+              f"resumes, {st['prefix_hits']} prefix hits, "
+              f"{st['pool_blocks_used']} blocks still held")
     for r in done[:3]:
         print(f"  rid={r.rid} -> {r.out[:10]}")
 

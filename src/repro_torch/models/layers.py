@@ -6,9 +6,11 @@ leaf type: a plain tensor (fp) or a :class:`~repro_torch.core.quantize.QTensor`
 (any registered format, through :func:`~repro_torch.core.qlinear.qmatmul`,
 which also takes the W3A8 ``act_quant`` knob).
 
-The KV cache layout is the reference's: (B, KV_heads, T, head_dim). Where
-XLA wrote a functional cache update into a donated buffer, the port writes
-in place into the preallocated cache tensors (``index_put_`` over
+The KV cache layout is the reference's: (B, KV_heads, T, head_dim), or,
+paged (``serve/paged.py``), pool planes (NB, KV, BS, head_dim) with the
+slots' (B, MAXB) block ``"table"`` beside them in the layer's cache dict.
+Where XLA wrote a functional cache update into a donated buffer, the port
+writes in place into the preallocated cache tensors (``index_put_`` over
 per-row positions, so no host sync is needed to place a ragged batch).
 Compute is float32 throughout, as the reference serving runtime is.
 """
@@ -143,14 +145,30 @@ def _sdpa_decode_token(q, ck, cv, k_tok, v_tok, *, kv_len):
 
 
 def _write_span(cache: dict, vals: dict, pos_vec: torch.Tensor, t: int):
-    """Write a (B, KV, t, X) span per leaf into the (B, KV, T, X) cache at
-    per-row start ``pos_vec``, in place. The start is clamped so the span
-    fits, as ``lax.dynamic_update_slice`` clamps it in the reference."""
+    """Write a (B, KV, t, X) span per leaf into the cache at per-row start
+    ``pos_vec``, in place.
+
+    Dense (B, KV, T, X) leaves: the start is clamped so the span fits, as
+    ``lax.dynamic_update_slice`` clamps it in the reference. Paged
+    (NB, KV, BS, X) leaves: token ``p`` of slot ``b`` lands in block
+    ``table[b, p // BS]`` at offset ``p % BS``, with no clamp; pad and idle
+    rows point at the null block, which takes their finite garbage. Two
+    slots sharing a prefix block write it with equal values, so the order
+    of duplicate writes does not matter."""
     b = pos_vec.shape[0]
+    rows = torch.arange(b, device=pos_vec.device)[:, None]
+    if "table" in cache:
+        bs = cache["k"].shape[2]
+        span = pos_vec[:, None] + torch.arange(t, device=pos_vec.device)
+        blk = cache["table"][rows, span // bs]  # (B, t)
+        off = span % bs
+        for key, val in vals.items():
+            # (B, t) block and offset around a slice: (B, t, KV, X)
+            cache[key][blk, :, off] = val.transpose(1, 2).to(cache[key].dtype)
+        return
     tmax = cache["k"].shape[2]
     start = torch.clamp(pos_vec, 0, max(tmax - t, 0))
     span = start[:, None] + torch.arange(t, device=pos_vec.device)  # (B, t)
-    rows = torch.arange(b, device=pos_vec.device)[:, None]
     for key, val in vals.items():
         # advanced indices around a slice put (B, t) first: (B, t, KV, X)
         cache[key][rows, :, span] = val.transpose(1, 2).to(cache[key].dtype)
@@ -168,7 +186,11 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     * otherwise (prefill): write the span's K/V (codes and scales under
       kv_quant) into the cache at ``pos`` in place, then attend the
       POST-write cache causally with ``kv_len = pos + T``. Pad positions of
-      a bucketed prompt hold finite garbage behind ``kv_len``."""
+      a bucketed prompt hold finite garbage behind ``kv_len``.
+
+    A cache dict with a ``"table"`` entry is the paged pool (kv_quant
+    only): writes scatter through the table and attention reads through
+    it."""
     b, t, _ = x.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim

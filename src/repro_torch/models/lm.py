@@ -10,7 +10,10 @@ them and takes each layer's views.
 
 The serving cache is ``{"attn": {"k", "v"[, "k_scale", "v_scale"]}}`` with
 (L, B, KV, T, X) leaves, preallocated once; prefill and decode write into
-it in place (the reference's donated buffers).
+it in place (the reference's donated buffers). A paged cache
+(``serve/paged.py``) is ``{"attn": {...}, "table": (B, MAXB) int32}`` with
+(L, NB, KV, BS, X) pool leaves; the table has no layer axis and joins each
+layer's cache view.
 """
 from __future__ import annotations
 
@@ -114,12 +117,20 @@ def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False):
     return x + m, new_kv
 
 
+def _layer_cache(cache, i: int) -> dict:
+    """Layer ``i``'s view of the cache leaves, plus the block table of a
+    paged cache."""
+    out = {k: v[i] for k, v in cache["attn"].items()}
+    if "table" in cache:
+        out["table"] = cache["table"]
+    return out
+
+
 def _run_decoder(params, x, rt, cfg, *, cache, pos):
     if cache is not None and x.shape[1] == 1 and rt.decode_token_cache:
         return _run_decoder_token(params, x, rt, cfg, cache=cache, pos=pos)
     for i in range(cfg.num_layers):
-        layer_cache = None if cache is None else {
-            k: v[i] for k, v in cache["attn"].items()}
+        layer_cache = None if cache is None else _layer_cache(cache, i)
         x, _ = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
                                   cfg, cache=layer_cache, pos=pos)
     return x, cache
@@ -128,21 +139,27 @@ def _run_decoder(params, x, rt, cfg, *, cache, pos):
 def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
     """Single-token decode: each layer attends its pre-write cache plus
     the token's own K/V, then writes only that token's slice at ``pos``
-    (the O(1)-byte decode write)."""
+    (the O(1)-byte decode write). Paged: slot ``b``'s token lands in block
+    ``table[b, pos_b // BS]`` at offset ``pos_b % BS`` with no clamp; idle
+    slots' table rows point at the null block."""
     b = x.shape[0]
     pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     pos_vec = pos_vec.expand(b) if pos_vec.dim() == 0 else pos_vec
     attn = cache["attn"]
-    tmax = attn["k"].shape[3]
-    # lax.dynamic_update_slice clamps the write index into range
-    at = torch.clamp(pos_vec, 0, tmax - 1)
     rows = torch.arange(b, device=x.device)
+    if "table" in cache:
+        bs = attn["k"].shape[3]
+        rows = cache["table"][rows, pos_vec // bs]  # the token's block
+        at = pos_vec % bs
+    else:
+        # lax.dynamic_update_slice clamps the write index into range
+        at = torch.clamp(pos_vec, 0, attn["k"].shape[3] - 1)
     for i in range(cfg.num_layers):
-        layer_cache = {k: v[i] for k, v in attn.items()}
+        layer_cache = _layer_cache(cache, i)
         x, tok = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
                                     cfg, cache=layer_cache, pos=pos_vec,
                                     token_cache=True)
-        for k, v in tok.items():  # (B, KV, 1, X) -> layer i, row b, pos_b
+        for k, v in tok.items():  # (B, KV, 1, X) -> layer i, row, pos
             layer_cache[k][rows, :, at] = v[:, :, 0].to(layer_cache[k].dtype)
     return x, cache
 

@@ -5,7 +5,8 @@ KV cache, 4 slots, 6 greedy requests of prompt lengths 3-20: the token
 streams must be equal, with one host sync per decode step (plus one per
 admission wave). The rest holds the port's own lifecycle: quarantine of a
 poisoned slot, cancellation, malformed requests and the later-slice
-options refusing loudly.
+options refusing loudly (the paged cache and preemption are in
+``test_torch_paged.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -108,10 +109,9 @@ def test_malformed_request_and_later_slices_refuse():
     with pytest.raises(NotImplementedError, match="item 9"):
         eng.submit_request(Request(rid=8, prompt=np.arange(3),
                                    sampling=SamplingParams(temperature=0.8)))
-    with pytest.raises(NotImplementedError):
-        eng.preempt(0)
-    for kw in ({"paged": True}, {"draft_params": {"x": 1}}, {"mesh": 1},
-               {"faults": 1}, {"temperature": 0.5}):
+    assert not eng.preempt(0)  # nothing live
+    for kw in ({"draft_params": {"x": 1}}, {"mesh": 1}, {"faults": 1},
+               {"temperature": 0.5}):
         with pytest.raises(NotImplementedError):
             _port_engine(**kw)
 

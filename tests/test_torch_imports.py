@@ -54,8 +54,10 @@ def test_reference_import_pattern():
 
 def test_every_port_module_is_checked():
     """The import guards above cover the modules of every slice (the
-    W3A8 path, the quantizer kernel and the checkpoints included)."""
+    W3A8 path, the quantizer kernel, the checkpoints and the paged cache
+    included)."""
     names = {p.relative_to(PORT).with_suffix("").as_posix() for p in SOURCES
              if PORT in p.parents}
     assert {"core/act_quant", "kernels/quantize", "kernels/itq3",
-            "checkpoint/ckpt", "serve/quantized", "launch/serve"} <= names
+            "checkpoint/ckpt", "serve/quantized", "launch/serve",
+            "serve/paged"} <= names
