@@ -21,6 +21,13 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    1e-3, codes equal on at least 0.999 of the elements: f16 ties only).
    The paged attention must give the dense kernel's bits over the gathered
    view of the same pool, and agree with its plain version within 1e-4.
+   Both attention instantiations must give the same bits on two calls, and
+   are also checked, untimed, at the edges of their key splits (an empty
+   row, a limit on a split boundary, query tiles straddling one, the full
+   cache), where the empty rows must end exactly m = -1e30, l = 0,
+   acc = 0; the grid and ptxas's registers for both are printed, and the
+   dense kernel is checked and timed under other cuts of its keys and
+   queries beside the one it picks.
 4. The float path: serve smollm-135m at full width (seeded random weights,
    quantized by the port to itq3_s, rotated-int8 KV cache, greedy) through
    ``ServeEngine``: 8 requests over 4 slots. The launch counters are reset
@@ -85,7 +92,8 @@ from repro_torch.core.fwht import hadamard_matrix  # noqa: E402
 from repro_torch.core.quantize import to_blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_q8 import (  # noqa: E402
-    attn_q8, attn_q8_paged, attn_q8_paged_ref, attn_q8_ref, paged_row_table,
+    attn_grid, attn_q8, attn_q8_paged, attn_q8_paged_ref, attn_q8_ref,
+    paged_row_table,
 )
 from repro_torch.kernels.fwht import fwht, fwht_ref  # noqa: E402
 from repro_torch.kernels.itq3 import (  # noqa: E402
@@ -310,6 +318,150 @@ ATTN_CASES = (
     ("decode TQ=1", 1, [5, 64, 130, 255], [0, 0, 0, 0], False),
     ("prefill TQ=64", 64, [64, 74, 164, 256], [0, 10, 100, 192], True),
 )
+# Untimed edges of the kernel's key splits, per slot (kv_len, q_offset):
+# decode: an empty row, a split boundary (32-key splits), two boundaries,
+# the full cache; prefill (64-key splits): a causally empty query tile
+# (kv_len 0 past offset 0), a limit on a split boundary, query tiles
+# straddling a boundary (rows empty in the second split only), full T.
+ATTN_EDGES = (
+    ("edges decode TQ=1", 1, [0, 32, 64, 256], [0, 0, 0, 0], False, [0]),
+    ("edges prefill TQ=64", 64, [0, 64, 104, 256], [20, 0, 40, 192], True,
+     [0]),
+)
+
+
+def _bit_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _empty_exact(out, rows) -> bool:
+    acc, m, l = (x[rows] for x in out)
+    return bool((m == -1e30).all() and (l == 0).all() and (acc == 0).all())
+
+
+def attn_grid_report(report: dict) -> None:
+    """The kernel's grid at phase 3's shapes, and ptxas's registers and
+    spills for both instantiations at head_dim 64."""
+    grids = {}
+    for label, tq, *_ in ATTN_CASES:
+        tqb, st, grid = attn_grid(12, tq, 3, 256)
+        grids[label] = dict(query_tile=tqb, split_keys=32 * st, grid=grid)
+        print(f"  attn grid {label}: {grid[0]} splits x {grid[1]} query tiles"
+              f" x {grid[2]} rows = {math.prod(grid)} blocks ({32 * st}-key "
+              f"splits, {tqb} queries x 3 heads per block)", flush=True)
+    report["attn_grid"] = grids
+    regs, entry = {}, None
+    for line in report["ptxas"].get("attn_q8", "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            regs.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    report["attn_ptxas"] = regs
+    for entry, lines in regs.items():
+        for inst, tag in (("ILb0ELi64E", "dense"), ("ILb1ELi64E", "paged")):
+            if inst in entry:
+                print(f"  ptxas attn_q8_kernel<{tag}, HD=64>: "
+                      f"{'; '.join(lines)}", flush=True)
+
+
+def check_attn_edges(gen: torch.Generator, dev, report: dict) -> None:
+    """The split edges at phase 3's widths, untimed: dense and paged
+    against the plain version (1e-4), paged equal to dense over the
+    gathered view, two calls bit-equal, the empty rows exactly
+    m = -1e30, l = 0, acc = 0."""
+    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
+    maxb = t // BLOCK_SIZE
+    table = (1 + torch.randperm(slots * maxb, generator=gen, device=dev)
+             ).reshape(slots, maxb).to(torch.int32)
+    rows = paged_row_table(table, kvh)
+    out = {}
+    for label, tq, lens, offs, causal, empty in ATTN_EDGES:
+        kv_len = [x for x in lens for _ in range(kvh)]
+        q_off = [x for x in offs for _ in range(kvh)]
+        pool, kw = _attn_case(gen, dev, r=(slots * maxb + 1) * kvh, tq=1, g=g,
+                              hd=hd, t=BLOCK_SIZE, kv_len=[0], q_offset=[0],
+                              causal=causal)
+        _, kp, ksp, vp, vsp, _, _ = pool
+        q = torch.randn(slots * kvh, tq, g, hd, generator=gen, device=dev)
+        kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        off = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        pargs = (q, kp, ksp, vp, vsp, kl, off, rows)
+        pkw = dict(kw, block_size=BLOCK_SIZE)
+        dargs = (q, kp[rows].reshape(-1, t, hd).contiguous(),
+                 ksp[rows].reshape(-1, t).contiguous(),
+                 vp[rows].reshape(-1, t, hd).contiguous(),
+                 vsp[rows].reshape(-1, t).contiguous(), kl, off)
+        dense, paged = attn_q8(*dargs, **kw), attn_q8_paged(*pargs, **pkw)
+        errs = _attn_errs(dense, attn_q8_ref(*dargs, **kw))
+        empty_rows = [s * kvh + h for s in empty for h in range(kvh)]
+        res = dict(
+            rel=errs["rel"],
+            paged_vs_dense=max((a - b).abs().max().item()
+                               for a, b in zip(paged, dense)),
+            dense_deterministic=_bit_equal(dense, attn_q8(*dargs, **kw)),
+            paged_deterministic=_bit_equal(paged,
+                                           attn_q8_paged(*pargs, **pkw)),
+            empty_exact=_empty_exact(dense, empty_rows)
+            and _empty_exact(paged, empty_rows))
+        out[label] = res
+        print(f"  attn_q8 {label:22s} rel {res['rel']:.2e} | paged vs dense "
+              f"{res['paged_vs_dense']} | two calls bit-equal "
+              f"{res['dense_deterministic']} / {res['paged_deterministic']} "
+              f"| empty rows exact {res['empty_exact']}", flush=True)
+        if not (res["rel"] <= KERNEL_REL_TOL and res["paged_vs_dense"] == 0
+                and res["dense_deterministic"] and res["paged_deterministic"]
+                and res["empty_exact"]):
+            raise AssertionError(f"attn_q8 {label}: {res}")
+    report["attn_edges"] = out
+
+
+# Other cuts of phase 3's attention shapes, (query tile, split tiles):
+# the kernel at each, against the plain version and timed beside the cut
+# that attn_grid picks, so the choice rests on a measurement.
+ATTN_CUTS = {"decode TQ=1": [(1, 1), (1, 2), (1, 4), (1, 8)],
+             "prefill TQ=64": [(10, 1), (10, 2), (10, 4), (10, 8), (5, 1),
+                               (5, 2), (5, 4), (2, 1), (2, 2)]}
+
+
+def attn_cut_sweep(gen: torch.Generator, dev, report: dict) -> None:
+    """The dense kernel at phase 3's timed rows under other cuts (the
+    wrapper's attn_grid replaced for the sweep only): every cut within 1e-4
+    of the plain version and deterministic; times printed, not summed into
+    the kernel line."""
+    from repro_torch.kernels import attn_q8 as attn_mod
+
+    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
+    chosen = attn_mod.attn_grid
+    out = {}
+    try:
+        for label, tq, lens, offs, causal in ATTN_CASES:
+            kv_len = [x for x in lens for _ in range(kvh)]
+            q_off = [x for x in offs for _ in range(kvh)]
+            args, kw = _attn_case(gen, dev, r=slots * kvh, tq=tq, g=g, hd=hd,
+                                  t=t, kv_len=kv_len, q_offset=q_off,
+                                  causal=causal)
+            want = attn_q8_ref(*args, **kw)
+            pick = chosen(slots * kvh, tq, g, t)[:2]
+            row = {}
+            for tqb, st in ATTN_CUTS[label]:
+                attn_mod.attn_grid = (
+                    lambda r, tq_, g_, t_, tqb=tqb, st=st:
+                    (tqb, st, (-(-t_ // (32 * st)), -(-tq_ // tqb), r)))
+                got = attn_q8(*args, **kw)
+                rel = _attn_errs(got, want)["rel"]
+                if not (rel <= KERNEL_REL_TOL
+                        and _bit_equal(got, attn_q8(*args, **kw))):
+                    raise AssertionError(f"attn_q8 {label} cut {tqb}x{st}: "
+                                         f"rel {rel:.2e} or not deterministic")
+                row[f"{tqb}x{st}"] = device_ms(lambda: attn_q8(*args, **kw))
+            out[label] = row
+            print(f"  attn cuts {label} (query tile x split tiles: ms; "
+                  f"attn_grid picks {pick[0]}x{pick[1]}): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+                  flush=True)
+    finally:
+        attn_mod.attn_grid = chosen
+    report["attn_cuts_ms"] = out
 
 
 def check_attn(led: Ledger, gen: torch.Generator, dev) -> None:
@@ -320,6 +472,8 @@ def check_attn(led: Ledger, gen: torch.Generator, dev) -> None:
         args, kw = _attn_case(gen, dev, r=slots * kvh, tq=tq, g=g, hd=hd, t=t,
                               kv_len=kv_len, q_offset=q_off, causal=causal)
         got, want = attn_q8(*args, **kw), attn_q8_ref(*args, **kw)
+        if not _bit_equal(got, attn_q8(*args, **kw)):
+            raise AssertionError(f"attn_q8 {label}: two calls differ")
         q, kc, ks, vc, vs, _, _ = args
         mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
         nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
@@ -378,6 +532,8 @@ def check_attn_paged(led: Ledger, gen: torch.Generator, dev,
         pargs = (q, kp, ksp, vp, vsp, kl, off, rows)
         pkw = dict(kw, block_size=BLOCK_SIZE)
         got = attn_q8_paged(*pargs, **pkw)
+        if not _bit_equal(got, attn_q8_paged(*pargs, **pkw)):
+            raise AssertionError(f"attn_q8_paged {label}: two calls differ")
         dense = (q, kp[rows].reshape(-1, t, hd).contiguous(),
                  ksp[rows].reshape(-1, t).contiguous(),
                  vp[rows].reshape(-1, t, hd).contiguous(),
@@ -1010,6 +1166,9 @@ def main(argv=None) -> int:
     check_itq3_int8(led, gen, dev, int8_weights(gen, dev), report)
     check_quantize(led, gen, dev, report)
     check_attn_paged(led, gen, dev, report)
+    check_attn_edges(gen, dev, report)
+    attn_grid_report(report)
+    attn_cut_sweep(gen, dev, report)
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the

@@ -19,6 +19,13 @@ the kernel (or, with ``backend="ref"``, the plain versions
 :func:`paged_to_dense` of a paged cache), merge the decode self token,
 normalize and apply the final inverse FWHT in PyTorch. A cache dict with a
 ``"table"`` entry is paged.
+
+The kernel splits each row's keys across blocks and combines the splits'
+partial ``(acc, m, l)`` in split order (:func:`attn_grid` picks the cut
+from the static shapes; :func:`attn_q8_split_ref` is the plain version of
+that split-and-combine, for the tests). Its workspace and its zeroed
+ticket array persist per device and are reused by every call, which is
+safe because the calls run in order on one stream.
 """
 from __future__ import annotations
 
@@ -30,19 +37,87 @@ import torch
 from repro_torch.core.fwht import fwht, is_pow2
 from repro_torch.kernels import _build
 
-__all__ = ["attn_q8", "attn_q8_ref", "attn_q8_paged", "attn_q8_paged_ref",
-           "decode_attn_q8", "decode_attn_q8_ref", "prefill_attn_q8",
-           "prefill_attn_q8_ref", "paged_row_table", "paged_to_dense",
-           "ATTN_BACKENDS"]
+__all__ = ["attn_q8", "attn_q8_ref", "attn_q8_split_ref", "attn_q8_paged",
+           "attn_q8_paged_ref", "attn_grid", "decode_attn_q8",
+           "decode_attn_q8_ref", "prefill_attn_q8", "prefill_attn_q8_ref",
+           "paged_row_table", "paged_to_dense", "ATTN_BACKENDS"]
 
 NEG_INF = -1e30
 ATTN_BACKENDS = ("auto", "ref", "cuda")
-_ROWS_PER_BLOCK = 32  # query rows (TQB * G) one thread block holds
+ROWS_PER_BLOCK = 32  # query rows (TQB * G) one thread block holds
+KEY_TILE = 32  # keys per tile; a split is a run of whole tiles
+MAX_SPLIT_TILES = 16  # tiles per split (the kernel's shared key offsets)
+MAX_SPLITS = 16  # splits per row the combine reads, up to 16 tiles each
 
-_SIG = {"attn_q8_launch": (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 6
+_SIG = {"attn_q8_launch": (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 7
         + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p),
-        "attn_q8_paged_launch": (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 8
+        "attn_q8_paged_launch": (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 9
         + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)}
+_SCRATCH: dict = {}  # (device, name) -> persistent workspace / tickets
+
+
+def attn_grid(r: int, tq: int, g: int, t: int):
+    """The kernel's cut, from static shapes only (never ``kv_len``'s
+    values): ``(tqb, split_tiles, grid)``. A block holds ``tqb`` query
+    positions (all G heads of each, up to 32 rows), so one K/V tile feeds
+    as many rows as it can; a split is one 32-key tile while that gives at
+    most ``MAX_SPLITS`` splits, else the fewest tiles (up to 16) that keep
+    to it, so the combine reads a bounded number of partials. The
+    shortest split fills the card best: on the H100 at smollm-135m's rows,
+    ``chip_smoke.py`` phase 3 times every longer split, and fewer query
+    positions per block, as slower. ``grid`` is (splits, query tiles,
+    rows)."""
+    if g > ROWS_PER_BLOCK:
+        raise ValueError(f"attn_q8: {g} query heads per KV head; the kernel "
+                         f"holds at most {ROWS_PER_BLOCK}")
+    tqb = max(1, min(tq, ROWS_PER_BLOCK // g))
+    tiles = max(1, -(-t // KEY_TILE))
+    st = min(MAX_SPLIT_TILES, -(-tiles // MAX_SPLITS))
+    return tqb, st, (-(-tiles // st), -(-tq // tqb), r)
+
+
+def attn_q8_split_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len,
+                      q_offset, *, sm_scale: float, causal: bool,
+                      split_keys: int):
+    """Plain version of the kernel's split-and-combine: the plain
+    formulas of :func:`attn_q8_ref` over each run of ``split_keys`` keys
+    give the split's partial ``(acc, m, l)``; then, per query row, over the
+    splits that start below its limit (``kv_len`` clamped to T, and with
+    ``causal`` its own position + 1), in ascending order: ``m = max m_s``,
+    ``l = sum l_s e^(m_s - m)``, ``acc = sum acc_s e^(m_s - m)``. A row with
+    no such split gets ``m = -1e30, l = 0, acc = 0``. The tests hold it
+    against the plain version and the reference; the main path never
+    calls it."""
+    r, tq, g, hd = q_rot.shape
+    t = k_codes.shape[1]
+    dev = q_rot.device
+    limit = torch.clamp(kv_len.to(torch.int64), max=t)[:, None].expand(r, tq)
+    if causal:
+        qpos = (q_offset.to(torch.int64)[:, None]
+                + torch.arange(tq, device=dev)[None, :])
+        limit = torch.minimum(limit, qpos + 1)
+    limit = limit[:, :, None, None]  # (R, TQ, 1, 1)
+    m = torch.full((r, tq, g, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((r, tq, g, hd), dtype=torch.float32, device=dev)
+    parts = []
+    for t0 in range(0, t, split_keys):
+        t1 = min(t0 + split_keys, t)
+        lens = torch.clamp(kv_len.to(torch.int64) - t0, 0, t1 - t0)
+        offs = q_offset.to(torch.int64) - t0
+        parts.append((t0, attn_q8_ref(
+            q_rot, k_codes[:, t0:t1].contiguous(),
+            k_scale[:, t0:t1].contiguous(), v_codes[:, t0:t1].contiguous(),
+            v_scale[:, t0:t1].contiguous(), lens.to(torch.int32),
+            offs.to(torch.int32), sm_scale=sm_scale, causal=causal)))
+    for t0, (_, m_s, _) in parts:
+        m = torch.where(t0 < limit, torch.maximum(m, m_s), m)
+    for t0, (acc_s, m_s, l_s) in parts:
+        used = t0 < limit
+        e = torch.exp(m_s - m)
+        l = torch.where(used, l + l_s * e, l)
+        acc = torch.where(used, acc + acc_s * e, acc)
+    return acc, m, l
 
 
 def attn_q8_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset,
@@ -79,11 +154,35 @@ def _check_head_dim(what: str, hd: int) -> None:
                          f"in [32, 128]")
 
 
-def _outputs(q_rot):
+def check_aligned(what: str, *planes) -> None:
+    """Raise unless every code plane starts on a 16-byte boundary: the
+    kernel copies 16 codes at a time."""
+    for p in planes:
+        if p.data_ptr() % 16:
+            raise ValueError(f"{what}: code plane at {p.data_ptr():#x} is "
+                             f"not 16-byte aligned")
+
+
+def _scratch(device, name: str, n: int, dtype, zero: bool):
+    buf = _SCRATCH.get((device, name))
+    if buf is None or buf.numel() < n:
+        buf = (torch.zeros if zero else torch.empty)(
+            max(n, 1), dtype=dtype, device=device)
+        _SCRATCH[(device, name)] = buf
+    return buf
+
+
+def _launch_args(q_rot, t: int):
+    """Outputs, workspace, tickets and the cut for one launch."""
     r, tq, g, hd = q_rot.shape
-    acc = torch.empty((r, tq, g, hd), dtype=torch.float32, device=q_rot.device)
-    m = torch.empty((r, tq, g, 1), dtype=torch.float32, device=q_rot.device)
-    return acc, m, torch.empty_like(m), max(1, min(tq, _ROWS_PER_BLOCK // g))
+    dev = q_rot.device
+    acc = torch.empty((r, tq, g, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((r, tq, g, 1), dtype=torch.float32, device=dev)
+    tqb, st, (nsplit, nqt, _) = attn_grid(r, tq, g, t)
+    ws = _scratch(dev, "ws", nsplit * r * tq * g * (hd + 2) if nsplit > 1
+                  else 0, torch.float32, zero=False)
+    ticket = _scratch(dev, "ticket", r * nqt, torch.int32, zero=True)
+    return acc, m, torch.empty_like(m), ws, ticket, tqb, st
 
 
 def attn_q8(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset, *,
@@ -107,14 +206,15 @@ def attn_q8(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, q_offset, *,
                            q_offset, sm_scale=sm_scale, causal=causal)
     if not q_rot.is_cuda:
         raise ValueError(f"attn_q8: unsupported device {q_rot.device}")
-    acc, m, l, tqb = _outputs(q_rot)
+    check_aligned("attn_q8", k_codes, v_codes)
+    acc, m, l, ws, ticket, tqb, st = _launch_args(q_rot, t)
     lib = _build.library("attn_q8", _SIG)
     _build.check(lib.attn_q8_launch(
         q_rot.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
         v_codes.data_ptr(), v_scale.data_ptr(), kv_len.data_ptr(),
         q_offset.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        r, tq, g, hd, t, tqb, float(sm_scale), int(causal),
-        _build.stream_of(q_rot)), "attn_q8")
+        ws.data_ptr(), ticket.data_ptr(), r, tq, g, hd, t, tqb, st,
+        float(sm_scale), int(causal), _build.stream_of(q_rot)), "attn_q8")
     _build.launches["attn_q8"] += 1
     return acc, m, l
 
@@ -178,15 +278,16 @@ def attn_q8_paged(q_rot, k_pool, k_scale_pool, v_pool, v_scale_pool, kv_len,
                                  causal=causal)
     if not q_rot.is_cuda:
         raise ValueError(f"attn_q8_paged: unsupported device {q_rot.device}")
-    acc, m, l, tqb = _outputs(q_rot)
+    check_aligned("attn_q8_paged", k_pool, v_pool)
+    acc, m, l, ws, ticket, tqb, st = _launch_args(q_rot, maxb * block_size)
     lib = _build.library("attn_q8", _SIG)
     _build.check(lib.attn_q8_paged_launch(
         q_rot.data_ptr(), k_pool.data_ptr(), k_scale_pool.data_ptr(),
         v_pool.data_ptr(), v_scale_pool.data_ptr(), kv_len.data_ptr(),
         q_offset.data_ptr(), table.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), r, tq, g, hd, pr, block_size, maxb, tqb,
-        float(sm_scale), int(causal), _build.stream_of(q_rot)),
-        "attn_q8_paged")
+        l.data_ptr(), ws.data_ptr(), ticket.data_ptr(), r, tq, g, hd, pr,
+        block_size, maxb, tqb, st, float(sm_scale), int(causal),
+        _build.stream_of(q_rot)), "attn_q8_paged")
     _build.launches["attn_q8_paged"] += 1
     return acc, m, l
 
