@@ -27,7 +27,12 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    cache), where the empty rows must end exactly m = -1e30, l = 0,
    acc = 0; the grid and ptxas's registers for both are printed, and the
    dense kernel is checked and timed under other cuts of its keys and
-   queries beside the one it picks.
+   queries beside the one it picks. ``itq3_matmul`` (TF32 tensor cores,
+   its bound counted at the TF32 rate) must give the same bits on two
+   calls; it is checked untimed at the edges of its tiles and splits (all
+   five formats, both modes, ragged M and N, one block and six), timed
+   under every row tile and split count at the serving shapes beside the
+   cut ``matmul_tiles`` picks, and must build without a register spill.
 4. The float path: serve smollm-135m at full width (seeded random weights,
    quantized by the port to itq3_s, rotated-int8 KV cache, greedy) through
    ``ServeEngine``: 8 requests over 4 slots. The launch counters are reset
@@ -72,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -113,6 +119,10 @@ from repro_torch.kernels.quantize import (  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
+# The dense TF32 tensor-core rate: itq3_matmul's products run there, two
+# TF32 products per f32 product in activations mode (x split into hi and
+# lo halves), three in weights mode, and its bound counts them so.
+PEAK_TF32_FLOPS = 494.7e12
 # Kernel vs plain version: both f32, summed in a different order (warp
 # shuffles, tiles, online softmax against one matmul / plain softmax), so
 # they agree to a few ulps of the largest magnitude, well inside 1e-4.
@@ -256,7 +266,13 @@ def check_fwht(led: Ledger, gen: torch.Generator, dev) -> None:
                 nbytes=2 * m * k * 4, flops=m * k * (8 + 1))
 
 
-def check_itq3(led: Ledger, gen: torch.Generator, dev, weights) -> None:
+def check_itq3(led: Ledger, gen: torch.Generator, dev, weights,
+               report: dict) -> None:
+    """The float pair at the main-path shapes, both modes. itq3_matmul
+    must also give the same bits on two calls (its split-K combine runs in
+    a fixed order); its bound counts its TF32 products, and the f32
+    CUDA-core bound of the same shapes is reported beside it."""
+    f32_bound = {}
     for name, qt in weights.items():
         d = qt.data
         n, kb = d["plane2"].shape[:2]
@@ -277,13 +293,169 @@ def check_itq3(led: Ledger, gen: torch.Generator, dev, weights) -> None:
                     return itq3_matmul_ref(x, d["plane2"], d["plane1"],
                                            d["scales"], d["zps"],
                                            rotate_weights=rotate)
-                err, rel = rel_err(run(), plain())
+                got = run()
+                err, rel = rel_err(got, plain())
                 nbytes = m * kpad * 4 + weight_bytes(qt) + m * n * 4
                 flops = 2 * m * n * kpad + (n * kb * 256 * 9 if rotate else 0)
-                led.add(kernel, f"{name} M={m} rotate={rotate}", err=err,
+                peak = PEAK_F32_FLOPS
+                shape = f"{name} M={m} rotate={rotate}"
+                if kernel == "itq3_matmul":
+                    if not torch.equal(got, run()):
+                        raise AssertionError(f"itq3_matmul {shape}: two "
+                                             f"calls differ")
+                    f32_bound[shape] = bound_ms(nbytes, flops)[0]
+                    flops = 2 * m * n * kpad * (3 if rotate else 2)
+                    peak = PEAK_TF32_FLOPS
+                led.add(kernel, shape, err=err,
                         rel=rel, ms=device_ms(run), plain_ms=device_ms(plain),
                         library_ms=device_ms(lambda x=x: x @ w),
-                        nbytes=nbytes, flops=flops)
+                        nbytes=nbytes, flops=flops, peak_ops=peak)
+    report["itq3_matmul_f32_core_bound_ms"] = f32_bound
+    main = sum(v for k, v in f32_bound.items() if "rotate=False" in k)
+    print(f"  itq3_matmul: two calls bit-equal at every shape; bound on the "
+          f"f32 CUDA cores over the main-path shapes {main:.4f} ms (the "
+          f"rows above: TF32 tensor cores)", flush=True)
+
+
+def ternary_weight(fmt: str, k: int, n: int, gen, dev):
+    """A seeded (K, N) weight quantized by the port to ``fmt``. quip3's
+    planes are itq3_s planes of the sign-flipped weight D W: the port does
+    not draw quip3's sign diagonal yet, and the kernel sees the same
+    flags."""
+    w = torch.randn(k, n, generator=gen, device=dev) / math.sqrt(k)
+    if fmt != "quip3":
+        return formats.quantize(w, fmt)
+    sign = torch.randint(0, 2, (k, 1), generator=gen, device=dev) * 2 - 1
+    return formats.quantize(w * sign, "itq3_s")
+
+
+MATMUL_EDGE_FORMATS = ("iq3_s", "quip3", "itq3_s", "itq3_s_sub", "itq3_x")
+MATMUL_EDGE_M = (1, 17, 255, 256, 300)
+MATMUL_EDGE_NKB = ((24, 1), (24, 6), (192, 1), (192, 6))
+MATMUL_EDGE_SUB = (1, 2, 16, 32, 128, 256)  # besides itq3_s_sub's 8
+
+
+def check_matmul_edges(gen: torch.Generator, dev, report: dict) -> None:
+    """itq3_matmul untimed at the edges of its tiles and splits: all five
+    formats (sub-blocks, the five-level escape), both modes, ragged M and
+    N, one block and six, then other sub-block counts: within 1e-4 of the
+    plain version, two calls bit-equal."""
+    worst, cases = 0.0, 0
+    for fmt in MATMUL_EDGE_FORMATS:
+        for n, kb in MATMUL_EDGE_NKB:
+            qt = ternary_weight(fmt, kb * 256, n, gen, dev)
+            d, meta = qt.data, qt.meta
+            planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+            for rotate in (False, True):
+                kw = dict(rotate_weights=rotate, fivelevel=meta.fivelevel,
+                          sub_blocks=meta.sub_blocks)
+                for m in MATMUL_EDGE_M:
+                    x = torch.randn(m, kb * 256, generator=gen, device=dev)
+                    got = itq3_matmul(x, *planes, **kw)
+                    _, rel = rel_err(got, itq3_matmul_ref(x, *planes, **kw))
+                    same = torch.equal(got, itq3_matmul(x, *planes, **kw))
+                    if not (rel <= KERNEL_REL_TOL and same):
+                        raise AssertionError(
+                            f"itq3_matmul edge {fmt} M={m} N={n} KB={kb} "
+                            f"rotate={rotate}: rel {rel:.2e}, bit-equal "
+                            f"{same}")
+                    worst, cases = max(worst, rel), cases + 1
+    for sub in MATMUL_EDGE_SUB:  # other sub-block counts, N = 24, KB = 6
+        qt = formats.quantize(
+            torch.randn(1536, 24, generator=gen, device=dev) / math.sqrt(
+                1536), "itq3_s_sub", sub_blocks=sub)
+        d = qt.data
+        planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+        for rotate in (False, True):
+            for m in (17, 256):
+                x = torch.randn(m, 1536, generator=gen, device=dev)
+                kw = dict(rotate_weights=rotate, sub_blocks=sub)
+                got = itq3_matmul(x, *planes, **kw)
+                _, rel = rel_err(got, itq3_matmul_ref(x, *planes, **kw))
+                if not rel <= KERNEL_REL_TOL:
+                    raise AssertionError(f"itq3_matmul edge sub_blocks={sub}"
+                                         f" M={m} rotate={rotate}: rel "
+                                         f"{rel:.2e}")
+                worst, cases = max(worst, rel), cases + 1
+    report["matmul_edges"] = dict(cases=cases, max_rel_err=worst)
+    print(f"  itq3_matmul edges: {cases} cases (5 formats x 2 modes x M "
+          f"{MATMUL_EDGE_M} x (N, KB) {MATMUL_EDGE_NKB}; sub_blocks "
+          f"{MATMUL_EDGE_SUB} x 2 modes x M (17, 256)): max rel error "
+          f"{worst:.2e}, two calls bit-equal", flush=True)
+
+
+def matmul_tile_sweep(gen: torch.Generator, dev, weights,
+                      report: dict) -> None:
+    """itq3_matmul at phase 3's four main-path shapes under every row tile
+    and split count (the wrapper's matmul_tiles replaced for the sweep
+    only): each within 1e-4 of the plain version and deterministic; times
+    printed and written to the details, not summed into the kernel line."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    chosen = itq3_mod.matmul_tiles
+    out = {}
+    try:
+        for name, qt in weights.items():
+            d = qt.data
+            n, kb = d["plane2"].shape[:2]
+            planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+            x = torch.randn(256, kb * 256, generator=gen, device=dev)
+            want = itq3_matmul_ref(x, *planes, rotate_weights=False)
+            pick = chosen(256, n, kb)
+            splits = sorted({-(-kb // -(-kb // s)) for s in range(
+                1, min(kb, itq3_mod.MATMUL_MAX_SPLITS) + 1)})
+            row = {}
+            for bm in itq3_mod.MATMUL_BM:
+                for sp in splits:
+                    itq3_mod.matmul_tiles = lambda m_, n_, kb_, t=(bm, sp): t
+
+                    def run():
+                        return itq3_matmul(x, *planes, rotate_weights=False)
+                    got = run()
+                    _, rel = rel_err(got, want)
+                    if not (rel <= KERNEL_REL_TOL and torch.equal(got, run())):
+                        raise AssertionError(f"itq3_matmul {name} tile "
+                                             f"{bm}x{sp}: rel {rel:.2e} or "
+                                             f"not deterministic")
+                    row[f"{bm}x{sp}"] = device_ms(run)
+            out[name] = dict(pick=f"{pick[0]}x{pick[1]}", ms=row)
+            print(f"  itq3_matmul tiles {name} M=256 N={n} KB={kb} (rows x "
+                  f"splits: ms; matmul_tiles picks {pick[0]}x{pick[1]}): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+                  flush=True)
+    finally:
+        itq3_mod.matmul_tiles = chosen
+    report["matmul_tiles_ms"] = out
+
+
+def ptxas_entries(report: dict, source: str) -> dict:
+    """ptxas's register and spill lines per kernel entry of ``source``."""
+    regs, entry = {}, None
+    for line in report["ptxas"].get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            regs.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return regs
+
+
+def matmul_ptxas_report(report: dict) -> None:
+    """Registers and spills of every itq3_matmul instantiation (rows per
+    block, weight operand); fails on a spill."""
+    regs = ptxas_entries(report, "itq3_matmul")
+    report["matmul_ptxas"] = regs
+    if not regs:
+        print("  ptxas itq3_matmul: no report (the library was cached)",
+              flush=True)
+    modes = ("wint", "d_sub*q", "rotated")
+    for entry, lines in regs.items():
+        wm, mode = re.search(r"ILi(\d+)ELi(\d)E", entry).groups()
+        text = "; ".join(lines)
+        print(f"  ptxas itq3_matmul_kernel<{16 * int(wm)} rows, "
+              f"{modes[int(mode)]}>: {text}", flush=True)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", text)
+        if len(spills) != 2 or any(int(b) for b in spills):
+            raise AssertionError(f"itq3_matmul {entry}: spills ({text})")
 
 
 def _attn_case(gen, dev, *, r, tq, g, hd, t, kv_len, q_offset, causal):
@@ -350,12 +522,7 @@ def attn_grid_report(report: dict) -> None:
               f" x {grid[2]} rows = {math.prod(grid)} blocks ({32 * st}-key "
               f"splits, {tqb} queries x 3 heads per block)", flush=True)
     report["attn_grid"] = grids
-    regs, entry = {}, None
-    for line in report["ptxas"].get("attn_q8", "").splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-        elif entry and ("registers" in line or "spill" in line):
-            regs.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    regs = ptxas_entries(report, "attn_q8")
     report["attn_ptxas"] = regs
     for entry, lines in regs.items():
         for inst, tag in (("ILb0ELi64E", "dense"), ("ILb1ELi64E", "paged")):
@@ -1161,7 +1328,8 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     led = Ledger()
     check_fwht(led, gen, dev)
-    check_itq3(led, gen, dev, quantize_smollm_projections(gen, dev))
+    proj = quantize_smollm_projections(gen, dev)
+    check_itq3(led, gen, dev, proj, report)
     check_attn(led, gen, dev)
     check_itq3_int8(led, gen, dev, int8_weights(gen, dev), report)
     check_quantize(led, gen, dev, report)
@@ -1169,6 +1337,9 @@ def main(argv=None) -> int:
     check_attn_edges(gen, dev, report)
     attn_grid_report(report)
     attn_cut_sweep(gen, dev, report)
+    check_matmul_edges(gen, dev, report)
+    matmul_tile_sweep(gen, dev, proj, report)
+    matmul_ptxas_report(report)
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the

@@ -11,6 +11,19 @@ weights mode); its plain version is :func:`itq3_matmul_ref`:
 * ``itq3_matmul`` (``csrc/itq3_matmul.cu``) replaces
   ``repro/kernels/itq3_matmul.py:itq3_matmul_pallas`` for M > 16.
 
+``itq3_matmul`` runs on the TF32 tensor cores at f32 accuracy. In
+activations mode its weight operand is exact in TF32: ``wint = q - z``
+for block-scaled formats, with ``d`` applied to each 256-block's partial,
+or ``d_sub * q`` for sub-block formats. Only x is split, ``x_hi =
+tf32(x)``, ``x_lo = tf32(x - x_hi)``, and each block's partial is ``x_hi
+. w + x_lo . w``. In weights mode the IFWHT'd weight is split as well and
+three products are summed (``x_hi w_hi + x_hi w_lo + x_lo w_hi``). The
+blocks are summed in ascending K; where :func:`matmul_tiles` cuts K into
+splits (one thread block cluster per output tile), the split partials are
+added in ascending split order, so two calls give the same bits.
+:func:`itq3_matmul_split_ref` is that arithmetic in plain PyTorch, for the
+tests.
+
 The int8 pair is the W3A8 path: ``xq (M, KB*256)`` int8 rotation-domain
 activation codes and their ``xscale (M, 1)`` f32 row scales against the
 exact int8 ``wint = q - z``, with int32 block partials, ``d`` on each block
@@ -25,7 +38,8 @@ is :func:`itq3_matmul_int8_ref`:
   (every W3A8 prefill wave).
 
 The int8 kernels take sub-blocks of 32 elements or more (``sub_blocks`` 0,
-2, 4 or 8: itq3_s_sub has 8); the plain version takes any divisor of 256.
+2, 4 or 8: itq3_s_sub has 8); the plain version and the float kernels take
+any divisor of 256.
 """
 from __future__ import annotations
 
@@ -38,11 +52,16 @@ from repro_torch.core.quantize import decode_values, decode_wint
 from repro_torch.kernels import _build
 
 __all__ = ["itq3_matvec", "itq3_matmul", "itq3_matmul_ref",
-           "itq3_matvec_int8", "itq3_matmul_int8", "itq3_matmul_int8_ref",
-           "MATVEC_MAX_M", "INT8_SUB_BLOCKS"]
+           "itq3_matmul_split_ref", "matmul_operand", "matmul_tiles",
+           "tf32_round", "itq3_matvec_int8", "itq3_matmul_int8",
+           "itq3_matmul_int8_ref", "MATVEC_MAX_M", "INT8_SUB_BLOCKS"]
 
 MATVEC_MAX_M = 16  # decode / small-batch regime; above this, the tiled kernel
 INT8_SUB_BLOCKS = (0, 2, 4, 8)  # what the int8 kernels take: >= 32 per sub
+MATMUL_BN = 64  # output columns per itq3_matmul block
+MATMUL_BM = (32, 64)  # its row tiles: 2 or 4 warps of 16 rows (x 2)
+MATMUL_MAX_SPLITS = 8  # K splits form one cluster: the portable size
+MATMUL_SMS = 132  # SMs of an H100
 
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 _INT8_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
@@ -73,6 +92,97 @@ def itq3_matmul_ref(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
     return torch.matmul(x.to(torch.float32), w.T)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 stored mantissa bits), nearest with ties
+    away from zero: the kernel's ``cvt.rna.tf32.f32``, emulated with
+    integer ops on the f32 bits (add half a TF32 ulp to the magnitude,
+    clear the 13 low bits). Finite inputs."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_operand(plane2, plane1, scales, zps, *, rotate_weights: bool,
+                   fivelevel: bool = False, sub_blocks: int = 0):
+    """The weight operand ``itq3_matmul`` stages, ``(N, KB, 256)`` f32, and
+    the scale ``(N, KB)`` it puts on each block's partial. Activations
+    mode, block-scaled: ``wint = q - z`` and ``d``; sub-block: ``d_sub *
+    q`` and 1. Weights mode: the IFWHT'd ``d * (q - z)`` (or ``d_sub * q``)
+    and 1. In activations mode the operand is exact in TF32."""
+    n, kb = plane2.shape[0], plane2.shape[1]
+    ones = torch.ones((n, kb), dtype=torch.float32, device=plane2.device)
+    if rotate_weights or sub_blocks:
+        return dequant_blocks(plane2, plane1, scales, zps,
+                              rotate_weights=rotate_weights,
+                              fivelevel=fivelevel,
+                              sub_blocks=sub_blocks), ones
+    wint = decode_wint(plane2, plane1, zps, fivelevel=fivelevel,
+                       sub_blocks=0).to(torch.float32)
+    return wint, scales.to(torch.float32)
+
+
+def itq3_matmul_split_ref(x, plane2, plane1, scales, zps, *,
+                          rotate_weights: bool, fivelevel: bool = False,
+                          sub_blocks: int = 0, splits: int = 1):
+    """Plain version of the kernel's arithmetic: x split into TF32 hi/lo
+    halves; per 256-block the partial ``x_hi . w + x_lo . w`` against the
+    :func:`matmul_operand` (three products of hi/lo halves in weights
+    mode), scaled by that block's ``d`` and added in ascending K within
+    each of ``splits`` runs of ``ceil(KB / splits)`` blocks; the runs'
+    sums added in ascending order. The rounding of the operands, the
+    scales and the order of blocks and splits are the kernel's; the
+    tensor cores' own f32 accumulation is taken as exact within a block,
+    the block partial rounded once (the kernel keeps the x_hi products and
+    the others in two accumulators, added per block where d is applied,
+    at the end of the split otherwise). The tests hold it against the
+    plain version and the reference; the main path never calls it."""
+    n, kb = plane2.shape[0], plane2.shape[1]
+    m = x.shape[0]
+    xb = x.to(torch.float32).reshape(m, kb, 256)
+    x_hi = tf32_round(xb)
+    x_lo = tf32_round(xb - x_hi)
+    w, d = matmul_operand(plane2, plane1, scales, zps,
+                          rotate_weights=rotate_weights, fivelevel=fivelevel,
+                          sub_blocks=sub_blocks)
+    if rotate_weights:
+        w_hi = tf32_round(w)
+        w_lo = tf32_round(w - w_hi)
+        prods = ((x_hi, w_hi), (x_hi, w_lo), (x_lo, w_hi))
+    else:
+        prods = ((x_hi, w), (x_lo, w))
+    per = -(-kb // splits)
+    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for s0 in range(0, kb, per):
+        acc = torch.zeros_like(out)
+        for b in range(s0, min(kb, s0 + per)):
+            # the products of TF32 halves are exact in f64; the block's
+            # partial is their f32-rounded sum, and acc = fma(d, P, acc)
+            part = sum(a[:, b].double() @ ww[:, b].double().T
+                       for a, ww in prods).float()
+            acc = (d[:, b].double() * part.double() + acc.double()).float()
+        out = out + acc
+    return out
+
+
+def matmul_tiles(m: int, n: int, kb: int) -> tuple[int, int]:
+    """``itq3_matmul``'s cut, from static shapes only: ``(bm, splits)``.
+    The KB blocks are cut into the most equal splits (a divisor of KB, at
+    most ``MATMUL_MAX_SPLITS``) that keep the grid within two blocks per
+    SM, the most that fit at once; 32-row tiles where 64-row ones would
+    leave more than half the SMs idle even so. ``chip_smoke.py`` phase 3
+    times every cut at the serving shapes on the H100."""
+    def cut(bm):
+        tiles = -(-m // bm) * -(-n // MATMUL_BN)
+        splits = max(s for s in range(1, min(kb, MATMUL_MAX_SPLITS) + 1)
+                     if kb % s == 0 and (s == 1
+                                         or tiles * s <= 2 * MATMUL_SMS))
+        return tiles * splits, splits
+
+    blocks, splits = cut(64)
+    if m <= 32 or 2 * blocks < MATMUL_SMS:
+        return 32, cut(32)[1]
+    return 64, splits
+
+
 def _check(name, x, plane2, plane1, scales, zps, sub_blocks):
     _build.check_operands(name, x.device, (
         (x, torch.float32), (plane2, torch.uint8), (plane1, torch.uint8),
@@ -99,17 +209,22 @@ def _check_shapes(x, plane2, plane1, scales, zps, sub_blocks):
     return m, n, kb
 
 
-def _launch(name, fn, x, plane2, plane1, scales, zps, rotate_weights,
-            fivelevel, sub_blocks):
+def _launch(name, x, plane2, plane1, scales, zps, rotate_weights,
+            fivelevel, sub_blocks, tiles=None):
+    """Launch ``csrc/<name>.cu``; ``tiles(m, n, kb)`` gives the tiled
+    kernel's cut, passed after the flags."""
     if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
     m, n, kb = _check(name, x, plane2, plane1, scales, zps, sub_blocks)
+    cut = tiles(m, n, kb) if tiles else ()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    lib = _build.library(name, {fn: _ARGS})
+    fn = f"{name}_launch"
+    lib = _build.library(name, {fn: _ARGS[:-1] + (ctypes.c_int,) * len(cut)
+                                + _ARGS[-1:]})
     _build.check(getattr(lib, fn)(
         x.data_ptr(), plane2.data_ptr(), plane1.data_ptr(), scales.data_ptr(),
         zps.data_ptr(), out.data_ptr(), m, n, kb, int(rotate_weights),
-        int(fivelevel), int(sub_blocks), _build.stream_of(x)), name)
+        int(fivelevel), int(sub_blocks), *cut, _build.stream_of(x)), name)
     _build.launches[name] += 1
     return out
 
@@ -125,21 +240,23 @@ def itq3_matvec(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
         return itq3_matmul_ref(x, plane2, plane1, scales, zps,
                                rotate_weights=rotate_weights,
                                fivelevel=fivelevel, sub_blocks=sub_blocks)
-    return _launch("itq3_matvec", "itq3_matvec_launch", x, plane2, plane1,
-                   scales, zps, rotate_weights, fivelevel, sub_blocks)
+    return _launch("itq3_matvec", x, plane2, plane1, scales, zps,
+                   rotate_weights, fivelevel, sub_blocks)
 
 
 def itq3_matmul(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
                 fivelevel: bool = False, sub_blocks: int = 0):
     """Tiled ``x (M, KB*256) @ W_hat -> (M, N)`` f32 for any M >= 1 (the
-    serving path sends it M > 16)."""
+    serving path sends it M > 16), cut by :func:`matmul_tiles`."""
     if x.device.type == "cpu":
         _check("itq3_matmul", x, plane2, plane1, scales, zps, sub_blocks)
         return itq3_matmul_ref(x, plane2, plane1, scales, zps,
                                rotate_weights=rotate_weights,
                                fivelevel=fivelevel, sub_blocks=sub_blocks)
-    return _launch("itq3_matmul", "itq3_matmul_launch", x, plane2, plane1,
-                   scales, zps, rotate_weights, fivelevel, sub_blocks)
+    if x.data_ptr() % 16:
+        raise ValueError("itq3_matmul: x must be 16-byte aligned")
+    return _launch("itq3_matmul", x, plane2, plane1, scales, zps,
+                   rotate_weights, fivelevel, sub_blocks, tiles=matmul_tiles)
 
 
 # --- the W3A8 integer pair ---------------------------------------------------
