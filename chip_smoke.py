@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --profile       # also trace a short run of each path
+                                          # (its cut sweeps check, untimed)
 
 It drives the port (``src/repro_torch``) and nothing of the JAX package:
 
@@ -33,6 +34,13 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    five formats, both modes, ragged M and N, one block and six), timed
    under every row tile and split count at the serving shapes beside the
    cut ``matmul_tiles`` picks, and must build without a register spill.
+   The int8 pair is checked untimed at its edges (the three ternary
+   formats, every sub-block count from 1 to 256, ragged M and N, one,
+   three and six blocks, every cut of K): exactly the plain version with
+   unit scales, the bits of ``itq3_matmul_int8_split_ref`` at the cut used
+   and within 1e-5 of the plain version with real ones, the same bits on
+   two calls; it is timed under every cut at the serving shapes, and no
+   instantiation of either source may spill.
 4. The float path: serve smollm-135m at full width (seeded random weights,
    quantized by the port to itq3_s, rotated-int8 KV cache, greedy) through
    ``ServeEngine``: 8 requests over 4 slots. The launch counters are reset
@@ -45,7 +53,8 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
 6. With ``--profile`` only: one shorter serving run (8 new tokens per
    request) under ``torch.profiler``, for the device's busy time, idle
    share and host operator calls (phases 7 and 8 trace their paths the
-   same way).
+   same way). Phase 3's cut sweeps then check every cut without timing
+   it: the plain run beside it times them.
 7. The W3A8 deployable path: quantize the seeded model under the mixed
    policy (tied table q8_0, MLP itq3_s_sub, the rest itq3_s through the
    ``quantize_blocks`` kernel, counted), save it in the reference's
@@ -104,7 +113,8 @@ from repro_torch.kernels.attn_q8 import (  # noqa: E402
 from repro_torch.kernels.fwht import fwht, fwht_ref  # noqa: E402
 from repro_torch.kernels.itq3 import (  # noqa: E402
     dequant_blocks, itq3_matmul, itq3_matmul_int8, itq3_matmul_int8_ref,
-    itq3_matmul_ref, itq3_matvec, itq3_matvec_int8,
+    itq3_matmul_int8_split_ref, itq3_matmul_ref, itq3_matvec,
+    itq3_matvec_int8,
 )
 from repro_torch.kernels.quantize import (  # noqa: E402
     quantize_blocks, quantize_blocks_ref,
@@ -179,6 +189,18 @@ def device_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def cut_ms(fn, timed: bool):
+    """One cut of a sweep: ``device_ms(fn)``, or None where the run checks
+    its cuts without timing them (``--profile``: the plain run of the same
+    call times them)."""
+    return device_ms(fn) if timed else None
+
+
+def cuts_line(row: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} checked"
+                     for k, v in row.items())
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -385,7 +407,7 @@ def check_matmul_edges(gen: torch.Generator, dev, report: dict) -> None:
 
 
 def matmul_tile_sweep(gen: torch.Generator, dev, weights,
-                      report: dict) -> None:
+                      report: dict, timed: bool = True) -> None:
     """itq3_matmul at phase 3's four main-path shapes under every row tile
     and split count (the wrapper's matmul_tiles replaced for the sweep
     only): each within 1e-4 of the plain version and deterministic; times
@@ -417,11 +439,11 @@ def matmul_tile_sweep(gen: torch.Generator, dev, weights,
                         raise AssertionError(f"itq3_matmul {name} tile "
                                              f"{bm}x{sp}: rel {rel:.2e} or "
                                              f"not deterministic")
-                    row[f"{bm}x{sp}"] = device_ms(run)
+                    row[f"{bm}x{sp}"] = cut_ms(run, timed)
             out[name] = dict(pick=f"{pick[0]}x{pick[1]}", ms=row)
             print(f"  itq3_matmul tiles {name} M=256 N={n} KB={kb} (rows x "
                   f"splits: ms; matmul_tiles picks {pick[0]}x{pick[1]}): "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+                  + cuts_line(row),
                   flush=True)
     finally:
         itq3_mod.matmul_tiles = chosen
@@ -439,23 +461,53 @@ def ptxas_entries(report: dict, source: str) -> dict:
     return regs
 
 
+def ptxas_spill_report(report: dict, source: str, label) -> dict:
+    """Registers and spills of every instantiation of ``source`` (``label``
+    names one from its mangled entry); fails on a spill."""
+    regs = ptxas_entries(report, source)
+    if not regs:
+        print(f"  ptxas {source}: no report (the library was cached)",
+              flush=True)
+    for entry, lines in regs.items():
+        text = "; ".join(lines)
+        print(f"  ptxas {label(entry)}: {text}", flush=True)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", text)
+        if len(spills) != 2 or any(int(b) for b in spills):
+            raise AssertionError(f"{source} {entry}: spills ({text})")
+    return regs
+
+
 def matmul_ptxas_report(report: dict) -> None:
     """Registers and spills of every itq3_matmul instantiation (rows per
     block, weight operand); fails on a spill."""
-    regs = ptxas_entries(report, "itq3_matmul")
-    report["matmul_ptxas"] = regs
-    if not regs:
-        print("  ptxas itq3_matmul: no report (the library was cached)",
-              flush=True)
     modes = ("wint", "d_sub*q", "rotated")
-    for entry, lines in regs.items():
+
+    def label(entry):
         wm, mode = re.search(r"ILi(\d+)ELi(\d)E", entry).groups()
-        text = "; ".join(lines)
-        print(f"  ptxas itq3_matmul_kernel<{16 * int(wm)} rows, "
-              f"{modes[int(mode)]}>: {text}", flush=True)
-        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", text)
-        if len(spills) != 2 or any(int(b) for b in spills):
-            raise AssertionError(f"itq3_matmul {entry}: spills ({text})")
+        return f"itq3_matmul_kernel<{16 * int(wm)} rows, {modes[int(mode)]}>"
+    report["matmul_ptxas"] = ptxas_spill_report(report, "itq3_matmul", label)
+
+
+INT8_SCALE_MODES = ("d per block", "8 sub-blocks", "any sub-blocks")
+
+
+def int8_ptxas_report(report: dict) -> None:
+    """Registers and spills of every instantiation of both int8 sources
+    (the matmul's rows per block x scale mode, the matvec's scale mode);
+    fails on a spill."""
+    def mm_label(entry):
+        wm, mode = re.search(r"ILi(\d+)ELi(\d)E", entry).groups()
+        return (f"itq3_matmul_int8_kernel<{16 * int(wm)} rows, "
+                f"{INT8_SCALE_MODES[int(mode)]}>")
+
+    def mv_label(entry):
+        mode = re.search(r"ILi(\d)E", entry).group(1)
+        return f"itq3_matvec_int8_kernel<{INT8_SCALE_MODES[int(mode)]}>"
+    report["int8_ptxas"] = {
+        "itq3_matmul_int8": ptxas_spill_report(report, "itq3_matmul_int8",
+                                               mm_label),
+        "itq3_matvec_int8": ptxas_spill_report(report, "itq3_matvec_int8",
+                                               mv_label)}
 
 
 def _attn_case(gen, dev, *, r, tq, g, hd, t, kv_len, q_offset, causal):
@@ -590,7 +642,8 @@ ATTN_CUTS = {"decode TQ=1": [(1, 1), (1, 2), (1, 4), (1, 8)],
                                (5, 2), (5, 4), (2, 1), (2, 2)]}
 
 
-def attn_cut_sweep(gen: torch.Generator, dev, report: dict) -> None:
+def attn_cut_sweep(gen: torch.Generator, dev, report: dict,
+                   timed: bool = True) -> None:
     """The dense kernel at phase 3's timed rows under other cuts (the
     wrapper's attn_grid replaced for the sweep only): every cut within 1e-4
     of the plain version and deterministic; times printed, not summed into
@@ -620,11 +673,12 @@ def attn_cut_sweep(gen: torch.Generator, dev, report: dict) -> None:
                         and _bit_equal(got, attn_q8(*args, **kw))):
                     raise AssertionError(f"attn_q8 {label} cut {tqb}x{st}: "
                                          f"rel {rel:.2e} or not deterministic")
-                row[f"{tqb}x{st}"] = device_ms(lambda: attn_q8(*args, **kw))
+                row[f"{tqb}x{st}"] = cut_ms(lambda: attn_q8(*args, **kw),
+                                            timed)
             out[label] = row
             print(f"  attn cuts {label} (query tile x split tiles: ms; "
                   f"attn_grid picks {pick[0]}x{pick[1]}): "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in row.items()),
+                  + cuts_line(row),
                   flush=True)
     finally:
         attn_mod.attn_grid = chosen
@@ -796,6 +850,175 @@ def check_itq3_int8(led: Ledger, gen: torch.Generator, dev, weights,
     print(f"  int8 kernels with unit scales: max abs error "
           f"{max(unit_errs.values())} over {len(unit_errs)} shapes "
           f"(exact)", flush=True)
+
+
+def _int8_case(fmt, n, kb, gen, dev, sub_blocks=None):
+    """Seeded (KB*256, N) planes of ``fmt`` and their kwargs. With
+    ``sub_blocks``, the codes of an itq3_s_sub quantization and that many
+    seeded fp16 sub-block scales of the same magnitude (sub-blocks of one
+    element leave the quantizer nothing to scale: every code 0)."""
+    w = torch.randn(kb * 256, n, generator=gen, device=dev) / math.sqrt(
+        kb * 256)
+    qt = formats.quantize(w, fmt)
+    d, meta = qt.data, qt.meta
+    planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+    if sub_blocks is None:
+        return planes, dict(fivelevel=meta.fivelevel,
+                            sub_blocks=meta.sub_blocks)
+    mag = d["scales"].float().abs().mean()
+    scales = (mag * (0.5 + torch.rand(n, kb, sub_blocks, generator=gen,
+                                      device=dev))).half()
+    return ((planes[0], planes[1], scales, planes[3]),
+            dict(fivelevel=meta.fivelevel, sub_blocks=sub_blocks))
+
+
+def _with_cut(kernel, cut):
+    """The int8 wrapper ``kernel`` with its tile rule replaced by ``cut``
+    (None: the wrapper's own), and the K splits it then takes."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    rule = "matvec_int8_tiles" if kernel == "itq3_matvec_int8" \
+        else "matmul_tiles"
+    fn = itq3_matvec_int8 if kernel == "itq3_matvec_int8" \
+        else itq3_matmul_int8
+    own = getattr(itq3_mod, rule)
+
+    def run(xq, xs, planes, kw):
+        if cut is None:
+            return fn(xq, xs, *planes, **kw), own(xq.shape[0],
+                                                  planes[0].shape[0],
+                                                  planes[0].shape[1])[1]
+        setattr(itq3_mod, rule, lambda m_, n_, kb_: cut)
+        try:
+            return fn(xq, xs, *planes, **kw), cut[1]
+        finally:
+            setattr(itq3_mod, rule, own)
+    return run
+
+
+def _int8_edge(kernel, cut, planes, kw, m, gen, dev) -> float:
+    """One int8 case: unit scales exactly the plain version; real scales
+    bit-equal to the split model at the cut used and within INT8_REL_TOL
+    of the plain version; two calls bit-equal. Returns the relative
+    error."""
+    run = _with_cut(kernel, cut)
+    kb = planes[0].shape[1]
+    xq, xs = act_encode(torch.randn(m, kb * 256, generator=gen, device=dev))
+    ones = torch.ones_like(xs)
+    unit = (planes[0], planes[1], torch.ones_like(planes[2]), planes[3])
+    got, splits = run(xq, ones, unit, kw)
+    what = f"{kernel} {kw} M={m} N={planes[0].shape[0]} KB={kb} cut={cut}"
+    if not torch.equal(got, itq3_matmul_int8_ref(xq, ones, *unit, **kw)):
+        raise AssertionError(f"{what}: unit scales not exact")
+    got, splits = run(xq, xs, planes, kw)
+    model = itq3_matmul_int8_split_ref(xq, xs, *planes, splits=splits, **kw)
+    _, rel = rel_err(got, itq3_matmul_int8_ref(xq, xs, *planes, **kw))
+    same = torch.equal(got, run(xq, xs, planes, kw)[0])
+    if not (torch.equal(got, model) and rel <= INT8_REL_TOL and same):
+        raise AssertionError(f"{what}: split model bit-equal "
+                             f"{torch.equal(got, model)}, rel {rel:.2e}, "
+                             f"two calls bit-equal {same}")
+    return rel
+
+
+INT8_EDGE_FORMATS = ("itq3_s", "itq3_s_sub", "itq3_x")
+INT8_EDGE_M = {"itq3_matvec_int8": (1, 4, 16),
+               "itq3_matmul_int8": (17, 255, 256, 300)}
+INT8_EDGE_NKB = ((24, 1), (24, 3), (24, 6), (192, 1), (192, 3), (192, 6))
+INT8_EDGE_SUB = (1, 2, 4, 16, 32, 64, 128, 256)  # besides itq3_s_sub's 8
+
+
+def int8_cuts(kernel: str, kb: int) -> list:
+    """Every cut of ``kernel`` the sweep tries at KB blocks: (rows, splits)
+    for the matmul, (features, splits) for the matvec; splits of equal
+    runs, none empty, within the cluster (matmul) or the block's warps
+    (matvec)."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    splits = sorted({-(-kb // -(-kb // s)) for s in range(1, min(kb, 8) + 1)})
+    if kernel == "itq3_matmul_int8":
+        return [(bm, sp) for bm in itq3_mod.MATMUL_BM for sp in splits]
+    return [(f, sp) for f in itq3_mod.MATVEC_INT8_FEATURES for sp in splits
+            if f // 8 * sp <= itq3_mod.MATVEC_INT8_MAX_WARPS]
+
+
+def check_int8_edges(gen: torch.Generator, dev, report: dict) -> None:
+    """Both int8 kernels untimed at their edges (see _int8_edge): the
+    three ternary formats at ragged M and N, one, three and six blocks, at
+    the wrapper's own cut; every other sub-block count on itq3_s_sub
+    planes; every cut the sweep tries, at six blocks."""
+    worst, cases = 0.0, 0
+    for kernel, ms in INT8_EDGE_M.items():
+        for fmt in INT8_EDGE_FORMATS:
+            for n, kb in INT8_EDGE_NKB:
+                planes, kw = _int8_case(fmt, n, kb, gen, dev)
+                for m in ms:
+                    worst = max(worst, _int8_edge(kernel, None, planes, kw, m,
+                                                  gen, dev))
+                    cases += 1
+        for sub in INT8_EDGE_SUB:
+            planes, kw = _int8_case("itq3_s_sub", 24, 6, gen, dev, sub)
+            for m in (ms[0], ms[-1]):
+                worst = max(worst, _int8_edge(kernel, None, planes, kw, m,
+                                              gen, dev))
+                cases += 1
+        for fmt, sub in (("itq3_s", None), ("itq3_s_sub", None),
+                         ("itq3_s_sub", 16)):
+            planes, kw = _int8_case(fmt, 192, 6, gen, dev, sub)
+            for cut in int8_cuts(kernel, 6):
+                worst = max(worst, _int8_edge(kernel, cut, planes, kw, ms[-1],
+                                              gen, dev))
+                cases += 1
+    report["int8_edges"] = dict(cases=cases, max_rel_err=worst)
+    print(f"  int8 edges: {cases} cases (matvec M {INT8_EDGE_M['itq3_matvec_int8']}"
+          f", matmul M {INT8_EDGE_M['itq3_matmul_int8']}; {INT8_EDGE_FORMATS}"
+          f" x (N, KB) {INT8_EDGE_NKB}; sub_blocks {INT8_EDGE_SUB}; every "
+          f"cut at KB 6): unit scales exact, bit-equal to the split model, "
+          f"max rel error {worst:.2e} vs plain, two calls bit-equal",
+          flush=True)
+
+
+def int8_tile_sweep(gen: torch.Generator, dev, weights, report: dict,
+                    timed: bool = True) -> None:
+    """Both int8 kernels at phase 3's four main-path shapes (M = 4 for the
+    matvec, 256 for the matmul) under every cut (the wrapper's rule
+    replaced for the sweep only): each bit-equal to the split model at its
+    cut; times printed and written to the details, not summed into the
+    kernel lines."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    out = {}
+    for kernel, m, rule in (("itq3_matvec_int8", 4, "matvec_int8_tiles"),
+                            ("itq3_matmul_int8", 256, "matmul_tiles")):
+        out[kernel] = {}
+        for name, qt in weights.items():
+            if "itq3_x" in name:
+                continue
+            d, meta = qt.data, qt.meta
+            n, kb = d["plane2"].shape[:2]
+            planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+            kw = dict(fivelevel=meta.fivelevel, sub_blocks=meta.sub_blocks)
+            xq, xs = act_encode(torch.randn(m, kb * 256, generator=gen,
+                                            device=dev))
+            pick = getattr(itq3_mod, rule)(m, n, kb)
+            row = {}
+            for cut in int8_cuts(kernel, kb):
+                run = _with_cut(kernel, cut)
+                got = run(xq, xs, planes, kw)[0]
+                model = itq3_matmul_int8_split_ref(xq, xs, *planes,
+                                                   splits=cut[1], **kw)
+                if not torch.equal(got, model):
+                    raise AssertionError(f"{kernel} {name} cut {cut}: not "
+                                         f"the split model's bits")
+                row[f"{cut[0]}x{cut[1]}"] = cut_ms(
+                    lambda run=run: run(xq, xs, planes, kw), timed)
+            out[kernel][name] = dict(pick=f"{pick[0]}x{pick[1]}", ms=row)
+            print(f"  {kernel} cuts {name} M={m} N={n} KB={kb} "
+                  f"({'rows' if 'matmul' in kernel else 'features'} x "
+                  f"splits: ms; the rule picks {pick[0]}x{pick[1]}): "
+                  + cuts_line(row),
+                  flush=True)
+    report["int8_tiles_ms"] = out
 
 
 # rotation (8 butterfly stages + the normalization), the two statistics
@@ -1331,15 +1554,19 @@ def main(argv=None) -> int:
     proj = quantize_smollm_projections(gen, dev)
     check_itq3(led, gen, dev, proj, report)
     check_attn(led, gen, dev)
-    check_itq3_int8(led, gen, dev, int8_weights(gen, dev), report)
+    int8w = int8_weights(gen, dev)
+    check_itq3_int8(led, gen, dev, int8w, report)
     check_quantize(led, gen, dev, report)
     check_attn_paged(led, gen, dev, report)
     check_attn_edges(gen, dev, report)
     attn_grid_report(report)
-    attn_cut_sweep(gen, dev, report)
+    attn_cut_sweep(gen, dev, report, timed=not args.profile)
     check_matmul_edges(gen, dev, report)
-    matmul_tile_sweep(gen, dev, proj, report)
+    matmul_tile_sweep(gen, dev, proj, report, timed=not args.profile)
     matmul_ptxas_report(report)
+    check_int8_edges(gen, dev, report)
+    int8_tile_sweep(gen, dev, int8w, report, timed=not args.profile)
+    int8_ptxas_report(report)
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the

@@ -71,22 +71,6 @@ constexpr int kRows = 32;           // query rows a block holds (TQB*G)
 constexpr int kMaxSplitTiles = 16;  // tiles per split (the paged offsets)
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void unpack4(int w, float f[4]) {
   const char4 c = *reinterpret_cast<const char4*>(&w);
   f[0] = (float)c.x;

@@ -71,22 +71,6 @@ constexpr int kKC = 64;       // K per staged x chunk (a quarter block)
 constexpr int kStages = 3;    // x chunks in the ring
 constexpr int kMaxSplits = 8;  // K splits: the portable cluster size
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // f32 -> TF32, nearest with ties away from zero (cvt.rna.tf32.f32's
 // rounding): half a TF32 ulp added to the magnitude, the 13 low bits
 // cleared. Two integer operations at full rate, where the conversion
@@ -121,8 +105,6 @@ __device__ __forceinline__ int swz(int r, int g, int gpr) {
 // (block-scaled, activations mode); kScaledQ = d_sub*q (sub-block,
 // activations mode); kRotated = the IFWHT'd d*(q - z) or d_sub*q.
 enum { kWint = 0, kScaledQ = 1, kRotated = 2 };
-
-constexpr unsigned kZeroCodes = 0x55555555u;  // every 2-bit payload 1: q = 0
 
 // The ternary value q = code - 1 of the 2-bit code at bit `sh` of w, as an
 // exact float without an int-to-float conversion: the code goes into the

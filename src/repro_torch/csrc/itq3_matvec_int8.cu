@@ -4,41 +4,168 @@
 //
 // Replaces: repro/kernels/itq3_matvec.py itq3_matvec_int8_pallas
 // (_itq3_matvec_int8_kernel with decode_wint_tile and _accumulate_int8).
-// Bound on the H100: bytes. Each weight's 2-bit payload is read once (plane1
-// only for the five-level itq3_x; the zero-point only without sub-blocks),
-// with its block's scales, and used for M <= 16 int8 MACs, far below the
-// int8 rate. Design: one warp per
-// output feature n walks its KB blocks in ascending K; lane L owns the
-// elements c*64 + 2L + j (c = 0..3, j = 0..1), so one 2-byte plane2 load
-// gives all eight payloads (common.cuh), expanded in registers to wint
-// and packed four to an int32 in the order (c, j) = (0,0) (0,1) (1,0)
-// (1,1) and (2,0) (2,1) (3,0) (3,1). The block's k-block of xq (M x 256
-// bytes) sits in shared memory in its natural order, where the same four
-// elements are the two bytes at 2L and at 64 + 2L: two 2-byte loads make
-// the matching int32, and __dp4a contracts them. The int32 partial of a
-// block (or of each 32-, 64- or 128-element sub-block) is reduced across
-// the warp exactly, converted to f32 and scaled by d, and the products
-// are added in ascending K without FMA contraction; xscale multiplies
-// once at the end. That is the plain version's order to the last bit.
+//
+// What binds. Bytes, and in practice latency: each weight's 2-bit payload
+// is read once (plane1 only for the five-level itq3_x; the zero-point only
+// without sub-blocks), with its block's scales, for M <= 16 int8 MACs each,
+// far below the __dp4a rate. At smollm-135m's shapes a launch reads a few
+// hundred kilobytes, so its time is the number of dependent round trips
+// to memory and how many SMs have work. The design:
+//
+// - Work. A block owns `features` output features (8 per warp) and cuts K
+//   into `splits` runs of ceil(KB / splits) blocks, one per warp of the
+//   block (kernels/itq3.py matvec_int8_tiles). A quad of lanes owns one
+//   feature; lane q of it reads plane2 bytes 16q..16q+15 of each block of
+//   its run (a quarter of the 64-byte row, one 16-byte load) and holds
+//   elements c*64 + 16q + j (c = 0..3, j = 0..15), decoded bytewise to
+//   wint (common.cuh) and packed four to a word in ascending j.
+// - Loads. A lane issues the loads of up to two blocks of its run (and
+//   plane1's, the zero-points and the scales) before any math, and before
+//   the block stages the (M, K) codes in shared memory once per launch
+//   (cp.async, 16 bytes), so a launch pays about one round trip.
+// - Math. Per row, four 16-byte shared loads give the codes that match
+//   the lane's four words of each chunk (the quads of a warp read the same
+//   addresses: a broadcast), and __dp4a contracts them. The int32 partial
+//   of a block, or of each sub-block, is exact: whole blocks and 64-, 128-
+//   or 256-element sub-blocks are summed over the quad, itq3_s_sub's
+//   32-element ones over lane pairs, narrower ones lie inside one lane and
+//   are taken from it by a shuffle (the segmented reduction). The partials
+//   are scaled by d, f32(P) * d, and added in ascending K, each product and
+//   each sum rounded on its own (scaled_add).
+// - Splits. Each warp leaves its run's sums in shared memory; they are
+//   added in ascending split order, then multiplied by xscale: the bits of
+//   kernels/itq3.py itq3_matmul_int8_split_ref at the same cut.
 #include "common.cuh"
 
 constexpr int kMaxM = 16;
-constexpr int kWarps = 8;
+constexpr int kMaxWarps = 8;    // features / 8 x splits
+constexpr int kRun = 2;         // blocks whose planes a lane holds at once
+constexpr int kMaxSmem = 227 * 1024;
 
-// Two bytes of shared memory at byte offsets a and b, as one int32 of four
-// int8 lanes: [a, a+1, b, b+1].
-__device__ __forceinline__ int pack_pairs(const uint8_t* p, int a, int b) {
-  const unsigned lo = *reinterpret_cast<const unsigned short*>(p + a);
-  const unsigned hi = *reinterpret_cast<const unsigned short*>(p + b);
-  return (int)(lo | (hi << 16));
+__device__ __forceinline__ int quad_isum(int v) {
+  v += __shfl_xor_sync(FULL_MASK, v, 1);
+  return v + __shfl_xor_sync(FULL_MASK, v, 2);
 }
 
-__device__ __forceinline__ int pack_int8(int a, int b, int c, int d) {
-  return (int)((unsigned)(a & 0xff) | ((unsigned)(b & 0xff) << 8) |
-               ((unsigned)(c & 0xff) << 16) | ((unsigned)(d & 0xff) << 24));
+// One lane's planes of up to kRun blocks: its 16-byte units, and as fp16
+// bits d and z (kBlock) or the 8 sub-block scales (kSub32). kSubAny reads
+// its scales at use.
+template <int kMode>
+struct RunPlanes {
+  uint4 b2[kRun], b1[kRun], sc[kRun];
+
+  __device__ __forceinline__ void load(
+      const uint8_t* __restrict__ plane2, const uint8_t* __restrict__ plane1,
+      const __half* __restrict__ scales, const __half* __restrict__ zps,
+      int n, int N, int KB, int kb, int kb_end, int q, int fivelevel) {
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      b2[r] = make_uint4(kZeroCodes, kZeroCodes, kZeroCodes, kZeroCodes);
+      b1[r] = sc[r] = make_uint4(0u, 0u, 0u, 0u);  // features past N: zeros
+      if (n < N && kb + r < kb_end) {
+        const long long blk = (long long)n * KB + kb + r;
+        b2[r] = __ldg(reinterpret_cast<const uint4*>(plane2 + blk * 64) + q);
+        if (fivelevel)
+          b1[r] = __ldg(reinterpret_cast<const uint4*>(plane1 + blk * 32) +
+                        (q & 1));
+        if (kMode == kBlock) {
+          sc[r].x = __half_as_ushort(scales[blk]);
+          sc[r].y = __half_as_ushort(zps[blk]);
+        } else if (kMode == kSub32) {
+          sc[r] = __ldg(reinterpret_cast<const uint4*>(scales + blk * 8));
+        }
+      }
+    }
+  }
+};
+
+// 32-element sub-blocks: lanes 0-1 of a quad hold sub-block 2c of chunk
+// c, lanes 2-3 sub-block 2c + 1.
+template <typename D>
+__device__ __forceinline__ float sub32_chain(float acc, const int pc[4],
+                                             int q, D dsub) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int v = pc[c] + __shfl_xor_sync(FULL_MASK, pc[c], 1);
+    const int o = __shfl_xor_sync(FULL_MASK, v, 2);
+    acc = scaled_add(acc, q < 2 ? v : o, dsub(2 * c));
+    acc = scaled_add(acc, q < 2 ? o : v, dsub(2 * c + 1));
+  }
+  return acc;
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+// Row m's int32 partials of one block, per chunk c: this lane's four
+// words of wint against the codes at xr (its 16 elements of each chunk),
+// and the codes themselves.
+__device__ __forceinline__ void chunk_partials(const uint8_t* __restrict__ xr,
+                                               const unsigned (&w)[4][4],
+                                               unsigned (&xw)[4][4],
+                                               int (&pc)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint4 xv = *reinterpret_cast<const uint4*>(xr + 64 * c);
+    xw[c][0] = xv.x;
+    xw[c][1] = xv.y;
+    xw[c][2] = xv.z;
+    xw[c][3] = xv.w;
+    int p = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p = __dp4a((int)xw[c][k], (int)w[c][k], p);
+    pc[c] = p;
+  }
+}
+
+// Any other divisor of 256 (off the serving path): sub-blocks of 2^lg
+// elements, in ascending K, scales read at use.
+template <typename D>
+__device__ __forceinline__ float sub_any_chain(float acc,
+                                               const unsigned (&w)[4][4],
+                                               const unsigned (&xw)[4][4],
+                                               const int (&pc)[4], int lg,
+                                               int lane, D dsub) {
+  const int q = lane & 3, pm = (1 << lg) - 1;
+  if (lg >= 6) {  // whole chunks, summed over the quad
+    int v = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      v += pc[c];
+      if ((((c + 1) << 6) & pm) == 0) {
+        acc = scaled_add(acc, quad_isum(v), dsub((c << 6) >> lg));
+        v = 0;
+      }
+    }
+    return acc;
+  }
+  if (lg == 5) return sub32_chain(acc, pc, q, dsub);
+  // at most 16 elements: whole sub-blocks inside each lane's 16 of a
+  // chunk; the lanes' partials taken in order by shuffles
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    int own[16], p = 0;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int k = e >> 2, i = e & 3;
+      if (lg >= 2) {
+        if (i == 3) p = __dp4a((int)xw[c][k], (int)w[c][k], p);
+      } else {
+        p = __dp4a((int)xw[c][k], (int)(w[c][k] & (0xffu << (8 * i))), p);
+      }
+      own[e] = p;
+      if (((e + 1) & pm) == 0) p = 0;
+    }
+    for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (((e + 1) & pm) == 0) {
+          const int v = __shfl_sync(FULL_MASK, own[e], (lane & ~3) | qq);
+          acc = scaled_add(acc, v, dsub((c * 64 + 16 * qq + e) >> lg));
+        }
+  }
+  return acc;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(32 * kMaxWarps)
 itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
                         const float* __restrict__ xscale,
                         const uint8_t* __restrict__ plane2,
@@ -46,101 +173,151 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
                         const __half* __restrict__ scales,
                         const __half* __restrict__ zps,
                         float* __restrict__ out, int M, int N, int KB,
-                        int fivelevel, int sub_blocks) {
-  __shared__ __align__(16) uint8_t xs[kMaxM * 256];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + warp;
+                        int kb_per_split, int fivelevel, int sub_blocks,
+                        int features) {
+  extern __shared__ __align__(16) uint8_t smem[];  // (M, K) codes, then sums
   const long long K = (long long)KB * 256;
-  const int hi = lane >= 16;
-  float acc[kMaxM];
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
+  float* sums = reinterpret_cast<float*>(smem + M * K);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
+  const int fw = features >> 3, nsplit = (int)(blockDim.x >> 5) / fw;
+  const int f = (warp % fw) * 8 + (lane >> 2), s = warp / fw;
+  const int n = blockIdx.x * features + f;
+  const int kb_begin = s * kb_per_split;
+  const int kb_end = min(KB, kb_begin + kb_per_split);
 
-  for (int kb = 0; kb < KB; ++kb) {
-    __syncthreads();  // previous k-block's reads are done
-    for (int idx = threadIdx.x; idx < M * 16; idx += blockDim.x) {
-      const int m = idx >> 4, q = idx & 15;  // 16 x 16 bytes per row
-      reinterpret_cast<int4*>(xs + m * 256)[q] =
-          reinterpret_cast<const int4*>(xq + m * K + (long long)kb * 256)[q];
-    }
-    __syncthreads();
-    if (n >= N) continue;  // warp-uniform
-    const long long blk = (long long)n * KB + kb;
-    int w[8];
-    itq3_decode_wint_lane(plane2, plane1, zps, blk, sub_blocks, fivelevel,
-                          lane, w);
-    // per c, the two wint of this lane; bytes 2 and 3 zero
-    int wc[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) wc[c] = pack_int8(w[2 * c], w[2 * c + 1], 0, 0);
-    const int w01 = pack_int8(w[0], w[1], w[2], w[3]);
-    const int w23 = pack_int8(w[4], w[5], w[6], w[7]);
-    float ds[8];
-    if (sub_blocks) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s)
-        ds[s] = s < sub_blocks ? __half2float(scales[blk * sub_blocks + s])
-                               : 0.f;
-    } else {
-      ds[0] = __half2float(scales[blk]);
-    }
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m) {
-      if (m >= M) break;
-      const uint8_t* xr = xs + m * 256;
-      if (sub_blocks == 0) {
-        int p = __dp4a(pack_pairs(xr, 2 * lane, 64 + 2 * lane), w01, 0);
-        p = __dp4a(pack_pairs(xr, 128 + 2 * lane, 192 + 2 * lane), w23, p);
-        acc[m] = scaled_add(acc[m], warp_isum(p), ds[0]);
-        continue;
+  RunPlanes<kMode> pl;
+  pl.load(plane2, plane1, scales, zps, n, N, KB, kb_begin, kb_end, q,
+          fivelevel);
+  for (long long g = threadIdx.x; g < M * K / 16; g += blockDim.x)
+    cp_async16(smem + 16 * g, xq + 16 * g, true);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // row m's sum over the run: lane m % 4 of the quad stores it
+  auto emit = [&](int m, float v) {
+    if ((m & 3) != q) return;
+    if (nsplit > 1)
+      sums[(s * features + f) * M + m] = v;
+    else if (n < N)
+      out[(long long)m * N + n] = __fmul_rn(v, xscale[m]);
+  };
+  if constexpr (kMode == kSubAny) {
+    // rows one at a time, each block's planes (L1-resident after the
+    // first row) decoded again: small code for the off-path modes
+    const int nsub = sub_blocks ? sub_blocks : 1;
+    const int lg = 8 - (__ffs(nsub) - 1);  // log2 of the sub-block width
+    for (int m = 0; m < M; ++m) {
+      float acc = 0.f;
+      for (int kb = kb_begin; kb < kb_end; ++kb) {
+        if (kb != kb_begin || m) pl.load(plane2, plane1, scales, zps, n, N,
+                                         KB, kb, kb + 1, q, fivelevel);
+        const long long blk = (long long)n * KB + kb;
+        unsigned w[4][4], xw[4][4];
+        int pc[4];
+        itq3_decode_wint_unit(pl.b2[0], pl.b1[0], 0, q >= 2, fivelevel, w);
+        chunk_partials(smem + m * K + (long long)kb * 256 + 16 * q, w, xw,
+                       pc);
+        acc = sub_any_chain(acc, w, xw, pc, lg, lane, [&](int i) {
+          return n < N ? __half2float(scales[blk * nsub + i]) : 0.f;
+        });
       }
-      int pc[4];  // per c: this lane's two products
+      emit(m, acc);
+    }
+  } else {
+    float acc[kMaxM];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const unsigned xv =
-            *reinterpret_cast<const unsigned short*>(xr + c * 64 + 2 * lane);
-        pc[c] = __dp4a((int)xv, wc[c], 0);
-      }
-      if (sub_blocks == 8) {  // 32-element sub-blocks s = 2c + hi
+    for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
+    for (int kb = kb_begin; kb < kb_end; kb += kRun) {
+      if (kb != kb_begin)
+        pl.load(plane2, plane1, scales, zps, n, N, KB, kb, kb_end, q,
+                fivelevel);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          int v = pc[c];
+      for (int r = 0; r < kRun; ++r) {
+        if (kb + r >= kb_end) break;  // warp-uniform
+        unsigned w[4][4];
+        itq3_decode_wint_unit(
+            pl.b2[r], pl.b1[r],
+            kMode == kBlock ? (int)half_bits(pl.sc[r].y) : 0, q >= 2,
+            fivelevel, w);
+        float d[8];
+        const unsigned h[4] = {pl.sc[r].x, pl.sc[r].y, pl.sc[r].z,
+                               pl.sc[r].w};
 #pragma unroll
-          for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
-          const int other = __shfl_xor_sync(FULL_MASK, v, 16);
-          acc[m] = scaled_add(acc[m], hi ? other : v, ds[2 * c]);
-          acc[m] = scaled_add(acc[m], hi ? v : other, ds[2 * c + 1]);
+        for (int i = 0; i < 8; ++i)
+          d[i] = half_bits(h[i >> 1] >> (16 * (i & 1)));
+        const uint8_t* xb = smem + (long long)(kb + r) * 256 + 16 * q;
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m) {
+          if (m >= M) break;
+          unsigned xw[4][4];
+          int pc[4];
+          chunk_partials(xb + m * K, w, xw, pc);
+          if constexpr (kMode == kBlock)
+            acc[m] = scaled_add(
+                acc[m], quad_isum(pc[0] + pc[1] + pc[2] + pc[3]), d[0]);
+          else
+            acc[m] = sub32_chain(acc[m], pc, q, [&](int i) { return d[i]; });
         }
-      } else if (sub_blocks == 4) {  // 64-element sub-blocks s = c
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[m] = scaled_add(acc[m], warp_isum(pc[c]), ds[c]);
-      } else {  // sub_blocks == 2: 128-element sub-blocks s = c / 2
-        acc[m] = scaled_add(acc[m], warp_isum(pc[0] + pc[1]), ds[0]);
-        acc[m] = scaled_add(acc[m], warp_isum(pc[2] + pc[3]), ds[1]);
       }
     }
-  }
-  if (n < N && lane == 0) {
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m)
-      if (m < M) out[(long long)m * N + n] = __fmul_rn(acc[m], xscale[m]);
+      if (m < M) emit(m, acc[m]);
+  }
+  if (nsplit == 1) return;
+  __syncthreads();
+  for (int t = threadIdx.x; t < features * M; t += blockDim.x) {
+    const int ff = t / M, m = t % M, nn = blockIdx.x * features + ff;
+    if (nn >= N) continue;
+    float sum = sums[ff * M + m];
+    for (int sp = 1; sp < nsplit; ++sp)  // in split order
+      sum += sums[(sp * features + ff) * M + m];
+    out[(long long)m * N + nn] = __fmul_rn(sum, xscale[m]);
   }
 }
 
+// Grid ceil(N / features) blocks of features / 8 x splits warps; the KB
+// blocks are cut into splits runs of ceil(KB / splits), which must leave
+// none empty. sub_blocks is 0 or any divisor of 256. The (M, K) codes and
+// the splits' sums must fit the block's shared memory; xq must be 16-byte
+// aligned.
 extern "C" int itq3_matvec_int8_launch(const int8_t* xq, const float* xscale,
                                        const uint8_t* plane2,
                                        const uint8_t* plane1,
                                        const __half* scales, const __half* zps,
                                        float* out, int M, int N, int KB,
                                        int fivelevel, int sub_blocks,
+                                       int features, int splits,
                                        cudaStream_t stream) {
-  if (M < 1 || M > kMaxM || N < 1 || KB < 1) return (int)cudaErrorInvalidValue;
-  if (sub_blocks != 0 && sub_blocks != 2 && sub_blocks != 4 && sub_blocks != 8)
+  if (M < 1 || M > kMaxM || N < 1 || KB < 1 || splits < 1 || splits > KB ||
+      (features != 8 && features != 16 && features != 32) ||
+      features / 8 * splits > kMaxWarps || sub_blocks < 0 ||
+      sub_blocks > 256 || (sub_blocks && 256 % sub_blocks) ||
+      ((uintptr_t)xq & 15))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kWarps - 1) / kWarps);
-  itq3_matvec_int8_kernel<<<grid, 32 * kWarps, 0, stream>>>(
-      xq, xscale, plane2, plane1, scales, zps, out, M, N, KB, fivelevel,
-      sub_blocks);
+  const int kbps = (KB + splits - 1) / splits;
+  if ((KB + kbps - 1) / kbps != splits) return (int)cudaErrorInvalidValue;
+  const long long smem = (long long)M * KB * 256 + 4LL * splits * features * M;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int mode = int8_scale_mode(sub_blocks);
+  const dim3 grid((N + features - 1) / features);
+  const dim3 block(32 * features / 8 * splits);
+#define MATVEC_LAUNCH(MODE)                                                  \
+  do {                                                                       \
+    const cudaError_t err = cudaFuncSetAttribute(                            \
+        itq3_matvec_int8_kernel<MODE>,                                       \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);             \
+    if (err != cudaSuccess) return (int)err;                                 \
+    itq3_matvec_int8_kernel<MODE><<<grid, block, smem, stream>>>(            \
+        xq, xscale, plane2, plane1, scales, zps, out, M, N, KB, kbps,        \
+        fivelevel, sub_blocks, features);                                    \
+  } while (0)
+  switch (mode) {
+    case kBlock: MATVEC_LAUNCH(kBlock); break;
+    case kSub32: MATVEC_LAUNCH(kSub32); break;
+    default: MATVEC_LAUNCH(kSubAny); break;
+  }
+#undef MATVEC_LAUNCH
   return (int)cudaGetLastError();
 }

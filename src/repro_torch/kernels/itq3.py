@@ -37,9 +37,12 @@ is :func:`itq3_matmul_int8_ref`:
   ``repro/kernels/itq3_matmul.py:itq3_matmul_int8_pallas`` for M > 16
   (every W3A8 prefill wave).
 
-The int8 kernels take sub-blocks of 32 elements or more (``sub_blocks`` 0,
-2, 4 or 8: itq3_s_sub has 8); the plain version and the float kernels take
-any divisor of 256.
+Both int8 kernels take ``sub_blocks`` 0 or any divisor of 256, as the
+plain version and the float kernels do. They cut K into splits (thread
+block clusters in the matmul, warps of one block in the matvec; the cut
+from :func:`matmul_tiles` and :func:`matvec_int8_tiles`) and add the
+splits' sums in ascending order: :func:`itq3_matmul_int8_split_ref` is
+that arithmetic in plain PyTorch, for the tests.
 """
 from __future__ import annotations
 
@@ -54,17 +57,20 @@ from repro_torch.kernels import _build
 __all__ = ["itq3_matvec", "itq3_matmul", "itq3_matmul_ref",
            "itq3_matmul_split_ref", "matmul_operand", "matmul_tiles",
            "tf32_round", "itq3_matvec_int8", "itq3_matmul_int8",
-           "itq3_matmul_int8_ref", "MATVEC_MAX_M", "INT8_SUB_BLOCKS"]
+           "itq3_matmul_int8_ref", "itq3_matmul_int8_split_ref",
+           "matvec_int8_tiles", "MATVEC_MAX_M"]
 
 MATVEC_MAX_M = 16  # decode / small-batch regime; above this, the tiled kernel
-INT8_SUB_BLOCKS = (0, 2, 4, 8)  # what the int8 kernels take: >= 32 per sub
 MATMUL_BN = 64  # output columns per itq3_matmul block
 MATMUL_BM = (32, 64)  # its row tiles: 2 or 4 warps of 16 rows (x 2)
 MATMUL_MAX_SPLITS = 8  # K splits form one cluster: the portable size
 MATMUL_SMS = 132  # SMs of an H100
 
 _ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
-_INT8_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_INT8_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+MATVEC_INT8_FEATURES = (8, 16, 32)  # output features per block: 8 per warp
+MATVEC_INT8_MAX_WARPS = 8  # features / 8 x splits per block
+MATVEC_INT8_SMEM = 227 * 1024  # the H100's shared memory per block
 
 
 def dequant_blocks(plane2, plane1, scales, zps, *, rotate_weights: bool,
@@ -261,6 +267,20 @@ def itq3_matmul(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
 
 # --- the W3A8 integer pair ---------------------------------------------------
 
+def _int8_partials(xq, plane2, plane1, scales, zps, *, fivelevel, sub_blocks):
+    """The exact integer (sub-)block partials ``(M, N, KB*sub)``, carried
+    in f32, and their scales ``(N, KB*sub)``, in ascending K."""
+    n, kb = plane2.shape[0], plane2.shape[1]
+    m = xq.shape[0]
+    sub = max(sub_blocks, 1)
+    per = 256 // sub
+    wint = decode_wint(plane2, plane1, zps, fivelevel=fivelevel,
+                       sub_blocks=sub_blocks).to(torch.float32)
+    xs = xq.to(torch.float32).reshape(m, kb * sub, per)
+    part = torch.einsum("msp,nsp->mns", xs, wint.reshape(n, kb * sub, per))
+    return part, scales.to(torch.float32).reshape(n, kb * sub)
+
+
 def itq3_matmul_int8_ref(xq, xscale, plane2, plane1, scales, zps, *,
                          fivelevel: bool = False, sub_blocks: int = 0):
     """Plain version of both int8 kernels (port of
@@ -272,19 +292,56 @@ def itq3_matmul_int8_ref(xq, xscale, plane2, plane1, scales, zps, *,
     (or sub-block) partial and the products are added in ascending K, then
     ``xscale`` multiplies once: the kernels' order, so the two agree to the
     last bit."""
-    n, kb = plane2.shape[0], plane2.shape[1]
-    m = xq.shape[0]
-    sub = max(sub_blocks, 1)
-    per = 256 // sub
-    wint = decode_wint(plane2, plane1, zps, fivelevel=fivelevel,
-                       sub_blocks=sub_blocks).to(torch.float32)
-    xs = xq.to(torch.float32).reshape(m, kb * sub, per)
-    part = torch.einsum("msp,nsp->mns", xs, wint.reshape(n, kb * sub, per))
-    d = scales.to(torch.float32).reshape(n, kb * sub)
-    y = torch.zeros((m, n), dtype=torch.float32, device=xq.device)
-    for s in range(kb * sub):
+    part, d = _int8_partials(xq, plane2, plane1, scales, zps,
+                             fivelevel=fivelevel, sub_blocks=sub_blocks)
+    y = torch.zeros(part.shape[:2], dtype=torch.float32, device=xq.device)
+    for s in range(part.shape[2]):
         y = y + part[:, :, s] * d[:, s]
     return y * xscale.to(torch.float32)
+
+
+def itq3_matmul_int8_split_ref(xq, xscale, plane2, plane1, scales, zps, *,
+                               fivelevel: bool = False, sub_blocks: int = 0,
+                               splits: int = 1):
+    """Plain version of the int8 kernels' split arithmetic: the KB blocks
+    cut into ``splits`` runs of ``ceil(KB / splits)`` blocks (the cut of
+    :func:`itq3_matmul_split_ref`); within a run, from 0, ``f32(partial) *
+    d`` added per (sub-)block in ascending K, each product and each sum
+    rounded on its own; the runs' sums added in ascending order, the first
+    taken as it is; ``xscale`` once at the end. With ``splits=1`` it is
+    :func:`itq3_matmul_int8_ref` to the last bit. The tests hold it
+    against the plain version and the reference; the main path never
+    calls it."""
+    kb = plane2.shape[1]
+    part, d = _int8_partials(xq, plane2, plane1, scales, zps,
+                             fivelevel=fivelevel, sub_blocks=sub_blocks)
+    sub = part.shape[2] // kb
+    run = -(-kb // splits)
+    out = None
+    for b0 in range(0, kb, run):
+        acc = torch.zeros(part.shape[:2], dtype=torch.float32,
+                          device=xq.device)
+        for s in range(b0 * sub, min(kb, b0 + run) * sub):
+            acc = acc + part[:, :, s] * d[:, s]
+        out = acc if out is None else out + acc
+    return out * xscale.to(torch.float32)
+
+
+def matvec_int8_tiles(m: int, n: int, kb: int) -> tuple[int, int]:
+    """``itq3_matvec_int8``'s cut, from static shapes only: ``(features,
+    splits)``, the output features of one block (8 per warp) and the runs
+    of K its warps take, added in ascending order: 8 features per block
+    (the most blocks) and the most splits that divide KB, so each warp
+    loads the fewest blocks' planes before its math. ``chip_smoke.py``
+    phase 3 times every cut at the serving shapes; on an NVIDIA H100
+    80GB HBM3 at 700 W (M = 4) this rule's cut was the fastest or tied
+    for it at all four: 8 x 3 at 0.0040-0.0041 ms for wq, wk and gate (KB
+    3; unsplit 0.0055-0.0059; 16 x 3 tied at gate), 8 x 6 at 0.0041 ms
+    for down (KB 6; unsplit 0.0077, 3 splits 0.0045)."""
+    features = MATVEC_INT8_FEATURES[0]
+    most = MATVEC_INT8_MAX_WARPS // (features // 8)
+    return features, max(s for s in range(1, min(kb, most) + 1)
+                         if kb % s == 0)
 
 
 def _check_int8(name, xq, xscale, plane2, plane1, scales, zps, sub_blocks):
@@ -297,55 +354,67 @@ def _check_int8(name, xq, xscale, plane2, plane1, scales, zps, sub_blocks):
     return _check_shapes(xq, plane2, plane1, scales, zps, sub_blocks)
 
 
-def _launch_int8(name, fn, xq, xscale, plane2, plane1, scales, zps,
-                 fivelevel, sub_blocks):
+def _matvec_int8_smem(m, kb, features, splits) -> int:
+    """Bytes of shared memory the matvec takes: the (M, K) codes and the
+    splits' sums."""
+    return m * kb * 256 + 4 * splits * features * m
+
+
+def _launch_int8(name, xq, xscale, plane2, plane1, scales, zps, fivelevel,
+                 sub_blocks, mnk, cut):
+    """Launch ``csrc/<name>.cu`` on checked operands of shape ``mnk`` with
+    the cut ``cut``."""
     if not xq.is_cuda:
         raise ValueError(f"{name}: unsupported device {xq.device}")
-    m, n, kb = _check_int8(name, xq, xscale, plane2, plane1, scales, zps,
-                           sub_blocks)
-    if sub_blocks not in INT8_SUB_BLOCKS:
-        raise ValueError(f"{name}: the kernel takes sub_blocks in "
-                         f"{INT8_SUB_BLOCKS}, got {sub_blocks}")
     if xq.data_ptr() % 16:
         raise ValueError(f"{name}: xq must be 16-byte aligned")
+    m, n, kb = mnk
     out = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    fn = f"{name}_launch"
     lib = _build.library(name, {fn: _INT8_ARGS})
     _build.check(getattr(lib, fn)(
         xq.data_ptr(), xscale.data_ptr(), plane2.data_ptr(),
         plane1.data_ptr(), scales.data_ptr(), zps.data_ptr(), out.data_ptr(),
-        m, n, kb, int(fivelevel), int(sub_blocks), _build.stream_of(xq)),
-        name)
+        m, n, kb, int(fivelevel), int(sub_blocks), *cut,
+        _build.stream_of(xq)), name)
     _build.launches[name] += 1
     return out
 
 
 def itq3_matvec_int8(xq, xscale, plane2, plane1, scales, zps, *,
                      fivelevel: bool = False, sub_blocks: int = 0):
-    """Decode-shaped W3A8 ``xq (M <= 16, KB*256) int8 -> (M, N)`` f32."""
+    """Decode-shaped W3A8 ``xq (M <= 16, KB*256) int8 -> (M, N)`` f32, cut
+    by :func:`matvec_int8_tiles`. The operands are checked before the
+    device, so what the kernel cannot take is refused on any device."""
     if not 1 <= xq.shape[0] <= MATVEC_MAX_M:
         raise ValueError(f"matvec kernel is for 1 <= M <= {MATVEC_MAX_M}, "
                          f"got {xq.shape[0]}")
+    name = "itq3_matvec_int8"
+    m, n, kb = _check_int8(name, xq, xscale, plane2, plane1, scales, zps,
+                           sub_blocks)
     if xq.device.type == "cpu":
-        _check_int8("itq3_matvec_int8", xq, xscale, plane2, plane1, scales,
-                    zps, sub_blocks)
         return itq3_matmul_int8_ref(xq, xscale, plane2, plane1, scales, zps,
                                     fivelevel=fivelevel,
                                     sub_blocks=sub_blocks)
-    return _launch_int8("itq3_matvec_int8", "itq3_matvec_int8_launch", xq,
-                        xscale, plane2, plane1, scales, zps, fivelevel,
-                        sub_blocks)
+    cut = matvec_int8_tiles(m, n, kb)
+    if _matvec_int8_smem(m, kb, *cut) > MATVEC_INT8_SMEM:
+        raise ValueError(f"{name}: M*K = {m * kb * 256} codes exceed the "
+                         f"block's shared memory")
+    return _launch_int8(name, xq, xscale, plane2, plane1, scales, zps,
+                        fivelevel, sub_blocks, (m, n, kb), cut)
 
 
 def itq3_matmul_int8(xq, xscale, plane2, plane1, scales, zps, *,
                      fivelevel: bool = False, sub_blocks: int = 0):
     """Tiled W3A8 ``xq (M, KB*256) int8 -> (M, N)`` f32 for any M >= 1
-    (the serving path sends it M > 16)."""
+    (the serving path sends it M > 16), cut by :func:`matmul_tiles`."""
+    name = "itq3_matmul_int8"
+    m, n, kb = _check_int8(name, xq, xscale, plane2, plane1, scales, zps,
+                           sub_blocks)
     if xq.device.type == "cpu":
-        _check_int8("itq3_matmul_int8", xq, xscale, plane2, plane1, scales,
-                    zps, sub_blocks)
         return itq3_matmul_int8_ref(xq, xscale, plane2, plane1, scales, zps,
                                     fivelevel=fivelevel,
                                     sub_blocks=sub_blocks)
-    return _launch_int8("itq3_matmul_int8", "itq3_matmul_int8_launch", xq,
-                        xscale, plane2, plane1, scales, zps, fivelevel,
-                        sub_blocks)
+    return _launch_int8(name, xq, xscale, plane2, plane1, scales, zps,
+                        fivelevel, sub_blocks, (m, n, kb),
+                        matmul_tiles(m, n, kb))

@@ -330,27 +330,50 @@ def test_new_plain_paths_count_no_launches(rng):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fmt", ["itq3_s", "itq3_s_sub", "itq3_x"])
-def test_cuda_int8_and_quantize_kernels_match_plain_versions(fmt, rng):
+def test_cuda_int8_and_quantize_kernels_match_plain_versions(fmt, rng,
+                                                            monkeypatch):
     """On the card: the int8 kernels equal their plain versions exactly at
-    unit scales and to 1e-5 relative otherwise; quantize_blocks within the
-    reference's tie tolerance. Skips where there is no card."""
+    unit scales and to 1e-5 relative otherwise, and give the bits of the
+    split model at their own cut and at a forced two-way split of K, also
+    with 16 and 32 sub-blocks (itq3_s_sub's codes, seeded scales);
+    quantize_blocks within the reference's tie tolerance. Skips where
+    there is no card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels build with nvcc)")
     dev = torch.device("cuda")
-    for unit in (True, False):
-        meta, (xq, xs), _, td = _int8_operands(fmt, 40, rng, unit=unit)
-        kw = dict(fivelevel=meta.fivelevel, sub_blocks=meta.sub_blocks)
-        d = {k: v.to(dev) for k, v in td.items()}
-        for m, fn in ((4, titq3.itq3_matvec_int8),
-                      (40, titq3.itq3_matmul_int8)):
-            a = (torch.from_numpy(xq[:m]).to(dev),
-                 torch.from_numpy(xs[:m]).to(dev), d["plane2"], d["plane1"],
-                 d["scales"], d["zps"])
-            got, want = fn(*a, **kw), titq3.itq3_matmul_int8_ref(*a, **kw)
+    kernels = ((4, titq3.itq3_matvec_int8, "matvec_int8_tiles"),
+               (40, titq3.itq3_matmul_int8, "matmul_tiles"))
+
+    def check(a, kw, unit):
+        n, kb = a[2].shape[:2]
+        for m, fn, rule in kernels:
+            am = (a[0][:m], a[1][:m]) + a[2:]
+            got, want = fn(*am, **kw), titq3.itq3_matmul_int8_ref(*am, **kw)
             if unit:
                 assert torch.equal(got, want)
             else:
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            own = getattr(titq3, rule)
+            for cut in (own(m, n, kb), (own(m, n, kb)[0], 2)):
+                monkeypatch.setattr(titq3, rule, lambda *_, c=cut: c)
+                assert torch.equal(fn(*am, **kw),
+                                   titq3.itq3_matmul_int8_split_ref(
+                                       *am, splits=cut[1], **kw)), (m, cut)
+                monkeypatch.setattr(titq3, rule, own)
+
+    for unit in (True, False):
+        meta, (xq, xs), _, td = _int8_operands(fmt, 40, rng, unit=unit)
+        kw = dict(fivelevel=meta.fivelevel, sub_blocks=meta.sub_blocks)
+        d = {k: v.to(dev) for k, v in td.items()}
+        a = (torch.from_numpy(xq).to(dev), torch.from_numpy(xs).to(dev),
+             d["plane2"], d["plane1"], d["scales"], d["zps"])
+        check(a, kw, unit)
+        if fmt == "itq3_s_sub" and not unit:
+            n, kb = d["plane2"].shape[:2]
+            for sub in (16, 32):
+                sc = torch.from_numpy(rng.uniform(0.01, 0.03, size=(
+                    n, kb, sub)).astype(np.float16)).to(dev)
+                check(a[:4] + (sc, a[5]), dict(kw, sub_blocks=sub), False)
     wb = torch.randn(999, 256, device=dev) * 0.05
     (ck, dk, zk), (cp, dp, zp) = (tquantize.quantize_blocks(wb),
                                   tquantize.quantize_blocks_ref(wb))
