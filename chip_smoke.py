@@ -34,6 +34,17 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    five formats, both modes, ragged M and N, one block and six), timed
    under every row tile and split count at the serving shapes beside the
    cut ``matmul_tiles`` picks, and must build without a register spill.
+   ``itq3_matvec`` is timed at the serving shapes (M = 4) in three forms:
+   fused (x unrotated, its FWHT in the kernel: the float decode path),
+   the unfused pair (``fwht.cu``, then the kernel) and weights mode; the
+   fused form must give the pair's bits, every form the same bits on two
+   calls and within 1e-4 of its plain version. It is checked untimed at
+   its edges (all five formats, both modes, other sub-block counts, M 1 to
+   16, ragged N, one to 24 blocks, x staged whole and in windows, every
+   cut of six blocks), timed under every cut at the serving shapes beside
+   the one ``matvec_tiles`` picks, and must build without a spill.
+   ``fwht`` is timed at its 256-point and head_dim shapes and must give
+   the plain version's bits there and at every block from 2 to 1024.
    The int8 pair is checked untimed at its edges (the three ternary
    formats, every sub-block count from 1 to 256, ragged M and N, one,
    three and six blocks, every cut of K): exactly the plain version with
@@ -46,10 +57,14 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    ``ServeEngine``: 8 requests over 4 slots. The launch counters are reset
    just before and read just after the counted run, and each kernel must
    have launched exactly as often as the path dictates (per layer: 7
-   projections, each FWHT then matvec or matmul, and one attention).
+   projections, each the fused matvec per decode step or a 256-point FWHT
+   then the matmul per prefill wave; four head_dim FWHTs, the KV codec's
+   and the attention's; one attention). ``fwht`` counts its launches per
+   block size (``fwht/256``, ``fwht/64``).
 5. Teacher-forced parity: prefill and 4 decode steps through the kernels
    against the same forward with the plain versions on the card, run apart
-   (reported) and layer by layer on one cache state (held to 1e-3).
+   (reported) and layer by layer on one cache state (held to 1e-3); the
+   plain-version serving run must launch no kernel.
 6. With ``--profile`` only: one shorter serving run (8 new tokens per
    request) under ``torch.profiler``, for the device's busy time, idle
    share and host operator calls (phases 7 and 8 trace their paths the
@@ -84,6 +99,7 @@ report go to ``chiprun_out/chip_smoke_details.json``.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import re
@@ -110,7 +126,9 @@ from repro_torch.kernels.attn_q8 import (  # noqa: E402
     attn_grid, attn_q8, attn_q8_paged, attn_q8_paged_ref, attn_q8_ref,
     paged_row_table,
 )
-from repro_torch.kernels.fwht import fwht, fwht_ref  # noqa: E402
+from repro_torch.kernels.fwht import (  # noqa: E402
+    FWHT_BLOCKS, fwht, fwht_ref,
+)
 from repro_torch.kernels.itq3 import (  # noqa: E402
     dequant_blocks, itq3_matmul, itq3_matmul_int8, itq3_matmul_int8_ref,
     itq3_matmul_int8_split_ref, itq3_matmul_ref, itq3_matvec,
@@ -275,26 +293,114 @@ def weight_bytes(qt) -> int:
             + (0 if meta.sub_blocks else 2 * d["zps"].numel()))
 
 
+# The per-head FWHTs on the main path at smollm-135m's widths (4 slots, 3
+# KV heads x 3 query heads, head_dim 64, 64-token prefill buckets): rows
+# of 64 points, each shape twice (q and the output; K and V).
+FWHT_HEAD_ROWS = (("decode q", 36), ("decode out", 36), ("decode K", 12),
+                  ("decode V", 12), ("prefill q", 2304),
+                  ("prefill out", 2304), ("prefill K", 768),
+                  ("prefill V", 768))
+
+
 def check_fwht(led: Ledger, gen: torch.Generator, dev) -> None:
-    for m, k in ((256, 768), (4, 1536)):
+    """fwht at its main-path shapes: block 256 over the activations of
+    prefill and W3A8 projections, block head_dim over the KV codec's and
+    the attention's rotations; each bit-equal to the plain version (the
+    same stages in the same order, one f32 scale), timed beside ``x @ H``.
+    Then every block from 2 to 1024, untimed, bit-equal as well."""
+    hd = 64
+    shapes = [(f"({m},{k})", m, k, 256) for m, k in ((256, 768), (4, 1536))]
+    shapes += [(f"{label} ({m},{hd})", m, hd, hd)
+               for label, m in FWHT_HEAD_ROWS]
+    for shape, m, k, block in shapes:
         x = torch.randn(m, k, generator=gen, device=dev)
-        got, want = fwht(x), fwht_ref(x)
-        h = hadamard_matrix(256, device=dev)
+        got, want = fwht(x, block), fwht_ref(x, block)
+        h = hadamard_matrix(block, device=dev)
         err, rel = rel_err(got, want)
-        led.add("fwht", f"({m},{k})", err=err, rel=rel,
-                ms=device_ms(lambda: fwht(x)),
-                plain_ms=device_ms(lambda: fwht_ref(x)),
-                library_ms=device_ms(lambda: x.view(-1, 256) @ h),
-                nbytes=2 * m * k * 4, flops=m * k * (8 + 1))
+        if err != 0:
+            raise AssertionError(f"fwht {shape}: max abs error {err} vs plain")
+        led.add("fwht", shape, err=err, rel=rel,
+                ms=device_ms(lambda: fwht(x, block)),
+                plain_ms=device_ms(lambda: fwht_ref(x, block)),
+                library_ms=device_ms(lambda: x.view(-1, block) @ h),
+                nbytes=2 * m * k * 4,
+                flops=m * k * (int(math.log2(block)) + 1))
+    # every block: full thread blocks, and (blocks under 32 points) a
+    # ragged last one
+    for block in FWHT_BLOCKS:
+        for m, k in ((7, 3 * 1024), (5, 48)):
+            if k % block:
+                continue
+            x = torch.randn(m, k, generator=gen, device=dev)
+            if not torch.equal(fwht(x, block), fwht_ref(x, block)):
+                raise AssertionError(f"fwht block {block} ({m},{k}): not "
+                                     f"the plain version's bits")
+    print(f"  fwht at every block {FWHT_BLOCKS[0]}..{FWHT_BLOCKS[-1]}: "
+          f"bit-equal to the plain version", flush=True)
+
+
+def check_matvec(led: Ledger, gen: torch.Generator, dev, weights,
+                 report: dict) -> None:
+    """itq3_matvec at the four serving shapes, M = 4, in three forms: the
+    fused form of the float decode path (unrotated x, ``rotate_x``), the
+    unfused pair (fwht.cu, then the matvec on the rotated x) and weights
+    mode. The fused form must equal the pair bit for bit; every form must
+    give the same bits on two calls and agree with its plain version
+    within 1e-4. The yardstick of all three is ``x @ W`` on the IFWHT'd
+    dequantized weight, the same function in one call; their bound counts
+    the one FWHT of x (fused and pair) or of the weight (weights mode)."""
+    m = 4
+    for name, qt in weights.items():
+        d = qt.data
+        planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+        n, kb = d["plane2"].shape[:2]
+        kpad = kb * 256
+        w_rot = dequant_blocks(*planes, rotate_weights=True, fivelevel=False,
+                               sub_blocks=0).reshape(n, kpad).T.contiguous()
+        x = torch.randn(m, kpad, generator=gen, device=dev)
+        forms = {
+            "rotate_x": (lambda: itq3_matvec(x, *planes, rotate_weights=False,
+                                             rotate_x=True),
+                         lambda: itq3_matmul_ref(fwht_ref(x), *planes,
+                                                 rotate_weights=False)),
+            "pair": (lambda: itq3_matvec(fwht(x), *planes,
+                                         rotate_weights=False),
+                     lambda: itq3_matmul_ref(fwht_ref(x), *planes,
+                                             rotate_weights=False)),
+            "rotate=True": (lambda: itq3_matvec(x, *planes,
+                                                rotate_weights=True),
+                            lambda: itq3_matmul_ref(x, *planes,
+                                                    rotate_weights=True)),
+        }
+        got = {}
+        for form, (run, plain) in forms.items():
+            got[form] = run()
+            if not torch.equal(got[form], run()):
+                raise AssertionError(f"itq3_matvec {name} {form}: two calls "
+                                     f"differ")
+            err, rel = rel_err(got[form], plain())
+            nbytes = m * kpad * 4 + weight_bytes(qt) + m * n * 4
+            rotated = (n if form == "rotate=True" else m) * kpad
+            led.add("fwht+itq3_matvec" if form == "pair" else "itq3_matvec",
+                    f"{name} M={m} {form}", err=err, rel=rel,
+                    ms=device_ms(run), plain_ms=device_ms(plain),
+                    library_ms=device_ms(lambda: x @ w_rot), nbytes=nbytes,
+                    flops=2 * m * n * kpad + 9 * rotated)
+        if not torch.equal(got["rotate_x"], got["pair"]):
+            raise AssertionError(f"itq3_matvec {name}: the fused form differs "
+                                 f"from fwht.cu + matvec")
+    print("  itq3_matvec: fused == fwht.cu + matvec bit for bit, two calls "
+          "bit-equal, at every serving shape", flush=True)
 
 
 def check_itq3(led: Ledger, gen: torch.Generator, dev, weights,
                report: dict) -> None:
-    """The float pair at the main-path shapes, both modes. itq3_matmul
-    must also give the same bits on two calls (its split-K combine runs in
-    a fixed order); its bound counts its TF32 products, and the f32
-    CUDA-core bound of the same shapes is reported beside it."""
+    """itq3_matmul at the main-path shapes, both modes. It must also give
+    the same bits on two calls (its split-K combine runs in a fixed
+    order); its bound counts its TF32 products, and the f32 CUDA-core
+    bound of the same shapes is reported beside it."""
     f32_bound = {}
+    m = 256
     for name, qt in weights.items():
         d = qt.data
         n, kb = d["plane2"].shape[:2]
@@ -303,35 +409,30 @@ def check_itq3(led: Ledger, gen: torch.Generator, dev, weights,
             w = dequant_blocks(d["plane2"], d["plane1"], d["scales"], d["zps"],
                                rotate_weights=rotate, fivelevel=False,
                                sub_blocks=0).reshape(n, kpad).T.contiguous()
-            for kernel, m, fn in (("itq3_matvec", 4, itq3_matvec),
-                                  ("itq3_matmul", 256, itq3_matmul)):
-                x = torch.randn(m, kpad, generator=gen, device=dev)
+            x = torch.randn(m, kpad, generator=gen, device=dev)
 
-                def run(fn=fn, x=x):
-                    return fn(x, d["plane2"], d["plane1"], d["scales"],
-                              d["zps"], rotate_weights=rotate)
+            def run(x=x):
+                return itq3_matmul(x, d["plane2"], d["plane1"], d["scales"],
+                                   d["zps"], rotate_weights=rotate)
 
-                def plain(x=x):
-                    return itq3_matmul_ref(x, d["plane2"], d["plane1"],
-                                           d["scales"], d["zps"],
-                                           rotate_weights=rotate)
-                got = run()
-                err, rel = rel_err(got, plain())
-                nbytes = m * kpad * 4 + weight_bytes(qt) + m * n * 4
-                flops = 2 * m * n * kpad + (n * kb * 256 * 9 if rotate else 0)
-                peak = PEAK_F32_FLOPS
-                shape = f"{name} M={m} rotate={rotate}"
-                if kernel == "itq3_matmul":
-                    if not torch.equal(got, run()):
-                        raise AssertionError(f"itq3_matmul {shape}: two "
-                                             f"calls differ")
-                    f32_bound[shape] = bound_ms(nbytes, flops)[0]
-                    flops = 2 * m * n * kpad * (3 if rotate else 2)
-                    peak = PEAK_TF32_FLOPS
-                led.add(kernel, shape, err=err,
-                        rel=rel, ms=device_ms(run), plain_ms=device_ms(plain),
-                        library_ms=device_ms(lambda x=x: x @ w),
-                        nbytes=nbytes, flops=flops, peak_ops=peak)
+            def plain(x=x):
+                return itq3_matmul_ref(x, d["plane2"], d["plane1"],
+                                       d["scales"], d["zps"],
+                                       rotate_weights=rotate)
+            got = run()
+            err, rel = rel_err(got, plain())
+            nbytes = m * kpad * 4 + weight_bytes(qt) + m * n * 4
+            flops = 2 * m * n * kpad + (n * kb * 256 * 9 if rotate else 0)
+            shape = f"{name} M={m} rotate={rotate}"
+            if not torch.equal(got, run()):
+                raise AssertionError(f"itq3_matmul {shape}: two calls differ")
+            f32_bound[shape] = bound_ms(nbytes, flops)[0]
+            led.add("itq3_matmul", shape, err=err, rel=rel, ms=device_ms(run),
+                    plain_ms=device_ms(plain),
+                    library_ms=device_ms(lambda x=x: x @ w),
+                    nbytes=nbytes, flops=2 * m * n * kpad * (3 if rotate
+                                                             else 2),
+                    peak_ops=PEAK_TF32_FLOPS)
     report["itq3_matmul_f32_core_bound_ms"] = f32_bound
     main = sum(v for k, v in f32_bound.items() if "rotate=False" in k)
     print(f"  itq3_matmul: two calls bit-equal at every shape; bound on the "
@@ -450,6 +551,144 @@ def matmul_tile_sweep(gen: torch.Generator, dev, weights,
     report["matmul_tiles_ms"] = out
 
 
+def _under_cut(rule: str, cut, fn):
+    """``fn`` called with the tile rule ``rule`` of kernels/itq3.py
+    replaced by ``cut`` (None: the rule's own)."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    def call(*args, **kw):
+        own = getattr(itq3_mod, rule)
+        if cut is not None:
+            setattr(itq3_mod, rule, lambda m_, n_, kb_: cut)
+        try:
+            return fn(*args, **kw)
+        finally:
+            setattr(itq3_mod, rule, own)
+    return call
+
+
+def _matvec_edge(planes, kw, m, rotate, gen, dev, cut=None) -> float:
+    """One itq3_matvec case: within KERNEL_REL_TOL of the plain version,
+    two calls bit-equal, and in activations mode the fused form (x
+    unrotated, rotate_x) bit-equal to fwht.cu then the matvec. Returns
+    the relative error."""
+    run = _under_cut("matvec_tiles", cut, itq3_matvec)
+    kb = planes[0].shape[1]
+    x = torch.randn(m, kb * 256, generator=gen, device=dev)
+    what = (f"itq3_matvec {kw} M={m} N={planes[0].shape[0]} KB={kb} "
+            f"rotate={rotate} cut={cut}")
+    if rotate:
+        got = run(x, *planes, rotate_weights=True, **kw)
+        want = itq3_matmul_ref(x, *planes, rotate_weights=True, **kw)
+        pair_equal = True
+        same = torch.equal(got, run(x, *planes, rotate_weights=True, **kw))
+    else:
+        got = run(x, *planes, rotate_weights=False, rotate_x=True, **kw)
+        want = itq3_matmul_ref(fwht_ref(x), *planes, rotate_weights=False,
+                               **kw)
+        pair_equal = torch.equal(got, run(fwht(x), *planes,
+                                          rotate_weights=False, **kw))
+        same = torch.equal(got, run(x, *planes, rotate_weights=False,
+                                    rotate_x=True, **kw))
+    _, rel = rel_err(got, want)
+    if not (rel <= KERNEL_REL_TOL and pair_equal and same):
+        raise AssertionError(f"{what}: rel {rel:.2e}, fused == pair "
+                             f"{pair_equal}, two calls bit-equal {same}")
+    return rel
+
+
+MATVEC_EDGE_M = (1, 4, 5, 16)
+MATVEC_EDGE_NKB = tuple((n, kb) for n in (29, 192) for kb in (1, 3, 6, 11, 24))
+MATVEC_EDGE_SUB = (1, 32, 256)  # besides itq3_s's 0 and itq3_s_sub's 8
+MATVEC_RING_CUTS = ((8, 1), (8, 2), (8, 4), (16, 3))
+
+
+def check_matvec_edges(gen: torch.Generator, dev, report: dict) -> None:
+    """itq3_matvec untimed at its edges (see _matvec_edge), both modes: all
+    five formats at M 1/4/5/16, N 29/192 and KB 1/3/6/11/24 (staged whole
+    or in windows; one split where KB is prime), at the rule's cut; other
+    sub-block counts; every cut of KB 6 at M 16."""
+    worst, cases = 0.0, 0
+    for fmt in MATMUL_EDGE_FORMATS:
+        for n, kb in MATVEC_EDGE_NKB:
+            qt = ternary_weight(fmt, kb * 256, n, gen, dev)
+            d, meta = qt.data, qt.meta
+            planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+            kw = dict(fivelevel=meta.fivelevel, sub_blocks=meta.sub_blocks)
+            for rotate in (False, True):
+                for m in MATVEC_EDGE_M:
+                    worst = max(worst, _matvec_edge(planes, kw, m, rotate,
+                                                    gen, dev))
+                    cases += 1
+    for sub in MATVEC_EDGE_SUB:
+        planes, kw = _int8_case("itq3_s_sub", 29, 6, gen, dev, sub)
+        for rotate in (False, True):
+            for m in (1, 16):
+                worst = max(worst, _matvec_edge(planes, kw, m, rotate, gen,
+                                                dev))
+                cases += 1
+    for fmt, sub in (("itq3_s", None), ("itq3_s_sub", None), ("itq3_x", None),
+                     ("itq3_s_sub", 32)):
+        planes, kw = _int8_case(fmt, 192, 6, gen, dev, sub)
+        for cut in int8_cuts("itq3_matvec_int8", 6):
+            for rotate in (False, True):
+                worst = max(worst, _matvec_edge(planes, kw, 16, rotate, gen,
+                                                dev, cut))
+                cases += 1
+    # x staged in windows at KB 24, M 16 (double-buffered rings of 6, 3,
+    # 2 and 1 blocks per run)
+    for fmt in ("itq3_s", "itq3_x"):
+        planes, kw = _int8_case(fmt, 29, 24, gen, dev)
+        for cut in MATVEC_RING_CUTS:
+            for rotate in (False, True):
+                worst = max(worst, _matvec_edge(planes, kw, 16, rotate, gen,
+                                                dev, cut))
+                cases += 1
+    report["matvec_edges"] = dict(cases=cases, max_rel_err=worst)
+    print(f"  itq3_matvec edges: {cases} cases (5 formats x 2 modes x M "
+          f"{MATVEC_EDGE_M} x (N, KB) {MATVEC_EDGE_NKB}; sub_blocks "
+          f"{MATVEC_EDGE_SUB}; every cut at KB 6, M 16; cuts "
+          f"{MATVEC_RING_CUTS} at KB 24, M 16): max rel error "
+          f"{worst:.2e}, fused == fwht.cu + matvec, two calls bit-equal",
+          flush=True)
+
+
+def matvec_tile_sweep(gen: torch.Generator, dev, weights, report: dict,
+                      timed: bool = True) -> None:
+    """The fused itq3_matvec at phase 3's four serving shapes (M = 4)
+    under every cut (features x splits), beside the one matvec_tiles
+    picks: each within 1e-4 of the plain version and deterministic; times
+    printed and written to the details, not summed into the kernel
+    line."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    out = {}
+    for name, qt in weights.items():
+        d = qt.data
+        planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+        n, kb = d["plane2"].shape[:2]
+        x = torch.randn(4, kb * 256, generator=gen, device=dev)
+        want = itq3_matmul_ref(fwht_ref(x), *planes, rotate_weights=False)
+        pick = itq3_mod.matvec_tiles(4, n, kb)
+        row = {}
+        for cut in int8_cuts("itq3_matvec_int8", kb):
+            run = _under_cut("matvec_tiles", cut, itq3_matvec)
+
+            def call(run=run):
+                return run(x, *planes, rotate_weights=False, rotate_x=True)
+            got = call()
+            _, rel = rel_err(got, want)
+            if not (rel <= KERNEL_REL_TOL and torch.equal(got, call())):
+                raise AssertionError(f"itq3_matvec {name} cut {cut}: rel "
+                                     f"{rel:.2e} or not deterministic")
+            row[f"{cut[0]}x{cut[1]}"] = cut_ms(call, timed)
+        out[name] = dict(pick=f"{pick[0]}x{pick[1]}", ms=row)
+        print(f"  itq3_matvec cuts {name} M=4 N={n} KB={kb} (features x "
+              f"splits: ms; matvec_tiles picks {pick[0]}x{pick[1]}): "
+              + cuts_line(row), flush=True)
+    report["matvec_tiles_ms"] = out
+
+
 def ptxas_entries(report: dict, source: str) -> dict:
     """ptxas's register and spill lines per kernel entry of ``source``."""
     regs, entry = {}, None
@@ -489,6 +728,16 @@ def matmul_ptxas_report(report: dict) -> None:
 
 
 INT8_SCALE_MODES = ("d per block", "8 sub-blocks", "any sub-blocks")
+
+
+def matvec_ptxas_report(report: dict) -> None:
+    """Registers and spills of every itq3_matvec instantiation (scale mode
+    x weights mode); fails on a spill."""
+    def label(entry):
+        mode, rotw = re.search(r"ILi(\d)ELb([01])E", entry).groups()
+        return (f"itq3_matvec_kernel<{INT8_SCALE_MODES[int(mode)]}, "
+                f"{'weights mode' if rotw == '1' else 'activations mode'}>")
+    report["matvec_ptxas"] = ptxas_spill_report(report, "itq3_matvec", label)
 
 
 def int8_ptxas_report(report: dict) -> None:
@@ -879,20 +1128,13 @@ def _with_cut(kernel, cut):
 
     rule = "matvec_int8_tiles" if kernel == "itq3_matvec_int8" \
         else "matmul_tiles"
-    fn = itq3_matvec_int8 if kernel == "itq3_matvec_int8" \
-        else itq3_matmul_int8
-    own = getattr(itq3_mod, rule)
+    call = _under_cut(rule, cut, itq3_matvec_int8
+                      if kernel == "itq3_matvec_int8" else itq3_matmul_int8)
 
     def run(xq, xs, planes, kw):
-        if cut is None:
-            return fn(xq, xs, *planes, **kw), own(xq.shape[0],
-                                                  planes[0].shape[0],
-                                                  planes[0].shape[1])[1]
-        setattr(itq3_mod, rule, lambda m_, n_, kb_: cut)
-        try:
-            return fn(xq, xs, *planes, **kw), cut[1]
-        finally:
-            setattr(itq3_mod, rule, own)
+        splits = cut[1] if cut else getattr(itq3_mod, rule)(
+            xq.shape[0], *planes[0].shape[:2])[1]
+        return call(xq, xs, *planes, **kw), splits
     return run
 
 
@@ -1139,12 +1381,16 @@ def serve_run(params, cfg, prompts, dev, *, count: bool,
 
 
 def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul,
-                  attn="attn_q8"):
+                  attn="attn_q8", act_quant=False):
     """Hold a counted serving run to its contract: every request finishes
     with ``length``, no quarantine, and each kernel launched exactly as the
-    path dictates: per layer, per decode step 7 FWHTs, 7 ``matvec`` and 1
-    ``attn``; per prefill wave 7 FWHTs, 7 ``matmul`` and 1 ``attn``;
-    nothing else. Returns the run's numbers."""
+    path dictates, per layer: 7 projections through ``matvec`` per decode
+    step and ``matmul`` per prefill wave; a 256-point FWHT before each of
+    them on the W3A8 path (``act_quant``), before each prefill projection
+    only on the float path (its matvec rotates x itself); four head_dim
+    FWHTs (the KV codec's K and V, the attention's query and output) and
+    one ``attn`` per step and per wave; nothing else. Returns the run's
+    numbers."""
     st = eng.stats()
     bad = [r.rid for r in reqs if r.finish_reason != "length"
            or len(r.out) != MAX_NEW]
@@ -1153,11 +1399,20 @@ def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul,
                              f"length")
     if st["quarantined"]:
         raise AssertionError(f"{label}: non-finite logits quarantined a slot")
-    proj = cfg.num_layers * 7  # wq wk wv wo gate up down
+    layers = cfg.num_layers
+    proj = layers * 7  # wq wk wv wo gate up down
     steps, waves = st["decode_steps"], st["prefill_waves"]
-    expected = {"fwht": proj * (steps + waves), matvec: proj * steps,
-                matmul: proj * waves,
-                attn: cfg.num_layers * (steps + waves)}
+    head = f"fwht/{cfg.resolved_head_dim}"
+    per_step, per_wave = collections.Counter(), collections.Counter()
+    for per, contraction in ((per_step, matvec), (per_wave, matmul)):
+        per[contraction] += proj
+        per[head] += 4 * layers
+        per[attn] += layers
+    per_wave["fwht/256"] += proj
+    if act_quant:
+        per_step["fwht/256"] += proj
+    expected = {k: per_step[k] * steps + per_wave[k] * waves
+                for k in per_step | per_wave}
     if counts != expected:
         raise AssertionError(f"{label}: launches {counts} != expected "
                              f"{expected}")
@@ -1166,8 +1421,8 @@ def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul,
         decode_tok_s=st["tokens_decoded"] / st["decode_seconds"],
         decode_ms_per_step=1e3 * st["decode_seconds"] / st["decode_steps"],
         prefill_ms_per_wave=1e3 * st["prefill_seconds"] / st["prefill_waves"],
-        launches_per_decode_step={
-            k: v / st["decode_steps"] for k, v in counts.items()},
+        launches_per_decode_step=dict(per_step),
+        launches_per_prefill_wave=dict(per_wave),
         peak_mem_bytes=torch.cuda.max_memory_allocated())
     print(f"  served {len(reqs)} requests / {sum(len(r.out) for r in reqs)} "
           f"tokens in {wall:.2f} s: decode {out['decode_tok_s']:.1f} tok/s "
@@ -1177,7 +1432,8 @@ def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul,
           f"{st['prefill_waves']} waves, {st['syncs_per_token']:.3f} host "
           f"syncs/token, peak memory {out['peak_mem_bytes'] / 2**20:.0f} MiB",
           flush=True)
-    print(f"  launches while serving: {counts}", flush=True)
+    print(f"  launches while serving: {counts} (per decode step "
+          f"{dict(per_step)}, per prefill wave {dict(per_wave)})", flush=True)
     return out
 
 
@@ -1259,12 +1515,15 @@ def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
     print("phase 5: teacher-forced parity, kernels vs plain versions",
           flush=True)
     parity_phase(params, cfg, prompts, dev, report, "parity")
-    _, plain_reqs, plain_wall, _ = serve("ref", count=False)
+    _, plain_reqs, plain_wall, plain_counts = serve("ref", count=True)
+    if plain_counts:
+        raise AssertionError(f"the plain-version run launched {plain_counts}")
     same, total = agreement(reqs, plain_reqs)
     report["greedy_agreement"] = same / total
     report["plain_serve_wall_s"] = plain_wall
     print(f"  free-running greedy streams: {same}/{total} tokens agree with "
-          f"the plain-version run ({plain_wall:.2f} s)", flush=True)
+          f"the plain-version run ({plain_wall:.2f} s, no kernel launched)",
+          flush=True)
     if profile:
         print("phase 6: the float path under torch.profiler", flush=True)
         profile_phase(lambda: serve("auto", count=False,
@@ -1344,7 +1603,8 @@ def w3a8_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
     serve(False, act_quant=True)  # warm-up
     eng, reqs, wall, counts = serve(True, act_quant=True)
     out = check_serving("W3A8 path", eng, reqs, wall, counts, cfg,
-                        matvec="itq3_matvec_int8", matmul="itq3_matmul_int8")
+                        matvec="itq3_matvec_int8", matmul="itq3_matmul_int8",
+                        act_quant=True)
     if not eng.stats()["act_quant"]:
         raise AssertionError("the engine did not report act_quant")
     out.update(quantize_s=quant_s, quantize_launches=quant_counts,
@@ -1552,6 +1812,7 @@ def main(argv=None) -> int:
     led = Ledger()
     check_fwht(led, gen, dev)
     proj = quantize_smollm_projections(gen, dev)
+    check_matvec(led, gen, dev, proj, report)
     check_itq3(led, gen, dev, proj, report)
     check_attn(led, gen, dev)
     int8w = int8_weights(gen, dev)
@@ -1561,6 +1822,9 @@ def main(argv=None) -> int:
     check_attn_edges(gen, dev, report)
     attn_grid_report(report)
     attn_cut_sweep(gen, dev, report, timed=not args.profile)
+    check_matvec_edges(gen, dev, report)
+    matvec_tile_sweep(gen, dev, proj, report, timed=not args.profile)
+    matvec_ptxas_report(report)
     check_matmul_edges(gen, dev, report)
     matmul_tile_sweep(gen, dev, proj, report, timed=not args.profile)
     matmul_ptxas_report(report)
@@ -1578,6 +1842,9 @@ def main(argv=None) -> int:
         cfg = get_config("smollm-135m")
         counts, dense_reqs = serve_phase(dev, report, cfg,
                                          profile=args.profile)
+        # fwht counts its launches per block size: the line takes the sum
+        counts["fwht"] = sum(v for k, v in counts.items()
+                             if k.startswith("fwht/"))
         w3a8 = w3a8_phase(dev, report, cfg, profile=args.profile)
         counts.update({k: w3a8[k] for k in (
             "itq3_matvec_int8", "itq3_matmul_int8", "quantize_blocks")})

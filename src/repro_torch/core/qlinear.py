@@ -6,8 +6,10 @@ dispatch in ``repro/kernels/ops.py``).
 **mode** — where the rotation lands (see ``TernaryFormat.contract``):
 ``dequant`` (materialize W_hat; plain only), ``weights`` (inverse-FWHT the
 weight tiles inside the contraction kernel), ``activations`` (rotate each
-activation block once with the FWHT kernel, then contract without a weight
-rotation; the serving default), ``auto`` (rotate the smaller operand).
+activation block once, then contract without a weight rotation; the
+serving default: M <= 16 rows rotate inside the matvec kernel, larger M
+with the FWHT kernel before the tiled one), ``auto`` (rotate the smaller
+operand).
 
 **backend** — ``ref`` runs the plain ``Format.contract``; ``cuda`` runs the
 kernel path and requires CUDA tensors; ``auto`` runs the kernel path,
@@ -31,7 +33,7 @@ import torch
 from repro_torch.core import formats as fmt_mod
 from repro_torch.core.act_quant import act_encode
 from repro_torch.core.quantize import QTensor, pad_last_dim
-from repro_torch.kernels.fwht import fwht as fwht_kernel
+from repro_torch.kernels import fwht as fwht_kernels
 from repro_torch.kernels.itq3 import (
     MATVEC_MAX_M, itq3_matmul, itq3_matmul_int8, itq3_matvec,
     itq3_matvec_int8,
@@ -84,8 +86,9 @@ def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
 
     * ``act_quant``: rotate with the FWHT kernel and int8-encode the rows,
       then the int8 matvec (M <= 16) or tiled kernel;
-    * otherwise rotate (activations mode) or pre-scale by the sign diagonal
-      (weights mode), then the float matvec or tiled kernel."""
+    * otherwise pre-scale by the sign diagonal (quip3), then the float
+      matvec, which rotates x itself in activations mode, or the FWHT
+      kernel (activations mode) and the tiled kernel."""
     m = qt.meta
     lead = x.shape[:-1]
     xp = pad_last_dim(x.reshape(-1, x.shape[-1]).to(torch.float32), m.block)
@@ -93,28 +96,33 @@ def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
     d = qt.data
     if act_quant:
         xq, xs = act_encode(xp, block=m.block, rotate=m.rotate, dsign=dsign,
-                            fwht_fn=lambda a, b: fwht_kernel(a.contiguous(),
-                                                             b))
+                            fwht_fn=lambda a, b: fwht_kernels.fwht(
+                                a.contiguous(), b))
         fn = itq3_matvec_int8 if xq.shape[0] <= MATVEC_MAX_M \
             else itq3_matmul_int8
         out = fn(xq, xs, d["plane2"], d["plane1"], d["scales"], d["zps"],
                  fivelevel=m.fivelevel, sub_blocks=m.sub_blocks)
         return out.reshape(*lead, m.n)
-    rotate_weights = False
+    rotate_weights = rotate_x = False
+    small = xp.shape[0] <= MATVEC_MAX_M
     if m.rotate:
         if dsign is not None:
             # w_hat = D H v  =>  y = v . (H D x): pre-scale x by D either way
             xp = (xp.reshape(xp.shape[0], -1, m.block)
                   * dsign.to(xp.dtype)).reshape(xp.shape)
         if mode == "activations":
-            xp = fwht_kernel(xp.contiguous(), m.block)
+            if small:
+                rotate_x = True
+            else:
+                xp = fwht_kernels.fwht(xp.contiguous(), m.block)
         elif mode == "weights":
             rotate_weights = True
         else:
             raise ValueError(f"unknown kernel mode {mode!r}")
     xp = xp.contiguous()
-    fn = itq3_matvec if xp.shape[0] <= MATVEC_MAX_M else itq3_matmul
-    out = fn(xp, d["plane2"], d["plane1"], d["scales"], d["zps"],
-             rotate_weights=rotate_weights, fivelevel=m.fivelevel,
-             sub_blocks=m.sub_blocks)
+    planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
+    kw = dict(rotate_weights=rotate_weights, fivelevel=m.fivelevel,
+              sub_blocks=m.sub_blocks)
+    out = (itq3_matvec(xp, *planes, rotate_x=rotate_x, **kw) if small
+           else itq3_matmul(xp, *planes, **kw))
     return out.reshape(*lead, m.n)

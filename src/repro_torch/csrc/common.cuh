@@ -1,16 +1,15 @@
 // Shared device helpers for the ITQ3_S kernels: warp reductions, the
-// planar 3-bit decode (one 256-element block to floats across a warp, or
-// one 16-byte plane unit to the exact int8 `wint = q - z`), cp.async
-// copies, and two Walsh-Hadamard butterflies on a warp's registers: one
-// over the decode layout below, one over the strided layout of fwht.cu
-// and quantize_blocks.cu (lane L holds element v*32 + L).
+// planar 3-bit decode of one 16-byte plane unit to the exact int8
+// `wint = q - z`, the matvecs' plane loader (RunPlanes), cp.async copies,
+// and two Walsh-Hadamard butterflies on a warp's registers: one over the
+// decode layout below (itq3_matmul.cu's weights mode), one over the
+// strided layout of fwht.cu, quantize_blocks.cu and itq3_matvec.cu (lane
+// L holds element v*32 + L).
 //
-// Lane layout of one decoded block (32 lanes x 8 values): lane L holds
-// elements e = c*64 + 2*L + j for c in 0..3, j in 0..1, in register
-// r = 2*c + j. Plane2 byte i carries elements {i, 64+i, 128+i, 192+i}, so
-// lane L reads plane2 bytes 2L and 2L+1 (one coalesced 2-byte load) and
-// gets all 8 of its payloads. Element bits: bit 0 = j (register), bits
-// 1..5 = lane bits 0..4 (shuffles), bits 6..7 = c (register).
+// Lane layout of one block for itq3_butterfly (32 lanes x 8 values): lane
+// L holds elements e = c*64 + 2*L + j for c in 0..3, j in 0..1, in
+// register r = 2*c + j. Element bits: bit 0 = j (register), bits 1..5 =
+// lane bits 0..4 (shuffles), bits 6..7 = c (register).
 #pragma once
 
 #include <cuda_fp16.h>
@@ -39,54 +38,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Element index held in register r by `lane` (see the layout above).
-__device__ __forceinline__ int itq3_elem(int r, int lane) {
-  return (r >> 1) * 64 + 2 * lane + (r & 1);
-}
-
-// Decode block `blk` (= n*KB + kb) into w[8]: d*(q - z), or d_sub*q with
-// sub-block scales, with q the ternary payload (or the five-level value
-// when `fivelevel`). For plain ternary formats plane1 carries a parity bit
-// and must not be read as an escape.
-__device__ __forceinline__ void itq3_decode_lane(
-    const uint8_t* __restrict__ plane2, const uint8_t* __restrict__ plane1,
-    const __half* __restrict__ scales, const __half* __restrict__ zps,
-    long long blk, int sub_blocks, int fivelevel, int lane, float w[8]) {
-  const uint8_t* p2 = plane2 + blk * 64;
-  const unsigned short b2 =
-      *reinterpret_cast<const unsigned short*>(p2 + 2 * lane);
-  const unsigned q2[2] = {b2 & 0xffu, (unsigned)(b2 >> 8)};
-  unsigned q1[2] = {0u, 0u};
-  if (fivelevel) {
-    const uint8_t* p1 = plane1 + blk * 32;
-    q1[0] = p1[(2 * lane) & 31];
-    q1[1] = p1[(2 * lane + 1) & 31];
-  }
-  const int hi = lane >= 16;  // elements c*64 + 32..63 sit in odd plane1 bits
-  float d = 0.f, z = 0.f;
-  if (!sub_blocks) {
-    d = __half2float(scales[blk]);
-    z = __half2float(zps[blk]);
-  }
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int c = r >> 1, j = r & 1;
-    int q = (int)((q2[j] >> (2 * c)) & 3u) - 1;
-    if (fivelevel) q *= 1 + (int)((q1[j] >> (2 * c + hi)) & 1u);
-    if (sub_blocks) {
-      const int s = itq3_elem(r, lane) / (256 / sub_blocks);
-      w[r] = __half2float(scales[blk * sub_blocks + s]) * (float)q;
-    } else {
-      w[r] = d * ((float)q - z);
-    }
-  }
-}
-
 constexpr unsigned kZeroCodes = 0x55555555u;  // every 2-bit payload 1: q = 0
 
-// The int8 kernels' scale modes: d per block; itq3_s_sub's 8 sub-blocks of
-// 32 elements (the serving one); any other divisor of 256, off the
-// serving path.
+// The scale modes of the int8 kernels and the float matvec: d per block;
+// itq3_s_sub's 8 sub-blocks of 32 elements (the serving one); any other
+// divisor of 256, off the serving path.
 enum { kBlock = 0, kSub32 = 1, kSubAny = 2 };
 
 __host__ __device__ __forceinline__ int int8_scale_mode(int sub_blocks) {
@@ -124,6 +80,42 @@ __device__ __forceinline__ void itq3_decode_wint_unit(uint4 b2, uint4 b1,
   }
 }
 
+constexpr int kRunBlocks = 2;  // blocks whose planes a lane holds at once
+
+// The matvecs' plane loader, for their quad layout (lane q of a quad reads
+// plane2 bytes 16q..16q+15 of a block). One lane's planes of up to
+// kRunBlocks blocks of its run: its 16-byte units, and as fp16 bits d and
+// z (kBlock) or the 8 sub-block scales (kSub32). kSubAny reads its scales
+// at use.
+template <int kMode>
+struct RunPlanes {
+  uint4 b2[kRunBlocks], b1[kRunBlocks], sc[kRunBlocks];
+
+  __device__ __forceinline__ void load(
+      const uint8_t* __restrict__ plane2, const uint8_t* __restrict__ plane1,
+      const __half* __restrict__ scales, const __half* __restrict__ zps,
+      int n, int N, int KB, int kb, int kb_end, int q, int fivelevel) {
+#pragma unroll
+    for (int r = 0; r < kRunBlocks; ++r) {
+      b2[r] = make_uint4(kZeroCodes, kZeroCodes, kZeroCodes, kZeroCodes);
+      b1[r] = sc[r] = make_uint4(0u, 0u, 0u, 0u);  // features past N: zeros
+      if (n < N && kb + r < kb_end) {
+        const long long blk = (long long)n * KB + kb + r;
+        b2[r] = __ldg(reinterpret_cast<const uint4*>(plane2 + blk * 64) + q);
+        if (fivelevel)
+          b1[r] = __ldg(reinterpret_cast<const uint4*>(plane1 + blk * 32) +
+                        (q & 1));
+        if (kMode == kBlock) {
+          sc[r].x = __half_as_ushort(scales[blk]);
+          sc[r].y = __half_as_ushort(zps[blk]);
+        } else if (kMode == kSub32) {
+          sc[r] = __ldg(reinterpret_cast<const uint4*>(scales + blk * 8));
+        }
+      }
+    }
+  }
+};
+
 // cp.async 16-byte copies, global -> shared, in commit groups; valid =
 // false fills the 16 bytes with zeros.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -148,16 +140,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Unnormalized FWHT of a V*32-point vector held as r[v] = element v*32 +
 // lane, stages h = 1, 2, 4, ... in the reference's order: lane bits by
-// shuffle, then register bits. (a, b) -> (a+b, a-b) at every stage.
+// shuffle, then register bits. (a, b) -> (a+b, a-b) at every stage; across
+// lanes as one fma with +-1 (the product is exact, so the sum rounds once,
+// as a + b and a - b do).
 template <int V>
 __device__ __forceinline__ void warp_fwht_strided(float r[V], int lane) {
 #pragma unroll
   for (int h = 1; h < 32; h <<= 1) {
+    const float sgn = (lane & h) ? -1.f : 1.f;  // the upper lane holds b
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float o = __shfl_xor_sync(FULL_MASK, r[v], h);
-      r[v] = (lane & h) ? (o - r[v]) : (r[v] + o);
-    }
+    for (int v = 0; v < V; ++v)
+      r[v] = __fmaf_rn(sgn, r[v], __shfl_xor_sync(FULL_MASK, r[v], h));
   }
 #pragma unroll
   for (int s = 1; s < V; s <<= 1) {

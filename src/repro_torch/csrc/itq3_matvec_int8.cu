@@ -39,45 +39,12 @@
 
 constexpr int kMaxM = 16;
 constexpr int kMaxWarps = 8;    // features / 8 x splits
-constexpr int kRun = 2;         // blocks whose planes a lane holds at once
 constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ int quad_isum(int v) {
   v += __shfl_xor_sync(FULL_MASK, v, 1);
   return v + __shfl_xor_sync(FULL_MASK, v, 2);
 }
-
-// One lane's planes of up to kRun blocks: its 16-byte units, and as fp16
-// bits d and z (kBlock) or the 8 sub-block scales (kSub32). kSubAny reads
-// its scales at use.
-template <int kMode>
-struct RunPlanes {
-  uint4 b2[kRun], b1[kRun], sc[kRun];
-
-  __device__ __forceinline__ void load(
-      const uint8_t* __restrict__ plane2, const uint8_t* __restrict__ plane1,
-      const __half* __restrict__ scales, const __half* __restrict__ zps,
-      int n, int N, int KB, int kb, int kb_end, int q, int fivelevel) {
-#pragma unroll
-    for (int r = 0; r < kRun; ++r) {
-      b2[r] = make_uint4(kZeroCodes, kZeroCodes, kZeroCodes, kZeroCodes);
-      b1[r] = sc[r] = make_uint4(0u, 0u, 0u, 0u);  // features past N: zeros
-      if (n < N && kb + r < kb_end) {
-        const long long blk = (long long)n * KB + kb + r;
-        b2[r] = __ldg(reinterpret_cast<const uint4*>(plane2 + blk * 64) + q);
-        if (fivelevel)
-          b1[r] = __ldg(reinterpret_cast<const uint4*>(plane1 + blk * 32) +
-                        (q & 1));
-        if (kMode == kBlock) {
-          sc[r].x = __half_as_ushort(scales[blk]);
-          sc[r].y = __half_as_ushort(zps[blk]);
-        } else if (kMode == kSub32) {
-          sc[r] = __ldg(reinterpret_cast<const uint4*>(scales + blk * 8));
-        }
-      }
-    }
-  }
-};
 
 // 32-element sub-blocks: lanes 0-1 of a quad hold sub-block 2c of chunk
 // c, lanes 2-3 sub-block 2c + 1.
@@ -228,12 +195,12 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
     float acc[kMaxM];
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
-    for (int kb = kb_begin; kb < kb_end; kb += kRun) {
+    for (int kb = kb_begin; kb < kb_end; kb += kRunBlocks) {
       if (kb != kb_begin)
         pl.load(plane2, plane1, scales, zps, n, N, KB, kb, kb_end, q,
                 fivelevel);
 #pragma unroll
-      for (int r = 0; r < kRun; ++r) {
+      for (int r = 0; r < kRunBlocks; ++r) {
         if (kb + r >= kb_end) break;  // warp-uniform
         unsigned w[4][4];
         itq3_decode_wint_unit(

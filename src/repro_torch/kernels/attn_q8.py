@@ -17,8 +17,10 @@ version :func:`attn_q8_paged_ref`) is the same kernel over a block pool
 the kernel (or, with ``backend="ref"``, the plain versions
 :func:`decode_attn_q8_ref` / :func:`prefill_attn_q8_ref`, over
 :func:`paged_to_dense` of a paged cache), merge the decode self token,
-normalize and apply the final inverse FWHT in PyTorch. A cache dict with a
-``"table"`` entry is paged.
+normalize and apply the final inverse FWHT. Both rotations run in the FWHT
+kernel at head_dim points (``kernels/fwht.py:fwht_last``), or with
+``backend="ref"`` in the plain butterfly. A cache dict with a ``"table"``
+entry is paged.
 
 The kernel splits each row's keys across blocks and combines the splits'
 partial ``(acc, m, l)`` in split order (:func:`attn_grid` picks the cut
@@ -34,8 +36,9 @@ import math
 
 import torch
 
-from repro_torch.core.fwht import fwht, is_pow2
+from repro_torch.core.fwht import is_pow2
 from repro_torch.kernels import _build
+from repro_torch.kernels.fwht import fwht_last
 
 __all__ = ["attn_q8", "attn_q8_ref", "attn_q8_split_ref", "attn_q8_paged",
            "attn_q8_paged_ref", "attn_grid", "decode_attn_q8",
@@ -415,7 +418,8 @@ def decode_attn_q8(q, cache, k_tok, v_tok, kv_len, *, backend: str = "auto"):
     in the kernel; the self term merges here. Returns (B, KV, G, 1, HD)."""
     b, kv, g, _, hd = q.shape
     sm_scale = 1.0 / math.sqrt(hd)
-    q_rot = fwht(q[..., 0, :].to(torch.float32))  # (B, KV, G, HD)
+    q_rot = fwht_last(q[..., 0, :].to(torch.float32),
+                      backend=backend)  # (B, KV, G, HD)
     if _use_kernel(backend, q):
         acc, m, l = _kernel_pass(q_rot.reshape(b * kv, 1, g, hd), cache,
                                  kv_len, None, kv=kv,
@@ -438,7 +442,7 @@ def decode_attn_q8(q, cache, k_tok, v_tok, kv_len, *, backend: str = "auto"):
     v_self = vc_tok.to(torch.float32) * vs_tok.to(torch.float32)  # rotated
     out = _merge_self_token(acc, m, l, s_self, v_self)
     # sum_t w_t (H v_t) = H (sum_t w_t v_t): one inverse FWHT per step
-    return fwht(out)[..., None, :]
+    return fwht_last(out, backend=backend)[..., None, :]
 
 
 def prefill_attn_q8(q, cache, kv_len, q_offset, *, backend: str = "auto"):
@@ -450,7 +454,8 @@ def prefill_attn_q8(q, cache, kv_len, q_offset, *, backend: str = "auto"):
     (B, KV, G, TQ, HD) with the rotation undone."""
     b, kv, g, tq, hd = q.shape
     sm_scale = 1.0 / math.sqrt(hd)
-    q_rot = fwht(q.transpose(2, 3).to(torch.float32))  # (B, KV, TQ, G, HD)
+    q_rot = fwht_last(q.transpose(2, 3).to(torch.float32),
+                      backend=backend)  # (B, KV, TQ, G, HD)
     if _use_kernel(backend, q):
         acc, _, l = _kernel_pass(q_rot.reshape(b * kv, tq, g, hd), cache,
                                  kv_len, q_offset, kv=kv, sm_scale=sm_scale,
@@ -463,4 +468,4 @@ def prefill_attn_q8(q, cache, kv_len, q_offset, *, backend: str = "auto"):
             q_rot.transpose(2, 3), dc["k"], dc["k_scale"], dc["v"],
             dc["v_scale"], kv_len, q_offset, sm_scale=sm_scale)
     # one inverse FWHT per query span, outside the kernel
-    return fwht(acc / l)
+    return fwht_last(acc / l, backend=backend)

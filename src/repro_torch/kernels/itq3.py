@@ -7,7 +7,13 @@ in-kernel inverse FWHT of the weights (``rotate_weights``, the paper's
 weights mode); its plain version is :func:`itq3_matmul_ref`:
 
 * ``itq3_matvec`` (``csrc/itq3_matvec.cu``) replaces
-  ``repro/kernels/itq3_matvec.py:itq3_matvec_pallas`` for M <= 16;
+  ``repro/kernels/itq3_matvec.py:itq3_matvec_pallas`` for M <= 16. With
+  ``rotate_x`` it also runs the activation FWHT (activations mode) on x
+  as it stages it, so a float decode projection is one launch; its plain
+  version is then ``itq3_matmul_ref(fwht_ref(x))``, and the kernel gives
+  the bits of ``fwht.cu`` followed by the matvec. Like the int8 matvec it
+  cuts K into runs of blocks, one per warp (:func:`matvec_tiles`), and
+  adds the runs' sums in ascending order;
 * ``itq3_matmul`` (``csrc/itq3_matmul.cu``) replaces
   ``repro/kernels/itq3_matmul.py:itq3_matmul_pallas`` for M > 16.
 
@@ -53,12 +59,14 @@ import torch
 from repro_torch.core.fwht import fwht
 from repro_torch.core.quantize import decode_values, decode_wint
 from repro_torch.kernels import _build
+from repro_torch.kernels.fwht import fwht_ref
 
 __all__ = ["itq3_matvec", "itq3_matmul", "itq3_matmul_ref",
            "itq3_matmul_split_ref", "matmul_operand", "matmul_tiles",
            "tf32_round", "itq3_matvec_int8", "itq3_matmul_int8",
            "itq3_matmul_int8_ref", "itq3_matmul_int8_split_ref",
-           "matvec_int8_tiles", "MATVEC_MAX_M"]
+           "matvec_int8_tiles", "matvec_tiles", "matvec_window",
+           "MATVEC_MAX_M"]
 
 MATVEC_MAX_M = 16  # decode / small-batch regime; above this, the tiled kernel
 MATMUL_BN = 64  # output columns per itq3_matmul block
@@ -71,6 +79,7 @@ _INT8_ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 MATVEC_INT8_FEATURES = (8, 16, 32)  # output features per block: 8 per warp
 MATVEC_INT8_MAX_WARPS = 8  # features / 8 x splits per block
 MATVEC_INT8_SMEM = 227 * 1024  # the H100's shared memory per block
+MATVEC_XBLOCK_BYTES = 1152  # one 256-block of x staged by itq3_matvec
 
 
 def dequant_blocks(plane2, plane1, scales, zps, *, rotate_weights: bool,
@@ -216,38 +225,82 @@ def _check_shapes(x, plane2, plane1, scales, zps, sub_blocks):
 
 
 def _launch(name, x, plane2, plane1, scales, zps, rotate_weights,
-            fivelevel, sub_blocks, tiles=None):
-    """Launch ``csrc/<name>.cu``; ``tiles(m, n, kb)`` gives the tiled
-    kernel's cut, passed after the flags."""
+            fivelevel, sub_blocks, extra):
+    """Launch ``csrc/<name>.cu``; ``extra(m, n, kb)`` gives the ints the
+    kernel takes after the flags (its cut)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned")
     m, n, kb = _check(name, x, plane2, plane1, scales, zps, sub_blocks)
-    cut = tiles(m, n, kb) if tiles else ()
+    ints = extra(m, n, kb)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = f"{name}_launch"
-    lib = _build.library(name, {fn: _ARGS[:-1] + (ctypes.c_int,) * len(cut)
+    lib = _build.library(name, {fn: _ARGS[:-1] + (ctypes.c_int,) * len(ints)
                                 + _ARGS[-1:]})
     _build.check(getattr(lib, fn)(
         x.data_ptr(), plane2.data_ptr(), plane1.data_ptr(), scales.data_ptr(),
         zps.data_ptr(), out.data_ptr(), m, n, kb, int(rotate_weights),
-        int(fivelevel), int(sub_blocks), *cut, _build.stream_of(x)), name)
+        int(fivelevel), int(sub_blocks), *ints, _build.stream_of(x)), name)
     _build.launches[name] += 1
     return out
 
 
+def matvec_window(m: int, kb: int, features: int, splits: int) -> int:
+    """Blocks of x ``itq3_matvec`` stages per run at once: the whole run
+    where all of x and the splits' sums fit the block's shared memory,
+    else the most that fit in two buffers per run (one filling behind the
+    math); 0 where not even one block fits."""
+    room = MATVEC_INT8_SMEM - (4 * splits * features * m if splits > 1
+                               else 0)
+    if m * kb * MATVEC_XBLOCK_BYTES <= room:
+        return -(-kb // splits)
+    return room // (2 * splits * m * MATVEC_XBLOCK_BYTES)
+
+
+def matvec_tiles(m: int, n: int, kb: int) -> tuple[int, int]:
+    """``itq3_matvec``'s cut, from static shapes only: ``(features,
+    splits)``. :func:`matvec_int8_tiles`'s rule (8 features per block, the
+    most splits that divide KB, so each warp loads the fewest blocks'
+    planes before its math), among the splits whose staged x fits the
+    block's shared memory (:func:`matvec_window`). ``chip_smoke.py`` phase
+    3 times every cut at the serving shapes on the H100."""
+    features = MATVEC_INT8_FEATURES[0]
+    most = MATVEC_INT8_MAX_WARPS // (features // 8)
+    return features, max(s for s in range(1, min(kb, most) + 1)
+                         if kb % s == 0
+                         and matvec_window(m, kb, features, s) >= 1)
+
+
 def itq3_matvec(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
-                fivelevel: bool = False, sub_blocks: int = 0):
-    """Decode-shaped ``x (M <= 16, KB*256) @ W_hat -> (M, N)`` f32."""
+                fivelevel: bool = False, sub_blocks: int = 0,
+                rotate_x: bool = False):
+    """Decode-shaped ``x (M <= 16, KB*256) @ W_hat -> (M, N)`` f32, cut by
+    :func:`matvec_tiles`. With ``rotate_x`` x is taken unrotated (for
+    quip3 already scaled by its sign diagonal) and its 256-point FWHT runs
+    in the kernel; it excludes ``rotate_weights``."""
     if not 1 <= x.shape[0] <= MATVEC_MAX_M:
         raise ValueError(f"matvec kernel is for 1 <= M <= {MATVEC_MAX_M}, "
                          f"got {x.shape[0]}")
+    if rotate_x and rotate_weights:
+        raise ValueError("itq3_matvec: rotate_x and rotate_weights exclude "
+                         "each other (one rotation per contraction)")
     if x.device.type == "cpu":
         _check("itq3_matvec", x, plane2, plane1, scales, zps, sub_blocks)
-        return itq3_matmul_ref(x, plane2, plane1, scales, zps,
+        return itq3_matmul_ref(fwht_ref(x) if rotate_x else x, plane2,
+                               plane1, scales, zps,
                                rotate_weights=rotate_weights,
                                fivelevel=fivelevel, sub_blocks=sub_blocks)
+
+    def extra(m, n, kb):
+        cut = matvec_tiles(m, n, kb)
+        window = matvec_window(m, kb, *cut)
+        if window < 1:
+            raise ValueError(f"itq3_matvec: cut {cut} leaves no room for x "
+                             f"(M={m}, KB={kb})")
+        return (*cut, window, int(rotate_x))
     return _launch("itq3_matvec", x, plane2, plane1, scales, zps,
-                   rotate_weights, fivelevel, sub_blocks)
+                   rotate_weights, fivelevel, sub_blocks, extra)
 
 
 def itq3_matmul(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
@@ -259,10 +312,9 @@ def itq3_matmul(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
         return itq3_matmul_ref(x, plane2, plane1, scales, zps,
                                rotate_weights=rotate_weights,
                                fivelevel=fivelevel, sub_blocks=sub_blocks)
-    if x.data_ptr() % 16:
-        raise ValueError("itq3_matmul: x must be 16-byte aligned")
     return _launch("itq3_matmul", x, plane2, plane1, scales, zps,
-                   rotate_weights, fivelevel, sub_blocks, tiles=matmul_tiles)
+                   rotate_weights, fivelevel, sub_blocks,
+                   matmul_tiles)
 
 
 # --- the W3A8 integer pair ---------------------------------------------------

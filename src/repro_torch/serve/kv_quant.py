@@ -5,7 +5,9 @@ quantized to int8 with a per-vector fp16 absmax scale. The scale is
 clamped into fp16's finite normal range and the codes are rounded against
 the value actually stored, so encode -> decode stays finite and
 consistent at both magnitude extremes. ``torch.round`` rounds half to
-even, as ``jnp.round`` does.
+even, as ``jnp.round`` does. The encoder's rotation goes through the FWHT
+kernel (``kernels/fwht.py:fwht_last``) unless ``backend="ref"``; its bits
+are the plain butterfly's either way.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fwht import fwht, is_pow2
+from repro_torch.kernels.fwht import fwht_last
 
 __all__ = ["kv_encode", "kv_decode", "kv_scores", "F16_SCALE_MAX",
            "F16_SCALE_MIN"]
@@ -24,12 +27,13 @@ F16_SCALE_MAX = float(np.finfo(np.float16).max)   # 65504
 F16_SCALE_MIN = float(np.finfo(np.float16).tiny)  # 2^-14
 
 
-def kv_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def kv_encode(x: torch.Tensor, *, backend: str = "auto"
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (..., HD) -> (int8 codes (..., HD), fp16 scales (..., 1))."""
     hd = x.shape[-1]
     if not is_pow2(hd):
         raise ValueError(f"head_dim {hd} must be a power of two")
-    xr = fwht(x.to(torch.float32))
+    xr = fwht_last(x.to(torch.float32), backend=backend)
     amax = torch.amax(torch.abs(xr), dim=-1, keepdim=True)
     scale = torch.clamp(amax / 127.0, F16_SCALE_MIN,
                         F16_SCALE_MAX).to(torch.float16)
