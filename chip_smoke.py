@@ -10,8 +10,9 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
 
 1. Report the card: its name and power limit (``nvidia-smi``).
 2. Build the kernels from ``src/repro_torch/csrc`` with ``nvcc`` (one
-   process per source, all started together): eight kernels in seven
-   sources (``attn_q8.cu`` holds the dense and the paged attention).
+   process per source, all started together): ten kernels in seven
+   sources (``attn_q8.cu`` holds the dense and the paged attention,
+   ``fwht.cu`` the rotation and the two rotate-and-encode codecs).
 3. Check each kernel against its plain PyTorch version on the card at the
    full-width smollm-135m shapes of the serving paths, and time the
    kernel, the plain version and one PyTorch library call that computes
@@ -45,6 +46,14 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    the one ``matvec_tiles`` picks, and must build without a spill.
    ``fwht`` is timed at its 256-point and head_dim shapes and must give
    the plain version's bits there and at every block from 2 to 1024.
+   ``fwht_act_encode`` (the W3A8 activation codec) and ``fwht_kv_encode``
+   (the KV codec of K and V) are timed at their serving shapes beside
+   their plain versions and the unfused chains they replace (``fwht.cu``,
+   then the plain ops), and must give the bits of both there and at their
+   edges (1 to 96 blocks, rotation off, the sign diagonal, zero rows,
+   ties, non-finite rows; every head_dim 2 to 1024, a strided V, scales
+   at fp16's ends), the same bits on two calls, and no spill in
+   ``fwht.cu``.
    The int8 pair is checked untimed at its edges (the three ternary
    formats, every sub-block count from 1 to 256, ragged M and N, one,
    three and six blocks, every cut of K): exactly the plain version with
@@ -58,9 +67,11 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    just before and read just after the counted run, and each kernel must
    have launched exactly as often as the path dictates (per layer: 7
    projections, each the fused matvec per decode step or a 256-point FWHT
-   then the matmul per prefill wave; four head_dim FWHTs, the KV codec's
-   and the attention's; one attention). ``fwht`` counts its launches per
-   block size (``fwht/256``, ``fwht/64``).
+   then the matmul per prefill wave; one ``fwht_kv_encode`` for K and V;
+   two head_dim FWHTs, the attention's query and output; one attention;
+   on the W3A8 path one ``fwht_act_encode`` before each int8 projection
+   and no 256-point FWHT). The FWHT forms count their launches per block
+   size (``fwht/256``, ``fwht/64``, ``fwht_kv/64``, ``fwht_act/256``).
 5. Teacher-forced parity: prefill and 4 decode steps through the kernels
    against the same forward with the plain versions on the card, run apart
    (reported) and layer by layer on one cache state (held to 1e-3); the
@@ -120,14 +131,15 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
 from repro_torch.core.act_quant import act_decode, act_encode  # noqa: E402
 from repro_torch.core.fwht import hadamard_matrix  # noqa: E402
-from repro_torch.core.quantize import to_blocks  # noqa: E402
+from repro_torch.core.quantize import pad_last_dim, to_blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_q8 import (  # noqa: E402
     attn_grid, attn_q8, attn_q8_paged, attn_q8_paged_ref, attn_q8_ref,
     paged_row_table,
 )
 from repro_torch.kernels.fwht import (  # noqa: E402
-    FWHT_BLOCKS, fwht, fwht_ref,
+    FWHT_BLOCKS, fwht, fwht_act_encode, fwht_act_encode_ref, fwht_kv_encode,
+    fwht_kv_encode_ref, fwht_ref,
 )
 from repro_torch.kernels.itq3 import (  # noqa: E402
     dequant_blocks, itq3_matmul, itq3_matmul_int8, itq3_matmul_int8_ref,
@@ -137,6 +149,7 @@ from repro_torch.kernels.itq3 import (  # noqa: E402
 from repro_torch.kernels.quantize import (  # noqa: E402
     quantize_blocks, quantize_blocks_ref,
 )
+from repro_torch.serve.kv_quant import kv_encode  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bandwidth, the
 # f32 rate outside the tensor cores and the int8 tensor-core rate. A
@@ -241,15 +254,23 @@ class Ledger:
         self.rows = []
 
     def add(self, kernel, shape, *, err, rel, ms, plain_ms, library_ms,
-            nbytes, flops, peak_ops=PEAK_F32_FLOPS, tol=KERNEL_REL_TOL):
+            nbytes, flops, peak_ops=PEAK_F32_FLOPS, tol=KERNEL_REL_TOL,
+            chain_ms=None):
+        """One shape of ``kernel``. ``library_ms`` is None where no single
+        PyTorch call computes the function; ``chain_ms`` is the time of
+        the unfused chain a fused form replaces."""
         b, by = bound_ms(nbytes, flops, peak_ops)
         row = dict(kernel=kernel, shape=shape, max_abs_err=err, max_rel_err=rel,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=b, bound_by=by, bytes=nbytes, flops=flops)
+        if chain_ms is not None:
+            row["chain_ms"] = chain_ms
         self.rows.append(row)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        chain = "" if chain_ms is None else f"  chain {chain_ms:.4f} ms"
         print(f"  {kernel:16s} {shape:34s} abs {err:.2e} rel {rel:.2e} | "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-              f"{library_ms:.4f} ms  bound {b:.4f} ms ({by})", flush=True)
+              f"{lib}{chain}  bound {b:.4f} ms ({by})", flush=True)
         if not rel <= tol:
             raise AssertionError(f"{kernel} {shape}: rel error {rel:.3e} > "
                                  f"{tol}")
@@ -262,16 +283,21 @@ class Ledger:
         rows = [r for r in self.rows if r["kernel"] == kernel
                 and "rotate=True" not in r["shape"]
                 and "itq3_x" not in r["shape"]]
-        tot = {k: sum(r[k] for r in rows)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        tot = {k: None if any(r.get(k) is None for r in rows)
+               else sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "chain_ms")}
         by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
-        return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                    ms=tot["ms"], plain_ms=tot["plain_ms"],
-                    bound_ms=tot["bound_ms"],
-                    bound_by="bytes" if 2 * by_bytes >= tot["bound_ms"]
-                    else "operations",
-                    library_ms=tot["library_ms"],
-                    shapes=[r["shape"] for r in rows])
+        out = dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                   ms=tot["ms"], plain_ms=tot["plain_ms"],
+                   bound_ms=tot["bound_ms"],
+                   bound_by="bytes" if 2 * by_bytes >= tot["bound_ms"]
+                   else "operations",
+                   library_ms=tot["library_ms"],
+                   shapes=[r["shape"] for r in rows])
+        if tot["chain_ms"] is not None:
+            out["chain_ms"] = tot["chain_ms"]
+        return out
 
 
 # --- phase 3: each kernel against its plain version ------------------------
@@ -293,23 +319,23 @@ def weight_bytes(qt) -> int:
             + (0 if meta.sub_blocks else 2 * d["zps"].numel()))
 
 
-# The per-head FWHTs on the main path at smollm-135m's widths (4 slots, 3
-# KV heads x 3 query heads, head_dim 64, 64-token prefill buckets): rows
-# of 64 points, each shape twice (q and the output; K and V).
-FWHT_HEAD_ROWS = (("decode q", 36), ("decode out", 36), ("decode K", 12),
-                  ("decode V", 12), ("prefill q", 2304),
-                  ("prefill out", 2304), ("prefill K", 768),
-                  ("prefill V", 768))
+# The rotations alone on the main path at smollm-135m's widths (4 slots,
+# 3 KV heads x 3 query heads, head_dim 64, 64-token prefill buckets): the
+# 256-point rotation of a float prefill projection, and the attention's
+# query and output rotations at head_dim points. K and V go through
+# fwht_kv_encode, the W3A8 activations through fwht_act_encode.
+FWHT_HEAD_ROWS = (("decode q", 36), ("decode out", 36), ("prefill q", 2304),
+                  ("prefill out", 2304))
 
 
 def check_fwht(led: Ledger, gen: torch.Generator, dev) -> None:
-    """fwht at its main-path shapes: block 256 over the activations of
-    prefill and W3A8 projections, block head_dim over the KV codec's and
-    the attention's rotations; each bit-equal to the plain version (the
-    same stages in the same order, one f32 scale), timed beside ``x @ H``.
-    Then every block from 2 to 1024, untimed, bit-equal as well."""
+    """fwht at its main-path shapes: block 256 over the activations of a
+    float prefill projection, block head_dim over the attention's
+    rotations; each bit-equal to the plain version (the same stages in the
+    same order, one f32 scale), timed beside ``x @ H``. Then every block
+    from 2 to 1024, untimed, bit-equal as well."""
     hd = 64
-    shapes = [(f"({m},{k})", m, k, 256) for m, k in ((256, 768), (4, 1536))]
+    shapes = [("(256,768)", 256, 768, 256)]
     shapes += [(f"{label} ({m},{hd})", m, hd, hd)
                for label, m in FWHT_HEAD_ROWS]
     for shape, m, k, block in shapes:
@@ -337,6 +363,185 @@ def check_fwht(led: Ledger, gen: torch.Generator, dev) -> None:
                                      f"the plain version's bits")
     print(f"  fwht at every block {FWHT_BLOCKS[0]}..{FWHT_BLOCKS[-1]}: "
           f"bit-equal to the plain version", flush=True)
+
+
+def _codes_equal(a, b, rows=None) -> bool:
+    """Two (codes, scale) pairs with the same bits; ``rows`` limits the
+    codes compared (a non-finite row's codes are not defined)."""
+    (qa, sa), (qb, sb) = a, b
+    if rows is not None:
+        qa, qb = qa[rows], qb[rows]
+    return (torch.equal(qa, qb) and sa.dtype == sb.dtype
+            and torch.equal(sa.view(torch.int16 if sa.dtype == torch.float16
+                                    else torch.int32),
+                            sb.view(torch.int16 if sb.dtype == torch.float16
+                                    else torch.int32)))
+
+
+def _act_chain(x, **kw):
+    """The unfused chain fwht_act_encode replaces: ``fwht.cu`` on the
+    padded rows, then the plain codec ops."""
+    rotate = kw.pop("rotate", True)
+    xp = pad_last_dim(x, 256)
+    if rotate:
+        dsign = kw.pop("dsign", None)
+        if dsign is not None:
+            xp = (xp.reshape(xp.shape[0], -1, 256) * dsign).reshape(xp.shape)
+        xp = fwht(xp.contiguous(), 256)
+    return act_encode(xp, rotate=False)
+
+
+# fwht_act_encode at the W3A8 projections' shapes: 4 decode rows or one
+# 256-row prefill wave, K = d_model (576, read unpadded: three blocks) or
+# d_ff (1536, six blocks).
+ACT_SHAPES = ((4, 576), (4, 1536), (256, 576), (256, 1536))
+
+
+def check_fwht_act(led: Ledger, gen: torch.Generator, dev,
+                   report: dict) -> None:
+    """fwht_act_encode at the serving shapes: bit-equal to its plain
+    version and to the unfused chain (``fwht.cu``, then the plain ops),
+    two calls bit-equal, timed beside both (no single PyTorch call
+    computes it). Then, untimed, its edges: rotation off, quip3's sign
+    diagonal, zero and padding-only rows, +-127 and exact .5 ties, 1 to
+    96 blocks, non-finite rows (their scale only)."""
+    for m, k in ACT_SHAPES:
+        x = torch.randn(m, k, generator=gen, device=dev) * 3
+        got = fwht_act_encode(x)
+        if not (_codes_equal(got, fwht_act_encode_ref(x))
+                and _codes_equal(got, _act_chain(x))
+                and _codes_equal(got, fwht_act_encode(x))):
+            raise AssertionError(f"fwht_act_encode ({m},{k}): not the plain "
+                                 f"version's or the chain's bits")
+        kb = -(-k // 256)
+        led.add("fwht_act", f"({m},{k}) KB {kb}", err=0.0, rel=0.0,
+                ms=device_ms(lambda: fwht_act_encode(x)),
+                plain_ms=device_ms(lambda: fwht_act_encode_ref(x)),
+                chain_ms=device_ms(lambda: _act_chain(x)), library_ms=None,
+                nbytes=4 * m * k + m * kb * 256 + 4 * m,
+                flops=m * kb * 256 * 13)
+    cases = 0
+    for kb, k in ((1, 200), (3, 576), (6, 1536), (11, 2816),
+                  (96, 96 * 256 - 7)):
+        for m in (1, 5, 300):
+            x = torch.randn(m, k, generator=gen, device=dev) * torch.rand(
+                m, 1, generator=gen, device=dev) * 30
+            x[m // 2] = 0.0
+            dsign = torch.where(torch.rand(kb, 256, generator=gen,
+                                           device=dev) < 0.5, -1.0, 1.0)
+            for kw in (dict(rotate=True), dict(rotate=False),
+                       dict(rotate=True, dsign=dsign)):
+                got = fwht_act_encode(x, **kw)
+                if not (_codes_equal(got, fwht_act_encode_ref(x, **kw))
+                        and _codes_equal(got, _act_chain(x, **kw))
+                        and _codes_equal(got, fwht_act_encode(x, **kw))):
+                    raise AssertionError(f"fwht_act_encode edge ({m},{k}) "
+                                         f"{sorted(kw)}: not the plain "
+                                         f"version's bits")
+                if got[1][m // 2].item() != 0 or got[0][m // 2].any():
+                    raise AssertionError("fwht_act_encode: a zero row must "
+                                         "give scale 0 and codes 0")
+                cases += 1
+    ties = torch.zeros(3, 300, device=dev)
+    ties[0, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5])
+    ties[1, :4] = torch.tensor([-127.0, 127.0, -126.5, 3.5])
+    ties[2, :3] = torch.tensor([254.0, -254.0, 1.0])
+    got = fwht_act_encode(ties, rotate=False)
+    if not _codes_equal(got, fwht_act_encode_ref(ties, rotate=False)) or \
+            got[0][0, :8].tolist() != [127, 0, 2, 2, 0, -2, -2, 126]:
+        raise AssertionError(f"fwht_act_encode ties: {got[0][:, :8]}")
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        x = torch.randn(3, 600, generator=gen, device=dev)
+        x[1, 17] = bad
+        for rotate in (True, False):
+            if not _codes_equal(fwht_act_encode(x, rotate=rotate),
+                                fwht_act_encode_ref(x, rotate=rotate),
+                                rows=[0, 2]):
+                raise AssertionError(f"fwht_act_encode: a row with {bad} "
+                                     f"(rotate={rotate})")
+    cases += 7
+    report["fwht_act_edges"] = cases
+    print(f"  fwht_act_encode: {cases} untimed edge cases (KB 1-96, M 1/5/"
+          f"300, rotation off, sign diagonal, zero rows, ties, non-finite "
+          f"rows) bit-equal to the plain version and the chain, two calls "
+          f"bit-equal", flush=True)
+
+
+def _kv_pair(gen, dev, b, kvh, t, hd):
+    """K contiguous and V as the transpose of a (B, T, KV, HD) projection,
+    as the attention hands them over."""
+    k = torch.randn(b, kvh, t, hd, generator=gen, device=dev)
+    v = torch.randn(b, t, kvh, hd, generator=gen, device=dev).transpose(1, 2)
+    return k, v
+
+
+def _kv_equal(got, want) -> bool:
+    return all(_codes_equal(g, w) for g, w in zip(got, want))
+
+
+# fwht_kv_encode at the serving shapes: a decode step's token (4 slots x 3
+# KV heads) and a prefill wave's 64-token buckets, head_dim 64.
+KV_SHAPES = (("decode", 1), ("prefill", 64))
+
+
+def check_fwht_kv(led: Ledger, gen: torch.Generator, dev,
+                  report: dict) -> None:
+    """fwht_kv_encode at the serving shapes: bit-equal to its plain
+    version (two plain kv_encode calls) and to the unfused chain (two
+    kv_encode calls with their rotation on ``fwht.cu``), two calls
+    bit-equal, timed beside both. Then, untimed, every head_dim 2 to 1024
+    with huge, tiny and zero vectors."""
+    for label, t in KV_SHAPES:
+        k, v = _kv_pair(gen, dev, SLOTS, 3, t, 64)
+        n = SLOTS * 3 * t
+        got = fwht_kv_encode(k, v)
+        chain = lambda: (kv_encode(k), kv_encode(v))  # noqa: E731
+        if not (_kv_equal(got, fwht_kv_encode_ref(k, v))
+                and _kv_equal(got, chain())
+                and _kv_equal(got, fwht_kv_encode(k, v))):
+            raise AssertionError(f"fwht_kv_encode {label}: not the plain "
+                                 f"version's or the chain's bits")
+        led.add("fwht_kv", f"{label} ({n}+{n},64)", err=0.0, rel=0.0,
+                ms=device_ms(lambda: fwht_kv_encode(k, v)),
+                plain_ms=device_ms(lambda: fwht_kv_encode_ref(k, v)),
+                chain_ms=device_ms(chain), library_ms=None,
+                nbytes=2 * 4 * n * 64 + 2 * (n * 64 + 2 * n),
+                flops=2 * n * 64 * 11)
+    for hd in FWHT_BLOCKS:
+        k, v = _kv_pair(gen, dev, 2, 3, 37, hd)
+        k[0, 0, 0] *= 1e9
+        k[1, 2, 36] *= 1e-7
+        k[0, 1, 2] = 0.0
+        v[1, 0, 1] *= 1e9
+        v[0, 2, 3] *= 1e-8
+        got = fwht_kv_encode(k, v)
+        if not (_kv_equal(got, fwht_kv_encode_ref(k, v))
+                and _kv_equal(got, (kv_encode(k), kv_encode(v)))
+                and _kv_equal(got, fwht_kv_encode(k, v))):
+            raise AssertionError(f"fwht_kv_encode head_dim {hd}: not the "
+                                 f"plain version's bits")
+        ks, vs = got[0][1].float(), got[1][1].float()
+        if not (ks[0, 0, 0].item() == 65504.0 and vs[1, 0, 1].item() == 65504.0
+                and ks[1, 2, 36].item() == 2.0 ** -14
+                and vs[0, 2, 3].item() == 2.0 ** -14):
+            raise AssertionError(f"fwht_kv_encode head_dim {hd}: scales not "
+                                 f"clamped to fp16's range")
+    report["fwht_kv_edges"] = len(FWHT_BLOCKS)
+    print(f"  fwht_kv_encode at every head_dim {FWHT_BLOCKS[0]}.."
+          f"{FWHT_BLOCKS[-1]} (V strided, huge, tiny and zero vectors): "
+          f"bit-equal to the plain version and the chain, two calls "
+          f"bit-equal", flush=True)
+
+
+def fwht_ptxas_report(report: dict) -> None:
+    """Registers and spills of every instantiation in fwht.cu (the
+    rotation, the activation codec, the KV codec); fails on a spill."""
+    def label(entry):
+        n = re.match(r"_Z(\d+)", entry).group(1)
+        name = entry[2 + len(n):2 + len(n) + int(n)]
+        args = re.findall(r"L[ib](\d+)E", entry[2 + len(n) + int(n):])
+        return f"{name}<{', '.join(args)}>"
+    report["fwht_ptxas"] = ptxas_spill_report(report, "fwht", label)
 
 
 def check_matvec(led: Ledger, gen: torch.Generator, dev, weights,
@@ -1385,12 +1590,13 @@ def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul,
     """Hold a counted serving run to its contract: every request finishes
     with ``length``, no quarantine, and each kernel launched exactly as the
     path dictates, per layer: 7 projections through ``matvec`` per decode
-    step and ``matmul`` per prefill wave; a 256-point FWHT before each of
-    them on the W3A8 path (``act_quant``), before each prefill projection
-    only on the float path (its matvec rotates x itself); four head_dim
-    FWHTs (the KV codec's K and V, the attention's query and output) and
-    one ``attn`` per step and per wave; nothing else. Returns the run's
-    numbers."""
+    step and ``matmul`` per prefill wave; before each of them one
+    ``fwht_act_encode`` on the W3A8 path (``act_quant``: rotate and encode
+    in one launch), a 256-point FWHT before each prefill projection only
+    on the float path (its matvec rotates x itself); one
+    ``fwht_kv_encode`` (the layer's K and V), two head_dim FWHTs (the
+    attention's query and output) and one ``attn`` per step and per wave;
+    nothing else. Returns the run's numbers."""
     st = eng.stats()
     bad = [r.rid for r in reqs if r.finish_reason != "length"
            or len(r.out) != MAX_NEW]
@@ -1402,15 +1608,17 @@ def check_serving(label, eng, reqs, wall, counts, cfg, *, matvec, matmul,
     layers = cfg.num_layers
     proj = layers * 7  # wq wk wv wo gate up down
     steps, waves = st["decode_steps"], st["prefill_waves"]
-    head = f"fwht/{cfg.resolved_head_dim}"
+    hd = cfg.resolved_head_dim
     per_step, per_wave = collections.Counter(), collections.Counter()
     for per, contraction in ((per_step, matvec), (per_wave, matmul)):
         per[contraction] += proj
-        per[head] += 4 * layers
+        per[f"fwht/{hd}"] += 2 * layers
+        per[f"fwht_kv/{hd}"] += layers
         per[attn] += layers
-    per_wave["fwht/256"] += proj
-    if act_quant:
-        per_step["fwht/256"] += proj
+        if act_quant:
+            per["fwht_act/256"] += proj
+    if not act_quant:
+        per_wave["fwht/256"] += proj
     expected = {k: per_step[k] * steps + per_wave[k] * waves
                 for k in per_step | per_wave}
     if counts != expected:
@@ -1811,6 +2019,9 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     led = Ledger()
     check_fwht(led, gen, dev)
+    check_fwht_act(led, gen, dev, report)
+    check_fwht_kv(led, gen, dev, report)
+    fwht_ptxas_report(report)
     proj = quantize_smollm_projections(gen, dev)
     check_matvec(led, gen, dev, proj, report)
     check_itq3(led, gen, dev, proj, report)
@@ -1834,18 +2045,21 @@ def main(argv=None) -> int:
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the
-    # float path (phase 4) for the first four, the W3A8 path (phase 7:
-    # quantize, then serve) for the next three, the paged path (phase 8 a)
-    # for the last
+    # float path (phase 4) for fwht, fwht_kv and the next three, the W3A8
+    # path (phase 7: quantize, then serve) for fwht_act and the next three,
+    # the paged path (phase 8 a) for the last
     counts = {}
     if not args.kernels_only:
         cfg = get_config("smollm-135m")
         counts, dense_reqs = serve_phase(dev, report, cfg,
                                          profile=args.profile)
-        # fwht counts its launches per block size: the line takes the sum
-        counts["fwht"] = sum(v for k, v in counts.items()
-                             if k.startswith("fwht/"))
         w3a8 = w3a8_phase(dev, report, cfg, profile=args.profile)
+        # the FWHT forms count their launches per block size: the line
+        # takes the sum
+        for form in ("fwht", "fwht_act", "fwht_kv"):
+            path = w3a8 if form == "fwht_act" else counts
+            counts[form] = sum(v for k, v in path.items()
+                               if k.startswith(f"{form}/"))
         counts.update({k: w3a8[k] for k in (
             "itq3_matvec_int8", "itq3_matmul_int8", "quantize_blocks")})
         paged = paged_phase(dev, report, cfg, dense_reqs,
@@ -1855,6 +2069,10 @@ def main(argv=None) -> int:
     # kernel -> (source, the TPU kernel it replaces)
     kernel_table = {
         "fwht": ("fwht", "src/repro/kernels/fwht_kernel.py:39"),
+        "fwht_act": ("fwht", "src/repro/kernels/fwht_kernel.py:39 + "
+                             "src/repro/core/act_quant.py:41"),
+        "fwht_kv": ("fwht", "src/repro/kernels/fwht_kernel.py:39 + "
+                            "src/repro/serve/kv_quant.py:47"),
         "itq3_matvec": ("itq3_matvec", "src/repro/kernels/itq3_matvec.py:82"),
         "itq3_matmul": ("itq3_matmul", "src/repro/kernels/itq3_matmul.py:339"),
         "attn_q8": ("attn_q8", "src/repro/kernels/attn_decode.py:230"),
@@ -1875,7 +2093,8 @@ def main(argv=None) -> int:
             replaces=replaces, launches=int(counts.get(name, 0)),
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-            library_ms=s["library_ms"], shapes=s["shapes"]))
+            library_ms=s["library_ms"], shapes=s["shapes"],
+            **({"chain_ms": s["chain_ms"]} if "chain_ms" in s else {})))
     report["kernels"] = kernels
     DETAILS.parent.mkdir(parents=True, exist_ok=True)
     DETAILS.write_text(json.dumps(report, indent=1, default=str))

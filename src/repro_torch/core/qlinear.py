@@ -20,9 +20,10 @@ without packed ternary planes (fp16, bf16, q8_0, q4_0) always take the
 plain ``dequant`` contraction, so mixed-precision trees serve through this
 one entry point.
 
-**act_quant** — the W3A8 integer path: rotate the activations with the
-FWHT kernel, quantize them to int8 per row (``core/act_quant.py``) and
-contract against the int8 ``wint`` in the int8 kernels. It is honoured only
+**act_quant** — the W3A8 integer path: rotate the activations and
+quantize them to int8 per row in one launch
+(``kernels/fwht.py:fwht_act_encode``, the bits of ``core/act_quant.py``),
+and contract against the int8 ``wint`` in the int8 kernels. It is honoured only
 for the ternary family, when the weight's ``QMeta.act_quant`` allows it and
 never for ``mode="dequant"``; ``ref`` then runs ``contract_int8``.
 """
@@ -31,9 +32,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import formats as fmt_mod
-from repro_torch.core.act_quant import act_encode
 from repro_torch.core.quantize import QTensor, pad_last_dim
 from repro_torch.kernels import fwht as fwht_kernels
+from repro_torch.kernels.fwht import fwht_act_encode
 from repro_torch.kernels.itq3 import (
     MATVEC_MAX_M, itq3_matmul, itq3_matmul_int8, itq3_matvec,
     itq3_matvec_int8,
@@ -82,27 +83,29 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
 def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
                    mode: str = "activations",
                    act_quant: bool = False) -> torch.Tensor:
-    """Kernel-path ``x @ W_hat``: pad K to whole blocks, then
+    """Kernel-path ``x @ W_hat``:
 
-    * ``act_quant``: rotate with the FWHT kernel and int8-encode the rows,
-      then the int8 matvec (M <= 16) or tiled kernel;
-    * otherwise pre-scale by the sign diagonal (quip3), then the float
-      matvec, which rotates x itself in activations mode, or the FWHT
-      kernel (activations mode) and the tiled kernel."""
+    * ``act_quant``: rotate and int8-encode the rows in one launch (its
+      kernel reads the unpadded rows), then the int8 matvec (M <= 16) or
+      tiled kernel;
+    * otherwise pad K to whole blocks, pre-scale by the sign diagonal
+      (quip3), then the float matvec, which rotates x itself in
+      activations mode, or the FWHT kernel (activations mode) and the
+      tiled kernel."""
     m = qt.meta
     lead = x.shape[:-1]
-    xp = pad_last_dim(x.reshape(-1, x.shape[-1]).to(torch.float32), m.block)
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
     dsign = qt.data.get("dsign")
     d = qt.data
     if act_quant:
-        xq, xs = act_encode(xp, block=m.block, rotate=m.rotate, dsign=dsign,
-                            fwht_fn=lambda a, b: fwht_kernels.fwht(
-                                a.contiguous(), b))
+        xq, xs = fwht_act_encode(x2.contiguous(), block=m.block,
+                                 rotate=m.rotate, dsign=dsign)
         fn = itq3_matvec_int8 if xq.shape[0] <= MATVEC_MAX_M \
             else itq3_matmul_int8
         out = fn(xq, xs, d["plane2"], d["plane1"], d["scales"], d["zps"],
                  fivelevel=m.fivelevel, sub_blocks=m.sub_blocks)
         return out.reshape(*lead, m.n)
+    xp = pad_last_dim(x2, m.block)
     rotate_weights = rotate_x = False
     small = xp.shape[0] <= MATVEC_MAX_M
     if m.rotate:

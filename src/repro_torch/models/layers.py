@@ -25,7 +25,7 @@ import torch
 from repro_torch.core.qlinear import qmatmul
 from repro_torch.core.quantize import QTensor
 from repro_torch.kernels.attn_q8 import decode_attn_q8, prefill_attn_q8
-from repro_torch.serve.kv_quant import kv_encode
+from repro_torch.serve.kv_quant import kv_encode_pair
 
 __all__ = ["Runtime", "dense", "norm_apply", "rope", "mlp_apply",
            "attention_apply"]
@@ -216,8 +216,7 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
         if quant_cache:
             # the token goes through the codec here, so its self term sees
             # exactly the values every later step reads back from the cache
-            kq, ks = kv_encode(k, backend=rt.backend)
-            vq, vs = kv_encode(v, backend=rt.backend)
+            (kq, ks), (vq, vs) = kv_encode_pair(k, v, backend=rt.backend)
             out = decode_attn_q8(q, cache, (kq, ks), (vq, vs), pos_vec,
                                  backend=rt.backend)
             out_cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -226,8 +225,7 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
                                      kv_len=pos_vec)
             out_cache = {"k": k, "v": v}
     elif quant_cache:
-        kq, ks = kv_encode(k, backend=rt.backend)
-        vq, vs = kv_encode(v, backend=rt.backend)
+        (kq, ks), (vq, vs) = kv_encode_pair(k, v, backend=rt.backend)
         if t == 1:
             # single-token decode without the token write-back: attend the
             # pre-write cache plus the encoded self term, then write

@@ -1,30 +1,29 @@
 """Rotated int8 KV-cache codec (port of ``repro/serve/kv_quant.py``).
 
 Each cached K/V vector (head_dim long) is rotated by H_head_dim and
-quantized to int8 with a per-vector fp16 absmax scale. The scale is
-clamped into fp16's finite normal range and the codes are rounded against
-the value actually stored, so encode -> decode stays finite and
-consistent at both magnitude extremes. ``torch.round`` rounds half to
-even, as ``jnp.round`` does. The encoder's rotation goes through the FWHT
-kernel (``kernels/fwht.py:fwht_last``) unless ``backend="ref"``; its bits
-are the plain butterfly's either way.
+quantized to int8 with a per-vector fp16 absmax scale
+(``core/act_quant.py:kv_quantize``: ``amax * ACT_RECIP``, as the jitted
+reference, clamped into fp16's finite normal range, the codes rounded
+against the value actually stored). ``torch.round`` rounds half to even,
+as ``jnp.round`` does. A layer's K and V go through
+:func:`kv_encode_pair`: one launch of the fused rotate-and-encode kernel
+for both (``kernels/fwht.py:fwht_kv_encode``) on CUDA tensors.
+:func:`kv_encode` encodes one tensor with its rotation on the FWHT kernel
+(``kernels/fwht.py:fwht_last``). With ``backend="ref"`` both run the plain
+butterfly and the plain ops; their bits are the same every way.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from repro_torch.core.act_quant import (
+    F16_SCALE_MAX, F16_SCALE_MIN, kv_quantize,
+)
 from repro_torch.core.fwht import fwht, is_pow2
-from repro_torch.kernels.fwht import fwht_last
+from repro_torch.kernels.fwht import fwht_kv_encode, fwht_last
 
-__all__ = ["kv_encode", "kv_decode", "kv_scores", "F16_SCALE_MAX",
-           "F16_SCALE_MIN"]
-
-# Above fp16's max the cast gives inf (codes collapse to 0, decode 0*inf =
-# NaN); below its smallest normal the stored scale flushes toward 0 while
-# encode saturates against it. Clamp into the normal range.
-F16_SCALE_MAX = float(np.finfo(np.float16).max)   # 65504
-F16_SCALE_MIN = float(np.finfo(np.float16).tiny)  # 2^-14
+__all__ = ["kv_encode", "kv_encode_pair", "kv_decode", "kv_scores",
+           "F16_SCALE_MAX", "F16_SCALE_MIN"]
 
 
 def kv_encode(x: torch.Tensor, *, backend: str = "auto"
@@ -33,13 +32,24 @@ def kv_encode(x: torch.Tensor, *, backend: str = "auto"
     hd = x.shape[-1]
     if not is_pow2(hd):
         raise ValueError(f"head_dim {hd} must be a power of two")
-    xr = fwht_last(x.to(torch.float32), backend=backend)
-    amax = torch.amax(torch.abs(xr), dim=-1, keepdim=True)
-    scale = torch.clamp(amax / 127.0, F16_SCALE_MIN,
-                        F16_SCALE_MAX).to(torch.float16)
-    safe = scale.to(torch.float32)  # quantize by the stored value
-    q = torch.clamp(torch.round(xr / safe), -127, 127).to(torch.int8)
-    return q, scale
+    return kv_quantize(fwht_last(x.to(torch.float32), backend=backend))
+
+
+def kv_encode_pair(k: torch.Tensor, v: torch.Tensor, *,
+                   backend: str = "auto"):
+    """Encode one layer's K and V, f32 ``(B, KV, T, HD)`` each, as
+    :func:`kv_encode` does: ``((k_codes, k_scales), (v_codes,
+    v_scales))``. ``backend="ref"`` is two :func:`kv_encode` calls on the
+    plain butterfly; otherwise :func:`~repro_torch.kernels.fwht.
+    fwht_kv_encode`, one launch for both on CUDA tensors (its plain version
+    on CPU ones), with the same bits."""
+    if backend not in ("auto", "ref", "cuda"):
+        raise ValueError(f"backend {backend!r} not in ('auto', 'ref', 'cuda')")
+    if backend == "cuda" and not k.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors")
+    if backend == "ref":
+        return kv_encode(k, backend="ref"), kv_encode(v, backend="ref")
+    return fwht_kv_encode(k, v)
 
 
 def kv_decode(q: torch.Tensor, scale: torch.Tensor,

@@ -38,6 +38,7 @@ from repro_torch.core import act_quant as tact
 from repro_torch.core import formats as tformats
 from repro_torch.core import qlinear as tqlinear
 from repro_torch.core.quantize import QTensor, pad_last_dim
+from repro_torch.kernels import fwht as tfwht
 from repro_torch.kernels import itq3 as titq3
 from repro_torch.models import lm as tlm
 from repro_torch.models.layers import Runtime as TRuntime
@@ -93,17 +94,12 @@ def test_act_encode_matches_reference(fmt, rng):
 
 
 def test_act_encode_kernel_fwht_hook_and_rounding(rng):
-    """``fwht_fn`` replaces the rotation (the kernel path passes the FWHT
-    kernel); exact halves round to even, as ``jnp.round`` does."""
+    """The kernel path's codec (``kernels/fwht.py:fwht_act_encode``, which
+    rotates and encodes in one launch on the card) gives ``act_encode``'s
+    bits; exact halves round to even, as ``jnp.round`` does."""
     x = torch.from_numpy(rng.standard_normal((3, 512)).astype(np.float32))
-    calls = []
-
-    def fn(a, block):
-        calls.append(block)
-        return tact.blocked_fwht(a, block)
-    a = tact.act_encode(x, fwht_fn=fn)
+    a = tfwht.fwht_act_encode(x)
     b = tact.act_encode(x)
-    assert calls == [256]
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     # 127 * (k + 0.5) / 127.5 ... pick codes that land on .5 exactly
     row = torch.tensor([[127.0, 0.5, 1.5, 2.5, -0.5, -1.5]])
@@ -215,13 +211,16 @@ def test_qmatmul_act_quant_routing(m, rng, monkeypatch):
 # --- full-model logits -------------------------------------------------------
 
 class _CodeLog:
-    """Record the codes of every ``act_encode`` call, in call order. On the
-    reference side the codec runs inside jit and ``lax.scan``, so the codes
-    come back through an ordered ``jax.debug.callback``."""
+    """Record the codes of every call of the activation codec ``name`` in
+    ``module``, in call order: the reference's ``act_encode``, the port's
+    kernel path's ``fwht_act_encode``. On the reference side the codec runs
+    inside jit and ``lax.scan``, so the codes come back through an ordered
+    ``jax.debug.callback``."""
 
-    def __init__(self, monkeypatch, module, traced=False):
+    def __init__(self, monkeypatch, module, traced=False,
+                 name="act_encode"):
         self.calls = []
-        orig = module.act_encode
+        orig = getattr(module, name)
 
         def rec(x, **kw):
             codes, scale = orig(x, **kw)
@@ -232,7 +231,7 @@ class _CodeLog:
             else:
                 self.calls.append(np.asarray(codes))
             return codes, scale
-        monkeypatch.setattr(module, "act_encode", rec)
+        monkeypatch.setattr(module, name, rec)
 
     def take(self):
         out, self.calls = self.calls, []
@@ -316,7 +315,7 @@ def test_act_quant_logits_match_reference(arch, fmt, kv_quant, monkeypatch):
     cfg, jp, tp = _params(arch, fmt)
     tcfg = tconfigs.reduced(tconfigs.get_config(arch))
     jlog = _CodeLog(monkeypatch, jact, traced=True)
-    tlog = _CodeLog(monkeypatch, tqlinear)
+    tlog = _CodeLog(monkeypatch, tqlinear, name="fwht_act_encode")
     fwd, dec = _jax_fns(cfg, kv_quant)
     rt = TRuntime(kv_quant=kv_quant, act_quant=True)
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (B, T))

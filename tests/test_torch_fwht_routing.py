@@ -1,17 +1,20 @@
-"""Which FWHTs go through the FWHT kernel's wrapper, on the CPU.
+"""Which FWHTs go through the FWHT kernel's wrappers, on the CPU.
 
-On the serving path ``kernels/fwht.py:fwht`` runs at 256 points before
-every prefill projection and every W3A8 projection (a float decode
-projection rotates inside ``itq3_matvec``), and at head_dim points four
-times per layer, per decode step and per prefill wave: the KV codec's K
-and V (``kv_encode``) and the attention's query and output rotations
-(``decode_attn_q8`` / ``prefill_attn_q8``, through ``fwht_last``). A spy
-on the wrapper counts the calls of one reduced prefill wave and one
-decode step on both paths against that contract (on a CPU tensor the
-wrapper runs its plain version, so the counts are the card's launches).
-Routed or not, the outputs keep the bits of ``core/fwht.py``'s plain
-butterfly; with ``backend="ref"`` nothing goes through the wrapper; and
-the wrapper takes every power of two from 2 to 1024 and nothing else.
+On the serving path ``kernels/fwht.py`` launches, per layer: at 256 points
+``fwht`` before every float prefill projection (a float decode projection
+rotates inside ``itq3_matvec``) or ``fwht_act_encode`` for every W3A8
+projection, step and wave alike (rotate and int8-encode in one launch,
+no 256-point ``fwht``); one ``fwht_kv_encode`` for the layer's K and V
+(through ``serve/kv_quant.py:kv_encode_pair``); and two ``fwht`` at
+head_dim points, the attention's query and output rotations
+(``decode_attn_q8`` / ``prefill_attn_q8``, through ``fwht_last``). Spies
+on the wrappers count the calls of one reduced prefill wave and one
+decode step on both paths against that contract, under the launch
+counters' names (on a CPU tensor a wrapper runs its plain version, so the
+counts are the card's launches). Routed or not, the outputs keep the bits
+of ``core/fwht.py``'s plain butterfly; with ``backend="ref"`` nothing goes
+through a wrapper; and ``fwht`` takes every power of two from 2 to 1024
+and nothing else.
 """
 import functools
 
@@ -20,9 +23,11 @@ import pytest
 import torch
 
 from repro_torch import configs as tconfigs
+from repro_torch.core import qlinear as tqlinear
 from repro_torch.core.fwht import fwht as plain_fwht
 from repro_torch.kernels import attn_q8 as tattn
 from repro_torch.kernels import fwht as tfwht
+from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models.layers import Runtime
 from repro_torch.serve import kv_quant as tkv
@@ -41,19 +46,43 @@ def _model():
 
 @pytest.fixture
 def spy(monkeypatch):
-    """Every call of the FWHT wrapper, as its block size."""
+    """Every call of the FWHT kernel's wrappers, under its launch counter's
+    name (``fwht/<block>``, ``fwht_act/256``, ``fwht_kv/<HD>``), and of
+    the layer's ``kv_encode_pair`` (``kv_encode_pair``)."""
     calls = []
     real = tfwht.fwht
 
     def record(x, block=256):
-        calls.append(block)
+        calls.append(f"fwht/{block}")
         return real(x, block)
     monkeypatch.setattr(tfwht, "fwht", record)
+    real_act = tqlinear.fwht_act_encode
+
+    def record_act(x, **kw):
+        calls.append(f"fwht_act/{kw.get('block', 256)}")
+        return real_act(x, **kw)
+    monkeypatch.setattr(tqlinear, "fwht_act_encode", record_act)
+    real_kv = tkv.fwht_kv_encode
+
+    def record_kv(k, v):
+        calls.append(f"fwht_kv/{k.shape[-1]}")
+        return real_kv(k, v)
+    monkeypatch.setattr(tkv, "fwht_kv_encode", record_kv)
+    real_pair = tlayers.kv_encode_pair
+
+    def record_pair(k, v, **kw):
+        calls.append("kv_encode_pair")
+        return real_pair(k, v, **kw)
+    monkeypatch.setattr(tlayers, "kv_encode_pair", record_pair)
     return calls
 
 
 def _counts(calls):
     return {b: calls.count(b) for b in sorted(set(calls))}
+
+
+def _wrappers(calls):
+    return [c for c in calls if c != "kv_encode_pair"]
 
 
 def _wave_and_step(backend, act_quant, spy):
@@ -78,16 +107,22 @@ def test_fwht_calls_follow_the_launch_contract(act_quant, spy):
     cfg, _ = _model()
     layers, hd = cfg.num_layers, cfg.resolved_head_dim
     wave, step, _, _ = _wave_and_step("auto", act_quant, spy)
-    assert wave == {hd: 4 * layers, 256: 7 * layers}
-    # a float decode projection rotates inside the fused matvec
-    assert step == ({hd: 4 * layers, 256: 7 * layers} if act_quant
-                    else {hd: 4 * layers})
+    per_layer = {f"fwht/{hd}": 2 * layers, f"fwht_kv/{hd}": layers,
+                 "kv_encode_pair": layers}
+    if act_quant:  # rotate and encode in one launch, step and wave alike
+        per_layer["fwht_act/256"] = 7 * layers
+        assert wave == step == per_layer
+    else:  # a float decode projection rotates inside the fused matvec
+        assert step == per_layer
+        assert wave == {**per_layer, "fwht/256": 7 * layers}
 
 
 @pytest.mark.parametrize("act_quant", [False, True])
 def test_ref_backend_calls_no_wrapper(act_quant, spy):
+    cfg, _ = _model()
     _, _, logits, step = _wave_and_step("ref", act_quant, spy)
-    assert spy == []
+    assert _wrappers(spy) == []
+    assert spy == ["kv_encode_pair"] * cfg.num_layers  # the step's
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
 
 
@@ -96,10 +131,17 @@ def test_kv_encode_route_is_bit_equal(hd, spy):
     x = torch.from_numpy(np.random.default_rng(hd).standard_normal(
         (2, 3, 5, hd)).astype(np.float32) * 4)
     codes, scales = tkv.kv_encode(x)
-    assert spy == [hd]
+    assert spy == [f"fwht/{hd}"]
     ref_codes, ref_scales = tkv.kv_encode(x, backend="ref")
-    assert spy == [hd]
+    assert spy == [f"fwht/{hd}"]
     assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales)
+    # the layer's pair: one fused call for K and V, the same bits
+    spy.clear()
+    (kq, ks), (vq, vs) = tkv.kv_encode_pair(x, 2 * x)
+    assert spy == [f"fwht_kv/{hd}"]
+    assert torch.equal(kq, codes) and torch.equal(ks, scales)
+    v_codes, v_scales = tkv.kv_encode(2 * x, backend="ref")
+    assert torch.equal(vq, v_codes) and torch.equal(vs, v_scales)
 
 
 def _attn_inputs(rng, hd, tq):
@@ -135,14 +177,14 @@ def test_attention_rotations_route_is_bit_equal(hd, spy, monkeypatch):
     spy.clear()
     dec = tattn.decode_attn_q8(q, cache, k_tok, v_tok, kv_len)
     pre = tattn.prefill_attn_q8(qp, cache, offs + 8, offs)
-    assert spy == [hd] * 4  # query and output, decode then prefill
+    assert spy == [f"fwht/{hd}"] * 4  # query and output, decode then prefill
     # the same calls with the rotations on core/fwht.py's plain butterfly
     monkeypatch.setattr(tattn, "fwht_last",
                         lambda x, backend="auto": plain_fwht(x))
     assert torch.equal(dec, tattn.decode_attn_q8(q, cache, k_tok, v_tok,
                                                  kv_len))
     assert torch.equal(pre, tattn.prefill_attn_q8(qp, cache, offs + 8, offs))
-    assert spy == [hd] * 4
+    assert spy == [f"fwht/{hd}"] * 4
 
 
 def test_fwht_takes_every_power_of_two_from_2_to_1024():

@@ -240,7 +240,6 @@ def test_cuda_qmatmul_act_quant_sub16(m):
     it encodes. Skips where there is no card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels build with nvcc)")
-    from repro_torch.core.act_quant import act_encode
     from repro_torch.core.qlinear import qmatmul
     from repro_torch.kernels import _build, fwht as tfwht
 
@@ -254,8 +253,7 @@ def test_cuda_qmatmul_act_quant_sub16(m):
     before = _build.launches[name]
     got = qmatmul(x, qt, act_quant=True)
     assert _build.launches[name] == before + 1
-    xq, xs = act_encode(x, block=256, rotate=True,
-                        fwht_fn=lambda a, b: tfwht.fwht(a.contiguous(), b))
+    xq, xs = tfwht.fwht_act_encode(x)
     planes = tuple(qt.data[k] for k in PLANES)
     rule = titq3.matvec_int8_tiles if m <= 16 else titq3.matmul_tiles
     want = titq3.itq3_matmul_int8_split_ref(
