@@ -100,6 +100,25 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    and resume, finish every request with ``length`` and leave the pool
    drained; its agreement with a dense run of the same requests is
    reported.
+9. Sampled serving and the resilience layer. (a) ``ServeEngine.
+   from_checkpoint`` boots phase 7's checkpoint (W3A8, ``kv_quant``) and
+   serves phase 7's prompts and rids with ``ignore_eos``: two greedy, two
+   at temperature 0.8, two with top-k 40, two with top-p 0.9 (one explicit
+   seed, the rest derived). Launches must be exactly phase 7's contract
+   (the sampler is plain PyTorch and launches nothing of ``csrc/``), one
+   host sync per step and wave, the greedy rows equal to phase 7's counted
+   run and a second run equal for every request. The sampler on the card
+   against the CPU's on 1000 seeded draws of (4, vocab) logits: threefry
+   bits equal, tokens equal on at least 999 (each difference printed with
+   its margin). In turns (greedy, sampled, sampled, greedy): ms/step, and
+   the sampler's device ms and aten calls per step. (b) Phase 4's model
+   under the launcher's ``--chaos`` plan (a K scale poisoned, a clock skip
+   and a stall) with a deadline on every request and the watchdog: 4
+   requests in one wave, then a burst of 4 over a queue bounded at 6.
+   Every request must end with a reason of ``FINISH_REASONS``, one slot
+   quarantined, at least one step stalled and one request rejected, the
+   healthy slots' streams a prefix of a fault-free run's, and two runs'
+   counters equal.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -126,6 +145,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import formats  # noqa: E402
@@ -188,6 +208,7 @@ PROFILE_NEW = 8
 # prefix (two full blocks).
 BLOCK_SIZE, SHORT_POOL, SHARED_PREFIX = 16, 13, 32
 DETAILS = ROOT / "chiprun_out" / "chip_smoke_details.json"
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"  # phase 7 writes, 9 boots
 TABLE = ROOT / "chiprun_out" / "chip_smoke_profile.txt"
 
 
@@ -1754,10 +1775,11 @@ def tree_bytes_equal(a, b) -> bool:
             and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
 
 
-def w3a8_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
-    """Phase 7: quantize under the mixed policy, save, restore with no
-    template, serve on the W3A8 path. Returns the launches of the counted
-    quantize and serving runs."""
+def w3a8_phase(dev, report: dict, cfg, profile: bool = False):
+    """Phase 7: quantize under the mixed policy, save (into ``CKPT_DIR``,
+    which phase 9 boots from), restore with no template, serve on the W3A8
+    path. Returns the launches of the counted quantize and serving runs,
+    and the counted run's requests."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import mixed_precision_recipe
     from repro_torch.models import lm
@@ -1784,19 +1806,16 @@ def w3a8_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
         raise AssertionError(f"mixed policy: formats {fmts}, launches "
                              f"{quant_counts}")
     del fp
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        path = Path(ckpt.save(str(ckpt_dir), 0, params))
-        save_s = time.perf_counter() - t0
-        ckpt_bytes = sum(f.stat().st_size for f in path.iterdir())
-        t0 = time.perf_counter()
-        restored, step = ckpt.restore_params(str(ckpt_dir), device=dev)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # kept for phase 9, which boots from it; main() removes it
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = Path(ckpt.save(str(CKPT_DIR), 0, params))
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in path.iterdir())
+    t0 = time.perf_counter()
+    restored, step = ckpt.restore_params(str(CKPT_DIR), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
     if step != 0 or not tree_bytes_equal(params, restored):
         raise AssertionError("restored checkpoint differs from the saved tree")
     print(f"  saved {ckpt_bytes} bytes in {save_s:.2f} s, restored with no "
@@ -1838,7 +1857,7 @@ def w3a8_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
                                     max_new=PROFILE_NEW), report,
                       "w3a8_profile", TABLE.with_name(
                           "chip_smoke_profile_w3a8.txt"))
-    return {**counts, **quant_counts}
+    return {**counts, **quant_counts}, reqs
 
 
 def shared_prefix_prompts(cfg) -> list:
@@ -1942,6 +1961,315 @@ def paged_phase(dev, report: dict, cfg, dense_reqs,
                       report, "paged_profile",
                       TABLE.with_name("chip_smoke_profile_paged.txt"))
     return counts
+
+
+# --- phase 9: sampled serving from a checkpoint; resilience ----------------
+
+# Phase 9 (a)'s requests: phase 7's prompts and rids, each (temperature,
+# top_k, top_p, seed): two greedy, two at 0.8, two with top-k 40 at 0.8,
+# two with top-p 0.9 at 1.0; one explicit seed, the rest derived from the
+# engine seed and the rid. Each wave of 4 slots holds one of each kind.
+SAMPLED_MIX = [(0.0, 0, 1.0, None), (0.8, 0, 1.0, None), (0.8, 40, 1.0, None),
+               (1.0, 0, 0.9, None), (0.0, 0, 1.0, None), (0.8, 0, 1.0, 1234),
+               (0.8, 40, 1.0, None), (1.0, 0, 0.9, None)]
+ENGINE_SEED = 7
+# The sampler on the card against the CPU's: draws of (4, V) logits, each
+# row under its own key and knobs. The threefry bits are integers and must
+# be equal; the tokens may differ only where the card's and the CPU's f32
+# log differ in the last bit and move the argmax of gumbel + logits, which
+# needs the two best perturbed logits within ~1e-6 of each other.
+SAMPLER_DRAWS, SAMPLER_MIN_EQUAL = 1000, 999
+SAMPLER_ROWS = [(0.8, 0, 1.0), (0.8, 40, 1.0), (1.0, 0, 0.9), (1.3, 0, 1.0)]
+# Phase 9 (b): the launcher's --chaos plan on the float path, one wave of
+# 4 requests, then a burst of 4 more over a queue bounded at 6.
+CHAOS_DEADLINE_MS, CHAOS_WATCHDOG_S, CHAOS_MAX_QUEUE, CHAOS_BURST = \
+    400.0, 0.5, 6, 4
+
+
+def sampled_requests(prompts, greedy_only: bool = False) -> list:
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.sampling import SamplingParams
+
+    out = []
+    for i, (p, (t, k, tp, seed)) in enumerate(zip(prompts, SAMPLED_MIX)):
+        sp = (SamplingParams(ignore_eos=True) if greedy_only else
+              SamplingParams(temperature=t, top_k=k, top_p=tp, seed=seed,
+                             ignore_eos=True))
+        out.append(Request(rid=i, prompt=p, max_new=MAX_NEW, sampling=sp))
+    return out
+
+
+def boot_run(cfg, dev, prompts, *, count: bool, greedy_only: bool = False):
+    """One serving run of the W3A8 path booted from phase 7's checkpoint
+    with ``ServeEngine.from_checkpoint``; with ``count`` the launch counters
+    are reset just before the run and read just after."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine.from_checkpoint(
+        str(CKPT_DIR), cfg, slots=SLOTS, max_len=MAX_LEN,
+        prompt_pad=PROMPT_PAD, seed=ENGINE_SEED, device=dev,
+        rt=Runtime(kv_quant=True, act_quant=True))
+    reqs = sampled_requests(prompts, greedy_only)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if count:
+        _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, reqs, wall, dict(_build.launches) if count else None
+
+
+class AtenCount(TorchDispatchMode):
+    """Counts the aten operators dispatched inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def busy_ms(fn, reps: int = 10) -> float:
+    """The device's busy time per call of ``fn``: the self device time of
+    every kernel ``reps`` calls ran, under ``torch.profiler``, over
+    ``reps``. Unlike ``device_ms`` it does not need the host to queue the
+    calls faster than the card runs them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def sampler_cost(eng, dev) -> dict:
+    """The sampler at a decode step's shape (4 slots, the full vocabulary),
+    with the knobs of SAMPLED_MIX's first wave, against the greedy argmax:
+    the device's busy ms per draw (step keys and vectors already on the
+    card), ``device_ms`` of one draw queued behind a spinning kernel
+    (~240 launches at the host's rate: the draw's wall on an idle card),
+    and for the engine's whole token selection (step keys folded on the
+    host and sent up with the vectors, the draw, the tokens' transfer) the
+    aten calls it issues and its host wall, ending in that transfer."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    last = torch.randn(SLOTS, eng.cfg.vocab_size, generator=g, device=dev)
+    mix = SAMPLED_MIX[:SLOTS]
+    keys = np.stack([np.array([0, 1000 + i], np.uint32) for i in range(SLOTS)])
+    knobs = (keys, np.arange(SLOTS) + 5,
+             np.array([m[0] for m in mix], np.float32),
+             *eng._filter_vectors([m[1] for m in mix], [m[2] for m in mix]))
+    args = eng._sampling_args(*knobs)
+    out = {}
+    for name, draw, whole in (
+            ("greedy", lambda: eng._sample(last, ()), None),
+            ("sampled", lambda: eng._sample(last, args),
+             lambda: eng._sample(last, eng._sampling_args(*knobs)))):
+        whole = whole or draw
+        with AtenCount() as c:
+            whole()
+        out[f"{name}_aten_calls"] = c.n
+        out[f"{name}_busy_ms"] = busy_ms(draw)
+        out[f"{name}_ms"] = device_ms(draw, reps=1)
+        walls = []
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            whole().cpu()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out[f"{name}_host_ms"] = statistics.median(walls)
+    out["aten_calls_added"] = out["sampled_aten_calls"] - \
+        out["greedy_aten_calls"]
+    return out
+
+
+def check_sampler_on_card(dev, vocab: int) -> dict:
+    """SAMPLER_DRAWS seeded draws of (4, ``vocab``) logits: the card's
+    threefry bits equal to the CPU's, the tokens of ``lm.sample_tokens``
+    on the card equal to the CPU's on at least SAMPLER_MIN_EQUAL draws,
+    each difference printed with its margin (the gap between the CPU's two
+    best perturbed logits)."""
+    from repro_torch.core import prng
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(21)
+    rows = len(SAMPLER_ROWS)
+    temp = torch.tensor([r[0] for r in SAMPLER_ROWS])
+    top_k = torch.tensor([r[1] for r in SAMPLER_ROWS])
+    top_p = torch.tensor([r[2] for r in SAMPLER_ROWS])
+    vecs = [(v, v.to(dev)) for v in (temp, top_k, top_p)]
+    bits_equal, equal, diffs = True, 0, []
+    for d in range(SAMPLER_DRAWS // rows):
+        logits = torch.from_numpy(
+            (rng.standard_normal((rows, vocab)) * 3).astype(np.float32))
+        keys = torch.from_numpy(rng.integers(0, 2**32, (rows, 2),
+                                             dtype=np.uint64).astype(np.int64))
+        if d < 8:  # the integer stage on its own, exactly
+            bits_equal &= torch.equal(
+                prng.random_bits(keys.to(dev), (vocab,)).cpu(),
+                prng.random_bits(keys, (vocab,)))
+        (t, tc), (k, kc), (p, pc) = vecs
+        cpu = lm.sample_tokens(logits, keys, t, top_k=k, top_p=p)
+        card = lm.sample_tokens(logits.to(dev), keys.to(dev), tc, top_k=kc,
+                                top_p=pc).cpu()
+        equal += int((cpu == card).sum())
+        for r in torch.nonzero(cpu != card).flatten().tolist():
+            scaled = lm.top_mask(logits[r:r + 1] / t[r], k[r:r + 1],
+                                 p[r:r + 1])
+            pert = (prng.gumbel(keys[r], (vocab,)) + scaled[0]).sort(
+                descending=True).values
+            diffs.append(dict(draw=d, row=r, cpu=int(cpu[r]),
+                              card=int(card[r]),
+                              margin=float(pert[0] - pert[1])))
+    total = rows * (SAMPLER_DRAWS // rows)
+    print(f"  sampler on the card: threefry bits {'equal' if bits_equal else 'DIFFER'}"
+          f" to the CPU's; tokens equal on {equal}/{total} draws of "
+          f"({rows}, {vocab}) logits"
+          + "".join(f"; draw {x['draw']} row {x['row']}: cpu {x['cpu']} card "
+                    f"{x['card']}, margin {x['margin']:.3e}" for x in diffs),
+          flush=True)
+    if not bits_equal or equal < SAMPLER_MIN_EQUAL * total // SAMPLER_DRAWS:
+        raise AssertionError(f"sampler: bits equal {bits_equal}, tokens "
+                             f"equal {equal}/{total}")
+    return dict(bits_equal=bits_equal, tokens_equal=equal, draws=total,
+                differences=diffs)
+
+
+def sampled_phase(dev, report: dict, cfg, w3a8_reqs) -> None:
+    """Phase 9 (a): sampled serving booted from phase 7's checkpoint."""
+    prompts = make_prompts(cfg)
+    first = boot_run(cfg, dev, prompts, count=False)
+    eng, reqs, wall, counts = boot_run(cfg, dev, prompts, count=True)
+    print(f"phase 9 (a): booted from phase 7's checkpoint with "
+          f"ServeEngine.from_checkpoint; {len(reqs)} requests: "
+          f"{sum(m[0] <= 0 for m in SAMPLED_MIX)} greedy, the rest sampled "
+          f"(temperature, top-k, top-p; one explicit seed)", flush=True)
+    out = check_serving("sampled W3A8 path", eng, reqs, wall, counts, cfg,
+                        matvec="itq3_matvec_int8", matmul="itq3_matmul_int8",
+                        act_quant=True)
+    st = eng.stats()
+    if st["host_syncs"] != st["decode_steps"] + st["prefill_waves"]:
+        raise AssertionError(f"host syncs {st['host_syncs']} != steps + "
+                             f"waves")
+    greedy = [r.rid for r in reqs if SAMPLED_MIX[r.rid][0] <= 0]
+    phase7 = {r.rid: r.out for r in w3a8_reqs}
+    same_greedy = all(reqs[i].out == phase7[i] for i in greedy)
+    repeat = all(a.out == b.out for a, b in zip(first[1], reqs))
+    sampled_differs = sum(r.out != phase7[r.rid] for r in reqs
+                          if r.rid not in greedy)
+    print(f"  greedy rows {greedy} {'equal' if same_greedy else 'DIFFER from'}"
+          f" phase 7's counted run; a second run gives "
+          f"{'identical' if repeat else 'DIFFERENT'} streams for every "
+          f"request; {sampled_differs}/{len(reqs) - len(greedy)} sampled "
+          f"streams differ from their greedy ones", flush=True)
+    if not (same_greedy and repeat):
+        raise AssertionError("sampled serving: greedy rows differ from "
+                             "phase 7's, or two runs differ")
+    out.update(greedy_equal_phase7=same_greedy, repeat_identical=repeat,
+               streams={r.rid: r.out for r in reqs})
+    out["sampler_vs_cpu"] = check_sampler_on_card(dev, cfg.vocab_size)
+    cost = sampler_cost(eng, dev)
+    out["sampler_cost"] = cost
+    del first, eng
+    # ms/step of an all-greedy and of the sampled request set in turns
+    turns: dict = {"greedy": [], "sampled": []}
+    for label in ("greedy", "sampled", "sampled", "greedy"):
+        e, _, _, _ = boot_run(cfg, dev, prompts, count=False,
+                              greedy_only=label == "greedy")
+        es = e.stats()
+        turns[label].append(1e3 * es["decode_seconds"] / es["decode_steps"])
+    out["turns_ms_per_step"] = turns
+    print(f"  in turns (greedy, sampled, sampled, greedy): ms/step greedy "
+          f"{turns['greedy'][0]:.1f} / {turns['greedy'][1]:.1f}, sampled "
+          f"{turns['sampled'][0]:.1f} / {turns['sampled'][1]:.1f}; the "
+          f"sampler at (4, {cfg.vocab_size}): device busy "
+          f"{cost['sampled_busy_ms']:.4f} ms against the argmax's "
+          f"{cost['greedy_busy_ms']:.4f} ms, one draw on an idle card "
+          f"{cost['sampled_ms']:.4f} ms against {cost['greedy_ms']:.4f} ms, "
+          f"host wall of the step's token selection (fold, upload, draw, "
+          f"transfer) {cost['sampled_host_ms']:.3f} ms against "
+          f"{cost['greedy_host_ms']:.3f} ms, "
+          f"{cost['sampled_aten_calls']} aten calls against "
+          f"{cost['greedy_aten_calls']} (+{cost['aten_calls_added']} per "
+          f"step)", flush=True)
+    report["sampled"] = out
+
+
+def chaos_run(params, cfg, dev, prompts, *, faults: bool):
+    """Phase 9 (b)'s run: 4 requests in one wave on the float path, then a
+    burst over the bounded queue; with ``faults`` under the launcher's
+    --chaos plan (a K scale poisoned at step 3, the clock skipped and a
+    step stalled at step 6), a deadline on every request and the
+    watchdog. Returns (engine, requests, events, plan)."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.faults import Fault, FaultPlan, burst
+
+    plan = FaultPlan([Fault("kv_nan", step=3, slot=0, plane="k_scale"),
+                      Fault("clock_skip", step=6, dt=1.0),
+                      Fault("stall", step=6, dt=2.0)]) if faults else None
+    eng = ServeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                      prompt_pad=PROMPT_PAD, rt=Runtime(kv_quant=True),
+                      device=dev, max_queue=CHAOS_MAX_QUEUE, faults=plan,
+                      watchdog_timeout_s=CHAOS_WATCHDOG_S if faults else None)
+    deadline = CHAOS_DEADLINE_MS if faults else None
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW, deadline_ms=deadline)
+            for i, p in enumerate(prompts[:SLOTS])]
+    reqs += burst(CHAOS_BURST, cfg.vocab_size, seed=3, plen=16,
+                  max_new=MAX_NEW, rid0=SLOTS, deadline_ms=deadline)
+    for r in reqs:
+        eng.submit_request(r)
+    events = list(eng.generate())
+    torch.cuda.synchronize()
+    return eng, reqs, events, plan
+
+
+def chaos_phase(dev, report: dict, cfg) -> None:
+    """Phase 9 (b): the resilience layer on the float path."""
+    from repro_torch.serve.sampling import FINISH_REASONS
+
+    params = float_path_params(cfg, dev)
+    prompts = make_prompts(cfg)
+    runs = [chaos_run(params, cfg, dev, prompts, faults=True)
+            for _ in range(2)]
+    _, clean, _, _ = chaos_run(params, cfg, dev, prompts, faults=False)
+    eng, reqs, events, plan = runs[0]
+    st = eng.stats()
+    reasons = collections.Counter(r.finish_reason for r in reqs)
+    counters = ("quarantined", "deadline_expired", "requests_rejected",
+                "requests_shed", "stalled_steps", "decode_steps",
+                "tokens_decoded", "host_syncs", "waiting", "swapped")
+    same_counters = all(runs[1][0].stats()[k] == st[k] for k in counters)
+    # the first wave's other slots: the same wave, so the same numerics
+    healthy = [r.rid for r in reqs[:SLOTS] if r.finish_reason != "error"]
+    prefix = all(r.out == c.out[:len(r.out)] for r, c in zip(reqs, clean)
+                 if r.rid in healthy)
+    terminal = [e for e in events if e.finished]
+    print(f"phase 9 (b): float path under the --chaos plan, {len(reqs)} "
+          f"requests ({SLOTS} in one wave, a burst of {CHAOS_BURST} over a "
+          f"queue of {CHAOS_MAX_QUEUE}): finish reasons {dict(reasons)}; "
+          f"fault log {plan.log}; "
+          + ", ".join(f"{k} {st[k]}" for k in counters[:5])
+          + f"; healthy slots {healthy}: streams {'are' if prefix else 'are NOT'}"
+          f" prefixes of a fault-free run's; two runs' counters "
+          f"{'equal' if same_counters else 'DIFFER'}", flush=True)
+    if (set(reasons) - FINISH_REASONS or len(terminal) != len(reqs)
+            or st["quarantined"] != 1 or not prefix or not same_counters
+            or st["stalled_steps"] < 1 or st["requests_rejected"] < 1
+            or len(plan.log) != 3 or any(r is not None for r in eng.active)):
+        raise AssertionError(f"chaos: reasons {dict(reasons)}, stats {st}")
+    report["chaos"] = dict(finish_reasons=dict(reasons), fault_log=plan.log,
+                           stats=st, healthy_prefix_of_clean=prefix,
+                           counters_repeat=same_counters)
 
 
 def profile_phase(run, report: dict, key: str = "profile",
@@ -2053,7 +2381,7 @@ def main(argv=None) -> int:
         cfg = get_config("smollm-135m")
         counts, dense_reqs = serve_phase(dev, report, cfg,
                                          profile=args.profile)
-        w3a8 = w3a8_phase(dev, report, cfg, profile=args.profile)
+        w3a8, w3a8_reqs = w3a8_phase(dev, report, cfg, profile=args.profile)
         # the FWHT forms count their launches per block size: the line
         # takes the sum
         for form in ("fwht", "fwht_act", "fwht_kv"):
@@ -2065,6 +2393,9 @@ def main(argv=None) -> int:
         paged = paged_phase(dev, report, cfg, dense_reqs,
                             profile=args.profile)
         counts["attn_q8_paged"] = paged["attn_q8_paged"]
+        sampled_phase(dev, report, cfg, w3a8_reqs)
+        chaos_phase(dev, report, cfg)
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     # kernel -> (source, the TPU kernel it replaces)
     kernel_table = {

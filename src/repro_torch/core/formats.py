@@ -22,14 +22,15 @@ contraction. New formats plug in with :func:`register_format`.
 diagonal) are quantized by the ``quantize_blocks`` kernel wrapper
 (``kernels/quantize.py``); the other ternary formats by the plain
 :func:`~repro_torch.core.quantize.quantize_blocks_ternary`, as in the
-reference. Quantizing ``quip3`` waits for a port of ``jax.random``: the
-reference draws its sign diagonal from it, so its planes and ``dsign``
-arrive through ``repro_torch.bridge`` instead.
+reference. ``quip3`` draws its sign diagonal from JAX's threefry stream
+of the quantization seed (``core/prng.py``), so its planes and ``dsign``
+equal the reference's.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.act_quant import act_encode
 from repro_torch.core.fwht import fwht
 from repro_torch.core.quantize import (
@@ -202,19 +203,22 @@ class TernaryFormat(Format):
                      rotate=self.rotate, sub_blocks=sub,
                      fivelevel=self.fivelevel, bits_per_weight=self._bpw(sub))
 
+    def _dsign(self, seed: int, device) -> torch.Tensor | None:
+        """The ±1 sign diagonal of a ``sign_diag`` format: the reference's
+        ``bernoulli(PRNGKey(seed), 0.5, (block,)) * 2 - 1``."""
+        if not self.sign_diag:
+            return None
+        bits = prng.bernoulli(prng.seed_key(seed), 0.5, (self.block,))
+        return (bits.to(torch.int8) * 2 - 1).to(device)
+
     def quantize_blocks(self, wb, *, rule="paper", seed=0, sub_blocks=None):
-        if self.sign_diag:
-            raise NotImplementedError(
-                f"{self.name}: the reference draws the sign diagonal from "
-                f"jax.random, which the port does not reproduce yet; bring "
-                f"quip3 planes over with repro_torch.bridge.params_from_numpy")
         sub = self.sub_blocks if sub_blocks is None else sub_blocks
         if (self.rotate and not sub and not self.fivelevel
-                and self.block == DEFAULT_BLOCK):
+                and not self.sign_diag and self.block == DEFAULT_BLOCK):
             return _quantize_blocks_fused(wb, rule)
         return quantize_blocks_ternary(
             wb, rotate=self.rotate, rule=rule, sub_blocks=sub,
-            fivelevel=self.fivelevel)
+            fivelevel=self.fivelevel, dsign=self._dsign(seed, wb.device))
 
     def dequantize_blocks(self, data, *, sub_blocks=None):
         sub = self.sub_blocks if sub_blocks is None else sub_blocks

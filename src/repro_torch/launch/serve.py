@@ -1,6 +1,7 @@
 """Serving launcher of the port: seeded random weights, quantized by the
-port with a format or a QuantPolicy, served greedily through the
-continuous-batching engine.
+port with a format or a QuantPolicy (or a quantized checkpoint booted with
+``ServeEngine.from_checkpoint``), served through the continuous-batching
+engine.
 
     python -m repro_torch.launch.serve --reduced --kv-quant --device cpu
     python -m repro_torch.launch.serve --arch smollm-135m --kv-quant   # GPU
@@ -17,6 +18,22 @@ preempting a request when the pool runs dry):
 
     ... --kv-quant --paged --num-blocks 6 --block-size 16
 
+Per-request sampling (``--temperature/--top-k/--top-p``; request i draws
+under seed ``--sampling-seed`` + i, or a key derived from its rid), stop
+tokens, the admission policy (``--scheduler fifo|priority|sjf``, priority
+demoed as ``rid % 3``) and ``--stream`` to print events as they arrive:
+
+    ... --temperature 0.8 --top-k 40 --sampling-seed 7 --stream
+
+The resilience layer: a bounded queue (``--max-queue``, ``--shed-policy``),
+deadlines (``--deadline-ms``), the decode watchdog
+(``--watchdog-timeout-s``) and ``--chaos``, a seeded fault plan (a KV
+scale poisoned, a clock skip, a stalled step) under which every request
+still ends with a finish reason:
+
+    ... --kv-quant --chaos --stream --scheduler priority --max-queue 4 \
+        --shed-policy shed_lowest
+
 On a CUDA device every quantized projection, activation rotation, int8
 contraction and q8-cache attention runs on the hand-written kernels in
 ``csrc/``, and the quantizer's ``itq3_s`` blocks go through the
@@ -26,6 +43,7 @@ plain PyTorch versions.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import time
 
@@ -39,10 +57,11 @@ from repro_torch.configs import (
 from repro_torch.core import grids
 from repro_torch.models import lm
 from repro_torch.models.layers import Runtime
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, SamplingParams, ServeEngine
 from repro_torch.serve.quantized import (
     QuantPolicy, describe_quantized, quantize_params, quantized_bytes,
 )
+from repro_torch.serve.scheduler import SCHEDULERS
 
 
 def _load_policy(spec: str, cfg) -> QuantPolicy:
@@ -85,19 +104,86 @@ def main(argv=None) -> None:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy (default); > 0 samples on the device")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter (0 = disabled)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus (top-p) filter (1.0 = disabled)")
+    ap.add_argument("--sampling-seed", type=int, default=None,
+                    help="per-request PRNG seed base (request i uses seed+i); "
+                         "default derives deterministic keys from rid")
+    ap.add_argument("--sample-on-host", action="store_true",
+                    help="per-slot host argmax: one transfer per live slot "
+                         "(the measured baseline)")
+    ap.add_argument("--stop-token", type=int, action="append", default=None,
+                    help="stop-token id finishing a request early "
+                         "(repeatable)")
+    ap.add_argument("--scheduler", default="fifo", choices=sorted(SCHEDULERS),
+                    help="admission policy: fifo | priority (Request."
+                         "priority, demoed with rid%%3) | sjf "
+                         "(shortest-prompt-first)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print StreamEvents as tokens arrive instead of "
+                         "waiting for the closed batch")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound the waiting queue; overflow follows "
+                         "--shed-policy (terminal 'rejected' events)")
+    ap.add_argument("--shed-policy", default="reject",
+                    choices=["reject", "shed_lowest"],
+                    help="queue-overflow policy: turn the newcomer away, or "
+                         "drop the lowest-priority waiting request instead")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request submit->done deadline; expired "
+                         "requests finish with finish_reason='deadline'")
+    ap.add_argument("--watchdog-timeout-s", type=float, default=None,
+                    help="arm the decode-step watchdog: steps slower than "
+                         "this are counted in stats()['stalled_steps']")
+    ap.add_argument("--chaos", action="store_true",
+                    help="serve under a seeded FaultPlan (KV-scale poison + "
+                         "clock skip + stall): every failure drains to a "
+                         "terminal finish reason")
+    ap.add_argument("--chaos-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    faults = None
+    if args.chaos:
+        from repro_torch.serve.faults import Fault, FaultPlan
+        faults = FaultPlan([
+            Fault("kv_nan", step=3, slot=0,
+                  plane="k_scale" if args.kv_quant else "k"),
+            Fault("clock_skip", step=6, dt=1.0),
+            Fault("stall", step=6, dt=2.0),
+        ], seed=args.chaos_seed)
+        if args.watchdog_timeout_s is None:
+            args.watchdog_timeout_s = 0.5
+        if args.deadline_ms is None:
+            args.deadline_ms = 400.0
+        print(f"chaos mode: {len(faults.faults)} seeded faults armed "
+              f"(seed {args.chaos_seed}, deterministic clock)")
+    engine_kw = dict(
+        slots=args.slots, max_len=args.max_len,
+        rt=Runtime(quant_mode=args.quant_mode, kv_quant=args.kv_quant,
+                   act_quant=args.act_quant),
+        device=args.device, sample_on_host=args.sample_on_host,
+        scheduler=args.scheduler, max_queue=args.max_queue,
+        shed_policy=args.shed_policy,
+        watchdog_timeout_s=args.watchdog_timeout_s, faults=faults,
+        paged=args.paged, num_blocks=args.num_blocks,
+        block_size=args.block_size)
     if args.load_quantized:
         t0 = time.perf_counter()
-        params, step = ckpt_mod.restore_params(args.load_quantized,
-                                               device=args.device)
+        eng = ServeEngine.from_checkpoint(args.load_quantized, cfg,
+                                          **engine_kw)
+        step = ckpt_mod.latest_step(args.load_quantized)
         print(f"loaded quantized step-{step} tree from {args.load_quantized} "
               f"in {time.perf_counter() - t0:.1f}s "
-              f"({quantized_bytes(params) / 1e6:.1f}MB)")
+              f"({quantized_bytes(eng.params) / 1e6:.1f}MB) with "
+              f"ServeEngine.from_checkpoint")
     else:
         params = lm.init_params(cfg, seed=0, device=args.device)
         fp_bytes = sum(leaf.numel() * 2 for leaf in _leaves(params))
@@ -116,13 +202,8 @@ def main(argv=None) -> None:
         if args.save_quantized:
             path = ckpt_mod.save(args.save_quantized, 0, params)
             print(f"saved quantized tree to {path}")
+        eng = ServeEngine(params, cfg, **engine_kw)
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}")
-    eng = ServeEngine(params, cfg, slots=args.slots, max_len=args.max_len,
-                      rt=Runtime(quant_mode=args.quant_mode,
-                                 kv_quant=args.kv_quant,
-                                 act_quant=args.act_quant),
-                      device=args.device, paged=args.paged,
-                      num_blocks=args.num_blocks, block_size=args.block_size)
     if args.paged:
         st0 = eng.stats()
         print(f"paged pool: {st0['pool_blocks']} blocks x "
@@ -132,11 +213,31 @@ def main(argv=None) -> None:
         print("act_quant: W3A8 integer compute path "
               "(int8 rotation-domain activations, int32 accumulation)")
     rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               size=8 + i % 5),
-                    max_new=args.max_new) for i in range(args.requests)]
+    reqs = []
+    for i in range(args.requests):
+        sp = SamplingParams(
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            seed=None if args.sampling_seed is None else args.sampling_seed + i,
+            stop=tuple(args.stop_token or ()))
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, size=8 + i % 5),
+            max_new=args.max_new, sampling=sp,
+            priority=i % 3 if args.scheduler == "priority" else 0,
+            deadline_ms=args.deadline_ms))
     t0 = time.perf_counter()
-    done = eng.run(reqs)
+    if args.stream:
+        for ev in eng.generate(reqs):
+            if ev.finished:
+                st = ev.stats or {}
+                print(f"  rid={ev.rid} finished [{ev.finish_reason}] "
+                      f"{st.get('tokens', 0)} tokens, "
+                      f"ttft {st.get('ttft_s', float('nan')) * 1e3:.0f}ms, "
+                      f"queue {st.get('queue_wait_s', 0) * 1e3:.0f}ms")
+            else:
+                print(f"  rid={ev.rid} token {ev.index}: {ev.token}")
+        done = reqs
+    else:
+        done = eng.run(reqs)
     if args.device != "cpu":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -144,12 +245,22 @@ def main(argv=None) -> None:
     total = sum(len(r.out) for r in done)
     print(f"served {len(done)} requests / {total} tokens in {dt:.2f}s on "
           f"{args.device} ({st['syncs_per_token']:.2f} host syncs/token, "
+          f"scheduler={st['scheduler']}, "
           f"cache {st['cache_bytes'] / 1e6:.1f} MB, "
           f"{st['cache_bytes_per_token']:.0f} B/token)")
     if args.paged:
         print(f"paged: {st['preemptions']} preemptions, {st['resumes']} "
               f"resumes, {st['prefix_hits']} prefix hits, "
               f"{st['pool_blocks_used']} blocks still held")
+    resil = {k: st[k] for k in ("quarantined", "deadline_expired",
+                                "requests_rejected", "requests_shed",
+                                "preemptions", "stalled_steps") if st.get(k)}
+    if resil or args.chaos:
+        reasons = collections.Counter(r.finish_reason for r in done)
+        print(f"resilience: {resil or 'no faults fired'}; "
+              f"finish reasons {dict(reasons)}")
+        if faults is not None:
+            print(f"fault log: {faults.log}")
     for r in done[:3]:
         print(f"  rid={r.rid} -> {r.out[:10]}")
 

@@ -22,7 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import formats
+from repro_torch.core import formats, prng
 from repro_torch.core.fwht import is_pow2
 from repro_torch.core.quantize import QTensor
 from repro_torch.models.layers import (
@@ -32,7 +32,7 @@ from repro_torch.models.layers import (
 Params = dict[str, Any]
 
 __all__ = ["init_params", "init_cache", "forward", "decode_step",
-           "finite_rows", "sample_tokens", "layer_params"]
+           "finite_rows", "top_mask", "sample_tokens", "layer_params"]
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
@@ -225,12 +225,69 @@ def finite_rows(logits: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(logits.to(torch.float32)).all(dim=-1)
 
 
-def sample_tokens(logits: torch.Tensor, key=None,
-                  temperature: float = 0.0) -> torch.Tensor:
-    """Greedy argmax over the last axis (first maximum on ties, as
-    ``jnp.argmax``). Sampled decoding lands with a later slice."""
-    if key is not None or temperature > 0:
-        raise NotImplementedError(
-            "temperature/top-k/top-p sampling lands with the sampled-"
-            "decoding slice (ROADMAP Queue 1 item 9); this slice is greedy")
-    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+def top_mask(logits: torch.Tensor, top_k=None, top_p=None) -> torch.Tensor:
+    """Mask logits outside each row's top-k / top-p (nucleus) set to -inf.
+
+    Both filters are a per-row value threshold on the descending-sorted
+    logits (one sort for the batch, heterogeneous k and p per row), as the
+    reference's: ``top_k`` (B,) keeps values >= the k-th largest where
+    k > 0 (k clipped to the vocabulary); ``top_p`` (B,) keeps a token iff
+    the probability mass strictly before it is < p, where p < 1. Every row
+    keeps its argmax; rows are independent. The constants are Python
+    scalars: a tensor made from one would be a blocking host-to-device
+    copy."""
+    v = logits.shape[-1]
+    neg_inf = float("-inf")
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    thresh = torch.full(logits.shape[:-1], neg_inf, dtype=torch.float32,
+                        device=logits.device)
+    if top_k is not None:
+        k = torch.as_tensor(top_k, dtype=torch.int64, device=logits.device)
+        kth = torch.gather(sorted_desc, -1,
+                           torch.clamp(k - 1, 0, v - 1)[..., None])[..., 0]
+        thresh = torch.maximum(thresh, torch.where(k > 0, kth, neg_inf))
+    if top_p is not None:
+        p = torch.as_tensor(top_p, dtype=torch.float32, device=logits.device)
+        e = torch.exp(sorted_desc - sorted_desc.max(dim=-1,
+                                                    keepdim=True).values)
+        probs = e / e.sum(dim=-1, keepdim=True)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < p[..., None]
+        pth = torch.where(keep, sorted_desc, float("inf")).min(dim=-1).values
+        thresh = torch.maximum(thresh, torch.where(p < 1.0, pth, neg_inf))
+    return torch.where(logits >= thresh[..., None], logits, neg_inf)
+
+
+def sample_tokens(logits: torch.Tensor, key=None, temperature=0.0, *,
+                  top_k=None, top_p=None) -> torch.Tensor:
+    """Greedy argmax (``key=None``: no PRNG op at all) or temperature /
+    top-k / top-p sampling on JAX's threefry streams (``core/prng.py``),
+    on the logits' device. ``torch.argmax`` takes the first maximum, as
+    ``jnp.argmax``.
+
+    The logits are scaled by ``1 / max(temperature, 1e-6)`` before the
+    filters. With ``key`` (B, 2) every row draws under its own key (the
+    serving path: a row's token does not depend on its batchmates, and
+    ``temperature``, ``top_k``, ``top_p`` are (B,) tensors on the logits'
+    device); a single (2,) key with a scalar temperature draws one shared
+    stream over the batch. Rows with temperature <= 0 take the argmax."""
+    logits = logits.to(torch.float32)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if key is None:
+        return greedy
+    shared = not isinstance(temperature, torch.Tensor)
+    if shared:
+        # filled on the device (no host-to-device copy); a true division,
+        # which CUDA skips for a Python-scalar divisor (it multiplies by
+        # the reciprocal)
+        scaled = logits / torch.full((), max(float(temperature), 1e-6),
+                                     device=logits.device)
+    else:
+        temp = temperature.to(torch.float32)
+        t = torch.clamp_min(temp, 1e-6)
+        scaled = logits / (t[..., None] if temp.dim() else t)
+    if top_k is not None or top_p is not None:
+        scaled = top_mask(scaled, top_k, top_p)
+    sampled = prng.categorical(key, scaled).to(torch.int32)
+    if shared:
+        return sampled if temperature > 0 else greedy
+    return torch.where(temp > 0, sampled, greedy)

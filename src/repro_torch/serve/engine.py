@@ -1,5 +1,6 @@
 """Serving engine core (port of ``repro/serve/engine.py``): continuous
-batching over a fixed slot-batched KV cache, greedy decoding.
+batching over a fixed slot-batched KV cache, greedy and sampled decoding,
+and the resilience layer.
 
 ``ServeEngine`` owns a (slots x max_len) cache and admits requests
 continuously: whenever slots free up, the scheduler's next wave is
@@ -7,10 +8,19 @@ prefilled in one padded-bucket call while the other slots keep decoding.
 
 Hot-path discipline, as in the reference:
 
-* **One device->host transfer per step.** Greedy argmax and a per-slot
+* **One device->host transfer per step.** Sampling and a per-slot
   finiteness check run on the device; ``_step_events`` fetches one
   (slots,) int32 vector. ``host_syncs`` counts every transfer (one per
-  admission wave, one per decode step).
+  admission wave, one per decode step). Each slot samples under its own
+  temperature / top-k / top-p and its request's own threefry key
+  (``SamplingParams.key_data``), folded on the host with the request-local
+  token index (0 for the prefill's first token, ``len(out)`` on decode):
+  a request's stream depends only on its params, prompt, sampling knobs
+  and seed, never on its slot or its batchmates, and equals the
+  reference's (``core/prng.py`` is JAX's threefry). A step or wave with no
+  sampled row runs a bare argmax with no PRNG op. ``sample_on_host=True``
+  is the reference's measured baseline: logits rows fetched one per live
+  slot and argmaxed on the host.
 * **In-place cache.** The cache is allocated once; decode writes one
   token slice per layer into it (the reference's donated buffers).
 * **One call per admission wave.** All free slots are admitted together:
@@ -35,9 +45,26 @@ Hot-path discipline, as in the reference:
   sync, frees the slot and requeues the request; re-admission scatters the
   rows back and decoding continues bit-identically, with no re-prefill.
 
-This slice serves greedy requests. Sampled decoding, speculative decoding,
-tensor-parallel meshes, fault injection and deadlines land with later
-slices and raise ``NotImplementedError`` here.
+Resilience, as in the reference (every failure ends in a terminal
+StreamEvent with its finish reason):
+
+* **Deadlines.** ``Request.deadline_ms`` (submit to done) and
+  ``decode_timeout_ms`` (first token to done), on the injectable ``clock``:
+  a queued request past its deadline is shed when popped, with no
+  prefill; a live one finishes with ``deadline`` before its next token.
+* **Backpressure.** ``max_queue`` bounds the waiting queue; on overflow
+  ``shed_policy="reject"`` turns the newcomer away and ``"shed_lowest"``
+  drops the lowest-priority waiting request instead (the newcomer is
+  rejected when it ranks lowest), both as ``rejected``.
+* **Watchdog.** ``watchdog_timeout_s`` arms a ``ft/monitor.py``
+  heartbeat that each decode step beats; a step later than the timeout
+  counts in ``stalled_steps``.
+* **Fault injection.** ``faults=`` takes a ``serve/faults.py``
+  ``FaultPlan``: its ``before_decode`` runs at the top of each decode step
+  and, without an explicit ``clock``, the engine reads the plan's.
+
+Speculative decoding (``draft_params``) and tensor-parallel meshes
+(``mesh``) land with later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,12 +76,14 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
+from repro_torch.ft.monitor import HeartbeatMonitor
 from repro_torch.models import lm
 from repro_torch.models.layers import Runtime
 from repro_torch.serve import paged as paged_mod
 from repro_torch.serve.sampling import (
-    FINISH_CANCELLED, FINISH_ERROR, FINISH_LENGTH, FINISH_STOP,
-    SamplingParams, StreamEvent,
+    FINISH_CANCELLED, FINISH_DEADLINE, FINISH_ERROR, FINISH_LENGTH,
+    FINISH_REJECTED, FINISH_STOP, SamplingParams, StreamEvent,
 )
 from repro_torch.serve.scheduler import Scheduler, get_scheduler
 
@@ -64,11 +93,9 @@ __all__ = ["Request", "ServeEngine", "SamplingParams", "StreamEvent"]
 _POISONED = -1
 
 _LATER = {
-    "draft_params": "the speculative-decoding slice (Queue 1 item 12)",
-    "mesh": "the tensor-parallel slice (Queue 1 item 14)",
-    "faults": "the resilience slice (Queue 1 item 11)",
+    "draft_params": "the speculative-decoding slice (ROADMAP Queue 1 item 4)",
+    "mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)",
 }
-_SAMPLED = "sampled decoding lands with Queue 1 item 9; this slice is greedy"
 
 
 @dataclasses.dataclass
@@ -78,11 +105,15 @@ class Request:
     max_new: int = 32  # output budget (SamplingParams.max_new overrides)
     sampling: Optional[SamplingParams] = None  # None -> engine default
     priority: int = 0  # PriorityScheduler: higher admits first
+    # --- SLO budgets on the engine clock (None disables) ---
+    deadline_ms: Optional[float] = None  # submit -> done
+    decode_timeout_ms: Optional[float] = None  # first token -> done (time
+    #   swapped out by preemption counts: the caller's clock, not the slot's)
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: Optional[str] = None
     preemptions: int = 0  # times this request was swapped out mid-flight
-    # --- lifecycle stamps (perf_counter seconds, filled by the engine) ---
+    # --- lifecycle stamps (engine clock seconds, filled by the engine) ---
     t_submit: Optional[float] = None
     t_admit: Optional[float] = None
     t_first: Optional[float] = None
@@ -107,21 +138,19 @@ class Request:
 class ServeEngine:
     def __init__(self, params, cfg, *, slots: int = 4, max_len: int = 256,
                  rt: Optional[Runtime] = None, prompt_pad: int = 64,
-                 temperature: float = 0.0,
+                 temperature: float = 0.0, seed: int = 0,
+                 sample_on_host: bool = False,
                  sampling: Optional[SamplingParams] = None,
                  scheduler: "str | Scheduler | None" = None,
                  eos_id: Optional[int] = None, device="cuda",
+                 clock=None, max_queue: Optional[int] = None,
+                 shed_policy: str = "reject",
+                 watchdog_timeout_s: Optional[float] = None, faults=None,
                  paged: bool = False, num_blocks: Optional[int] = None,
-                 block_size: int = 16, draft_params=None, mesh=None,
-                 faults=None):
-        for name, value in (("draft_params", draft_params), ("mesh", mesh),
-                            ("faults", faults)):
-            if value:
+                 block_size: int = 16, draft_params=None, mesh=None):
+        for name, value in (("draft_params", draft_params), ("mesh", mesh)):
+            if value is not None:
                 raise NotImplementedError(f"{name}: lands with {_LATER[name]}")
-        self.default_sampling = sampling or SamplingParams(
-            temperature=float(temperature))
-        if not self.default_sampling.greedy:
-            raise NotImplementedError(_SAMPLED)
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r}: this slice serves the dense family")
@@ -139,8 +168,31 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.prompt_pad = prompt_pad
+        self.seed = int(seed)
+        self.sample_on_host = bool(sample_on_host)
+        # the engine default for requests without their own; the legacy
+        # temperature knob folds into it (and stays live as a property)
+        self.default_sampling = sampling or SamplingParams(
+            temperature=float(temperature))
         self.scheduler: Scheduler = get_scheduler(scheduler)
         self.eos_id = eos_id if eos_id is not None else cfg.eos_token_id
+        # --- resilience layer ---
+        self.faults = faults
+        if clock is None and faults is not None:
+            clock = getattr(faults, "clock", None)  # deterministic test time
+        self._clock = clock or time.perf_counter
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if shed_policy not in ("reject", "shed_lowest"):
+            raise ValueError(
+                f"shed_policy must be 'reject' or 'shed_lowest', "
+                f"got {shed_policy!r}")
+        self.max_queue = max_queue
+        self.shed_policy = shed_policy
+        self.watchdog = None
+        if watchdog_timeout_s is not None:
+            self.watchdog = HeartbeatMonitor(
+                1, timeout_s=float(watchdog_timeout_s), clock=self._clock)
         self.paged = bool(paged)
         if self.paged:
             if not self.rt.kv_quant:
@@ -170,6 +222,11 @@ class ServeEngine:
         self.pos = np.zeros(slots, dtype=np.int32)  # next write index per slot
         self.active: list[Optional[Request]] = [None] * slots
         self._next_tok = np.zeros(slots, dtype=np.int32)
+        # --- per-slot sampling state, sent up with each step's tokens ---
+        self._temp = np.zeros(slots, np.float32)
+        self._top_k = np.zeros(slots, np.int32)
+        self._top_p = np.ones(slots, np.float32)
+        self._keys = np.zeros((slots, 2), np.uint32)
         self._slot_stop: list[frozenset[int]] = [frozenset()] * slots
         self._slot_max_new: list[int] = [0] * slots
         self._pending_events: list[StreamEvent] = []
@@ -180,46 +237,107 @@ class ServeEngine:
         self.prefill_waves = 0
         self.decode_seconds = 0.0   # host wall per step, ending in its sync
         self.prefill_seconds = 0.0  # host wall per wave, ending in its sync
+        self.requests_rejected = 0  # backpressure: newcomer turned away
+        self.requests_shed = 0      # backpressure: waiting victim dropped
         self.requests_invalid = 0
+        self.deadline_expired = 0   # queued or live deadline expiries
         self.quarantined = 0
         self.preemptions = 0      # live slots swapped out mid-flight
         self.resumes = 0          # swapped requests scattered back in
+        self.stalled_steps = 0    # decode steps later than the watchdog
         self.max_concurrent = 0   # peak simultaneously decoding requests
         self.blocks_swapped = 0   # paged: blocks host-swapped by preemption
         self.pool_exhausted = 0   # paged: requests error-finished, pool dry
 
+    @property
+    def temperature(self) -> float:
+        """The engine-default temperature; setting it changes the default
+        for requests admitted later."""
+        return self.default_sampling.temperature
+
+    @temperature.setter
+    def temperature(self, value: float) -> None:
+        self.default_sampling = dataclasses.replace(
+            self.default_sampling, temperature=float(value))
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, cfg, *, step: Optional[int] = None,
+                        mesh=None, device="cuda", **kw) -> "ServeEngine":
+        """Boot an engine from a bare checkpoint directory (the reference's
+        layout). A policy-quantized tree's QTensors are rebuilt from their
+        packed planes and metas, with no template and no second run of
+        Algorithm 1."""
+        if mesh is not None:
+            raise NotImplementedError(f"mesh: lands with {_LATER['mesh']}")
+        from repro_torch.checkpoint import ckpt as ckpt_mod
+
+        params, _ = ckpt_mod.restore_params(ckpt_dir, step=step,
+                                            device=device)
+        return cls(params, cfg, device=device, **kw)
+
     # --- request lifecycle ------------------------------------------------
     def _resolve(self, req: Request) -> SamplingParams:
         sp = req.sampling or self.default_sampling
+        over: dict = {}
         if sp.max_new is None:
-            sp = dataclasses.replace(sp, max_new=req.max_new)
-        return sp
+            over["max_new"] = req.max_new
+        if sp.greedy and (sp.top_k > 0 or sp.top_p < 1.0):
+            # argmax ignores the filters: normalized to the inert values so
+            # a greedy row never brings top_mask's sort into a mixed batch
+            over.update(top_k=0, top_p=1.0)
+        return dataclasses.replace(sp, **over) if over else sp
 
     def _terminal(self, req: Request, reason: str) -> StreamEvent:
-        """Stamp a request done off-slot and queue its terminal event."""
+        """Stamp a request done off-slot (rejected, shed, expired while
+        queued, invalid) and queue its terminal event."""
         if req.t_submit is None:
-            req.t_submit = time.perf_counter()
+            req.t_submit = self._clock()
         req.done = True
         req.finish_reason = reason
-        req.t_done = time.perf_counter()
+        req.t_done = self._clock()
         ev = StreamEvent(req.rid, None, len(req.out), finished=True,
                          finish_reason=reason, stats=req.stats())
         self._pending_events.append(ev)
         return ev
 
     def submit_request(self, req: Request) -> bool:
-        """Enqueue a request with the scheduler. A malformed (empty-prompt)
-        request is turned away with a terminal ``error`` event instead."""
-        if not self._resolve(req).greedy:
-            raise NotImplementedError(_SAMPLED)
-        if len(req.prompt) == 0:
+        """Enqueue a request with the scheduler. False, with a terminal
+        event queued, when it is turned away instead: malformed (empty
+        prompt: ``error``) or by backpressure (``rejected``)."""
+        if len(req.prompt) == 0 and req.rid not in self._swapped:
             self.requests_invalid += 1
             self._terminal(req, FINISH_ERROR)
             return False
+        if self.max_queue is not None and \
+                len(self.scheduler) >= self.max_queue:
+            victim = None
+            if self.shed_policy == "shed_lowest":
+                shed = getattr(self.scheduler, "shed", None)
+                if shed is not None:
+                    victim = shed(below=int(req.priority))
+            if victim is None:
+                # reject policy, or the newcomer outranks no one waiting
+                self.requests_rejected += 1
+                self._terminal(req, FINISH_REJECTED)
+                return False
+            self._swapped.pop(victim.rid, None)
+            self.requests_shed += 1
+            self._terminal(victim, FINISH_REJECTED)
         if req.t_submit is None:
-            req.t_submit = time.perf_counter()
+            req.t_submit = self._clock()
         self.scheduler.add(req)
         return True
+
+    def admit(self, reqs: list[Request]) -> int:
+        """Admit as many of ``reqs`` (in order) as there are free slots,
+        bypassing the scheduler; returns how many were admitted (a
+        malformed request finishes with ``error`` and is not counted)."""
+        group = reqs[:sum(r is None for r in self.active)]
+        if not group:
+            return 0
+        inv0 = self.requests_invalid
+        self._admit_group(group)
+        return len(group) - (self.requests_invalid - inv0)
 
     def cancel(self, rid: int) -> bool:
         """Evict a live slot or drop a queued request; the terminal
@@ -227,7 +345,7 @@ class ServeEngine:
         req = self.scheduler.cancel(rid)
         if req is not None:
             self._swapped.pop(rid, None)  # preempted and requeued, now dead
-            req.t_done = time.perf_counter()
+            req.t_done = self._clock()
             self._pending_events.append(StreamEvent(
                 rid, None, len(req.out), finished=True,
                 finish_reason=FINISH_CANCELLED, stats=req.stats()))
@@ -262,8 +380,7 @@ class ServeEngine:
         else:
             entry["cache"] = _take_slots(self.cache["attn"], [s])
         self._swapped[rid] = entry
-        self.active[s] = None
-        self._slot_stop[s] = frozenset()
+        self._free_slot(s)  # no terminal event: the stream pauses
         req.preemptions += 1
         self.preemptions += 1
         self.scheduler.add(req)
@@ -340,15 +457,53 @@ class ServeEngine:
     def _tick(self) -> list[StreamEvent]:
         events = self._pending_events
         self._pending_events = []
+        events += self._expire_live()
         self._maybe_preempt()
+        events += self._pending_events  # a custom preemption hook may
+        self._pending_events = []       # cancel
         free = sum(r is None for r in self.active)
         if free and len(self.scheduler):
-            wave = self.scheduler.pop(free)
+            wave = self._pop_wave(free, events)
             if wave:
                 events += self._admit_group(wave)
         if any(r is not None for r in self.active):
             events += self._step_events()
         return events
+
+    def _expired(self, req: Request, now: float) -> bool:
+        if (req.deadline_ms is not None and req.t_submit is not None
+                and (now - req.t_submit) * 1e3 > req.deadline_ms):
+            return True
+        return (req.decode_timeout_ms is not None and req.t_first is not None
+                and (now - req.t_first) * 1e3 > req.decode_timeout_ms)
+
+    def _expire_live(self) -> list[StreamEvent]:
+        """Finish live slots past their deadline or decode timeout, before
+        another token is decoded for them."""
+        now = self._clock()
+        events = []
+        for s, req in enumerate(self.active):
+            if req is not None and self._expired(req, now):
+                self.deadline_expired += 1
+                events.append(self._finish_slot(s, req, FINISH_DEADLINE,
+                                                token=None))
+        return events
+
+    def _pop_wave(self, free: int, events: list[StreamEvent]) -> list:
+        """The next admission wave; queued requests already past their
+        deadline are shed here with a terminal event and no prefill."""
+        now = self._clock()
+        wave: list = []
+        while len(wave) < free and len(self.scheduler):
+            for req in self.scheduler.pop(free - len(wave)):
+                if self._expired(req, now):
+                    self._swapped.pop(req.rid, None)
+                    self.deadline_expired += 1
+                    self._terminal(req, FINISH_DEADLINE)
+                    events.append(self._pending_events.pop())  # now
+                else:
+                    wave.append(req)
+        return wave
 
     def _maybe_preempt(self) -> None:
         """Let the scheduler evict live work for higher-priority waiting
@@ -373,12 +528,19 @@ class ServeEngine:
         """Resume swapped requests, allocate fresh prompts' block chains
         (paged), then prefill the fresh ones in one wave."""
         free = [s for s in range(self.slots) if self.active[s] is None]
+        now = self._clock()
         events: list[StreamEvent] = []
         fresh: list[Request] = []
         for r in group:
             if r.rid in self._swapped:
                 if self._resume_slot(r, free[0]):
                     free.pop(0)
+            elif len(r.prompt) == 0:
+                # malformed (the direct admit() path): finished alone, the
+                # rest of the wave goes on
+                self.requests_invalid += 1
+                self._terminal(r, FINISH_ERROR)
+                events.append(self._pending_events.pop())  # delivered now
             else:
                 fresh.append(r)
         if self.paged and fresh:
@@ -403,7 +565,59 @@ class ServeEngine:
             fresh = admitted
         if not fresh:
             return events
+        for r in fresh:
+            if r.t_submit is None:
+                r.t_submit = now  # direct admit(): no queue wait
+            r.t_admit = now
         return events + self._admit_bucketed(fresh, free[:len(fresh)])
+
+    def _group_sampling(self, group: list[Request]):
+        """One wave's resolved params and its sampling vectors: (sps, keys
+        (G, 2) uint32 | None, temp, top_k, top_p); keys is None when the
+        whole wave is greedy (no PRNG op), a filter None when no row uses
+        it."""
+        sps = [self._resolve(r) for r in group]
+        if all(sp.greedy for sp in sps):
+            return sps, None, None, None, None
+        keys = np.stack([sp.key_data(engine_seed=self.seed, rid=r.rid)
+                         for sp, r in zip(sps, group)])
+        temp = np.asarray([sp.temperature for sp in sps], np.float32)
+        top_k, top_p = self._filter_vectors([sp.top_k for sp in sps],
+                                            [sp.top_p for sp in sps])
+        return sps, keys, temp, top_k, top_p
+
+    @staticmethod
+    def _filter_vectors(ks, ps):
+        """Per-row top-k / top-p vectors, or None for a filter no row uses
+        (its full-vocabulary sort stays out of the step). Freed slots hold
+        the inert 0 / 1.0, so every slot's value can be passed."""
+        top_k = np.asarray(ks, np.int64) if any(k > 0 for k in ks) else None
+        top_p = (np.asarray(ps, np.float32) if any(p < 1.0 for p in ps)
+                 else None)
+        return top_k, top_p
+
+    def _sampling_args(self, keys, gen, temp, top_k, top_p) -> tuple:
+        """The device arguments of one wave's or step's draw: ``keys``
+        (G, 2) are the requests' base keys, each folded on the host with
+        its request-local token index ``gen`` (G,); the step keys and the
+        vectors go up before the forward is queued (a blocking host-to-
+        device copy waits for the queue to drain). ``keys=None``: () and
+        the draw is an argmax."""
+        if keys is None:
+            return ()
+        step_keys = prng.fold_in(keys.astype(np.int64),
+                                 np.asarray(gen, np.int64))
+        return tuple(None if a is None else torch.as_tensor(
+            a, device=self.device) for a in (step_keys, temp, top_k, top_p))
+
+    @staticmethod
+    def _sample(last: torch.Tensor, args: tuple) -> torch.Tensor:
+        """Tokens (G,) int32 from last-position logits (G, V) on the
+        device, under :meth:`_sampling_args`'s arguments."""
+        if not args:
+            return lm.sample_tokens(last)
+        keys, temp, top_k, top_p = args
+        return lm.sample_tokens(last, keys, temp, top_k=top_k, top_p=top_p)
 
     def _admit_bucketed(self, group: list[Request],
                         free: list[int]) -> list[StreamEvent]:
@@ -417,6 +631,10 @@ class ServeEngine:
                                 (0, bucket - p))
                          for r, p in zip(group, plens)])
         last_idx = np.asarray(plens) - 1
+        sps, keys, temp, top_k, top_p = self._group_sampling(group)
+        # the first token is each request's token index 0
+        args = () if self.sample_on_host else self._sampling_args(
+            keys, np.zeros(len(group)), temp, top_k, top_p)
         if self.paged:
             # writes scatter through the admitted slots' table rows: fresh
             # blocks may hold a finished request's finite codes, which the
@@ -434,17 +652,21 @@ class ServeEngine:
             idx = torch.as_tensor(free, device=self.device)
             for k, v in self.cache["attn"].items():
                 v.index_copy_(1, idx, sub["attn"][k])
-        firsts = lm.sample_tokens(logits[:, 0]).cpu().numpy()  # one transfer
-        self.host_syncs += 1
+        last = logits[:, 0]
+        if self.sample_on_host:
+            # the baseline: one transfer per admitted row
+            firsts = [int(torch.argmax(last[g])) for g in range(len(group))]
+            self.host_syncs += len(group)
+        else:
+            firsts = self._sample(last, args).cpu().numpy()  # one transfer
+            self.host_syncs += 1
         self.prefill_waves += 1
-        now = time.perf_counter()
-        self.prefill_seconds += now - t0
+        self.prefill_seconds += time.perf_counter() - t0
+        now = self._clock()
         events = []
         for g, (req, s) in enumerate(zip(group, free)):
             first = int(firsts[g])
-            self._install_slot(s, req, self._resolve(req), pos=plens[g],
-                               next_tok=first)
-            req.t_admit = t0
+            self._install_slot(s, req, sps[g], pos=plens[g], next_tok=first)
             req.out.append(first)
             req.t_first = now
             events.append(self._emit(s, req, first))
@@ -452,17 +674,33 @@ class ServeEngine:
 
     def _install_slot(self, s: int, req: Request, sp: SamplingParams, *,
                       pos: int, next_tok: int) -> None:
-        """Bind a request to a slot (fresh admission and resume)."""
+        """Bind a request to a slot: its position and its sampling state
+        (fresh admission and resume)."""
         self.pos[s] = pos
         self.active[s] = req
         self._slot_stop[s] = sp.stop_set(self.eos_id)
         self._slot_max_new[s] = int(sp.max_new)
+        self._temp[s] = sp.temperature
+        self._top_k[s] = sp.top_k
+        self._top_p[s] = sp.top_p
+        self._keys[s] = sp.key_data(engine_seed=self.seed, rid=req.rid)
         self._next_tok[s] = next_tok
+
+    def _free_slot(self, s: int) -> None:
+        """Unbind slot ``s``; its sampling state returns to the inert
+        greedy values."""
+        self.active[s] = None
+        self._slot_stop[s] = frozenset()
+        self._temp[s] = 0.0
+        self._top_k[s] = 0
+        self._top_p[s] = 1.0
 
     # --- decode -----------------------------------------------------------
     def _step_events(self) -> list[StreamEvent]:
-        """One greedy decode step for every slot -> one StreamEvent per
-        emitted token."""
+        """One decode step for every slot -> one StreamEvent per emitted
+        token."""
+        if self.faults is not None:
+            self.faults.before_decode(self)
         t0 = time.perf_counter()
         events: list[StreamEvent] = []
         cache = self.cache
@@ -474,24 +712,43 @@ class ServeEngine:
                 return events
             cache = {"attn": self.cache["attn"],
                      "table": torch.as_tensor(self._table, device=self.device)}
-        self.max_concurrent = max(self.max_concurrent,
-                                  sum(r is not None for r in self.active))
+        live = [s for s, r in enumerate(self.active) if r is not None]
+        self.max_concurrent = max(self.max_concurrent, len(live))
         toks = torch.as_tensor(self._next_tok[:, None], device=self.device)
         positions = torch.as_tensor(self.pos, device=self.device)
+        args = ()  # an all-greedy step: argmax only, no PRNG op
+        if not self.sample_on_host and any(self._temp[s] > 0 for s in live):
+            gen = [len(r.out) if r is not None else 0 for r in self.active]
+            args = self._sampling_args(
+                self._keys, gen, self._temp,
+                *self._filter_vectors(self._top_k, self._top_p))
         logits, _ = lm.decode_step(self.params, toks, cache, positions,
                                    self.rt, self.cfg)
         last = logits[:, 0]
-        tok = torch.where(lm.finite_rows(last), lm.sample_tokens(last),
-                          torch.full_like(last[:, 0], _POISONED,
-                                          dtype=torch.int32))
-        tok_np = tok.cpu().numpy()  # THE step's one transfer
-        self.host_syncs += 1
+        if self.sample_on_host:
+            # the baseline: one transfer per live slot, argmax on the host
+            picked = {}
+            for s in live:
+                row = last[s].cpu().numpy()
+                self.host_syncs += 1
+                picked[s] = (_POISONED if not np.isfinite(row).all()
+                             else int(np.argmax(row)))
+        else:
+            tok = torch.where(lm.finite_rows(last), self._sample(last, args),
+                              torch.full_like(last[:, 0], _POISONED,
+                                              dtype=torch.int32))
+            tok_np = tok.cpu().numpy()  # THE step's one transfer
+            self.host_syncs += 1
+            picked = {s: int(tok_np[s]) for s in live}
         self.decode_steps += 1
         self.decode_seconds += time.perf_counter() - t0
-        for s, req in enumerate(self.active):
-            if req is None:
-                continue
-            tok_s = int(tok_np[s])
+        if self.watchdog is not None:
+            now = self._clock()
+            self.stalled_steps += len(self.watchdog.failed(now))
+            self.watchdog.beat(0, self.decode_steps, now=now)
+        for s in live:
+            req = self.active[s]
+            tok_s = picked[s]
             if tok_s == _POISONED:
                 # numeric quarantine: finish loudly, re-zero the slot's rows
                 self.quarantined += 1
@@ -565,13 +822,12 @@ class ServeEngine:
                      token: Optional[int]) -> StreamEvent:
         req.done = True
         req.finish_reason = reason
-        req.t_done = time.perf_counter()
+        req.t_done = self._clock()
         if self.paged:
             # blocks return to the pool when the stream ends; quarantine
             # zeroes the exclusively held ones first
             self._release_blocks(s, zero=(reason == FINISH_ERROR))
-        self.active[s] = None
-        self._slot_stop[s] = frozenset()
+        self._free_slot(s)
         # tokenless terminal events index one past the stream
         idx = len(req.out) - 1 if token is not None else len(req.out)
         ev = StreamEvent(req.rid, token, idx, finished=True,
@@ -617,10 +873,17 @@ class ServeEngine:
             "scheduler": getattr(self.scheduler, "name",
                                  type(self.scheduler).__name__),
             "waiting": len(self.scheduler),
+            "requests_rejected": self.requests_rejected,
+            "requests_shed": self.requests_shed,
             "requests_invalid": self.requests_invalid,
+            "deadline_expired": self.deadline_expired,
             "quarantined": self.quarantined,
             "preemptions": self.preemptions,
             "resumes": self.resumes,
+            "stalled_steps": self.stalled_steps,
+            "swapped": len(self._swapped),
+            "max_queue": self.max_queue,
+            "shed_policy": self.shed_policy,
             "max_concurrent": self.max_concurrent,
             "backend": self.rt.backend,
             "kv_quant": self.rt.kv_quant,

@@ -17,9 +17,8 @@ blocked per matrix, so block statistics are computed per layer exactly as
 the reference's nested vmap does. The embedding table (gathered, not
 multiplied) is touched only by an explicit ``embed`` rule and is quantized
 transposed, as (D, V). ``quantize_params(params, "itq3_s")`` is
-``QuantPolicy.uniform``. ``seed`` is kept for the JSON round trip: only
-``quip3`` reads it, and quantizing ``quip3`` waits for a port of
-``jax.random``.
+``QuantPolicy.uniform``. ``seed`` is read only by ``quip3``: its sign
+diagonal is JAX's threefry draw from that seed (``core/prng.py``).
 """
 from __future__ import annotations
 

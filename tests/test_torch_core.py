@@ -161,9 +161,27 @@ def test_tensor_quantize_meta_and_dequantize(fmt):
         np.asarray(_jit(jformats.dequantize, dtype=jnp.float32)(jqt)), **TOL)
 
 
-def test_quip3_quantize_waits_for_mixed_policy_slice():
-    with pytest.raises(NotImplementedError, match="bridge"):
-        tformats.quantize(torch.zeros(256, 8), "quip3")
+@pytest.mark.parametrize("seed", [0, 1, 12345, 2**32 - 1])
+def test_quip3_quantize_waits_for_mixed_policy_slice(seed):
+    """The port quantizes quip3 itself: its sign diagonal is JAX's threefry
+    draw from the seed (equal), its codes, scales and zero-points those of
+    the reference's quantize on the same weights (up to the f32 ties
+    test_quantize_blocks_matches_reference allows), its meta equal."""
+    w = (np.random.default_rng(seed % 97).standard_normal((K_RAGGED, N))
+         / np.sqrt(K_RAGGED)).astype(np.float32)
+    jqt = _jit(jformats.quantize, fmt="quip3", seed=seed)(jnp.asarray(w))
+    tqt = tformats.quantize(torch.from_numpy(w), "quip3", seed=seed)
+    assert tqt.meta.to_dict() == jqt.meta.to_dict()
+    jd = {k: np.asarray(v) for k, v in jqt.data.items()}
+    assert tqt.data.keys() == jd.keys()
+    np.testing.assert_array_equal(tqt.data["dsign"].numpy(), jd["dsign"])
+    assert set(np.unique(jd["dsign"])) == {-1, 1}
+    codes = _codes3(tqt.data)
+    diff = (codes != np.asarray(_jit(jpacking.unpack_codes)(
+        jd["plane2"], jd["plane1"]))).sum()
+    assert diff <= 1e-4 * codes.size, f"{diff} codes differ"
+    for key in ("scales", "zps"):
+        assert (tqt.data[key].numpy() != jd[key]).mean() <= 1e-3, key
 
 
 @pytest.mark.parametrize("mode", ["dequant", "weights", "activations"])

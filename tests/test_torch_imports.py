@@ -60,4 +60,4 @@ def test_every_port_module_is_checked():
              if PORT in p.parents}
     assert {"core/act_quant", "kernels/quantize", "kernels/itq3",
             "checkpoint/ckpt", "serve/quantized", "launch/serve",
-            "serve/paged"} <= names
+            "serve/paged", "core/prng", "serve/faults", "ft/monitor"} <= names

@@ -186,8 +186,8 @@ def test_greedy_sampling_and_finite_rows():
     logits = torch.tensor([[0.0, 2.0, 2.0], [1.0, float("nan"), 0.0]])
     assert tlm.sample_tokens(logits).tolist() == [1, 1]  # first max on ties
     assert tlm.finite_rows(logits).tolist() == [True, False]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tlm.sample_tokens(logits, temperature=0.7)
+    # a temperature without a key stays greedy, as in the reference
+    assert tlm.sample_tokens(logits, temperature=0.7).tolist() == [1, 1]
 
 
 def test_init_params_seeded_and_quantizable():
