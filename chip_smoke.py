@@ -27,7 +27,9 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    are also checked, untimed, at the edges of their key splits (an empty
    row, a limit on a split boundary, query tiles straddling one, the full
    cache), where the empty rows must end exactly m = -1e30, l = 0,
-   acc = 0; the grid and ptxas's registers for both are printed, and the
+   acc = 0, and the serving entry point must raise under ``auto`` for a
+   shape the kernel does not build (head_dim 256 or 16, 33 query heads
+   per KV head); the grid and ptxas's registers for both are printed, and the
    dense kernel is checked and timed under other cuts of its keys and
    queries beside the one it picks. ``itq3_matmul`` (TF32 tensor cores,
    its bound counted at the TF32 rate) must give the same bits on two
@@ -61,6 +63,11 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    and within 1e-5 of the plain version with real ones, the same bits on
    two calls; it is timed under every cut at the serving shapes, and no
    instantiation of either source may spill.
+   The speculative verify pass's shapes (phase 10) are checked and timed
+   apart from the decode and prefill rows, and reported under ``verify``
+   in the kernel line: the attention, dense and paged, at TQ = 5 over a
+   260-key cache (with its own split edges and cut sweep), and both
+   matmuls at M = 20.
 4. The float path: serve smollm-135m at full width (seeded random weights,
    quantized by the port to itq3_s, rotated-int8 KV cache, greedy) through
    ``ServeEngine``: 8 requests over 4 slots. The launch counters are reset
@@ -119,6 +126,26 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    quarantined, at least one step stalled and one request rejected, the
    healthy slots' streams a prefix of a fault-free run's, and two runs'
    counters equal.
+10. Speculative decoding of phase 4's model and requests (K = 4 drafts per
+   window, 4 slots, ``kv_quant``, float path). (a) The perfect draft
+   (``spec.draft_from_params`` at full depth: the target itself): launches
+   exactly the window's contract (the draft's K decode steps and one
+   ``advance_cache`` through the fused matvec and the TQ = 1 attention,
+   then the target's verify pass over 20 rows through the matmul and the
+   TQ = 5 attention), one host sync per window and per wave, and greedy
+   streams equal to phase 4's counted run, or parting only where the
+   non-speculative path's top-2 logit margin is within phase 5's 1e-3 of
+   the largest logit (a tie between the verify kernels' summation order
+   and the decode kernels'), each parting printed; every proposal
+   accepted and ceil((32 - 1) / 5) = 7 windows per wave, a request short
+   of that only where such a parting explains it. (b) A 4-layer
+   self-draft, in turns with phase 4's engine (non-spec, spec, spec,
+   non-spec): acceptance and ms per committed token, reported only. (c)
+   The perfect draft on the paged path: streams, windows and each
+   request's acceptance equal to (a)'s, 0 blocks held, ``pool.check`` passing, exact launches with the paged attention
+   in the verify pass. (d) ``verify_commit`` on the card against the CPU
+   on 1000 seeded mixed-sampling windows at (4, 5, vocab): acceptance
+   uniforms bit-equal, ``(out, n)`` equal on at least 999.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -155,7 +182,7 @@ from repro_torch.core.quantize import pad_last_dim, to_blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_q8 import (  # noqa: E402
     attn_grid, attn_q8, attn_q8_paged, attn_q8_paged_ref, attn_q8_ref,
-    paged_row_table,
+    decode_attn_q8, paged_row_table,
 )
 from repro_torch.kernels.fwht import (  # noqa: E402
     FWHT_BLOCKS, fwht, fwht_act_encode, fwht_act_encode_ref, fwht_kv_encode,
@@ -296,14 +323,19 @@ class Ledger:
             raise AssertionError(f"{kernel} {shape}: rel error {rel:.3e} > "
                                  f"{tol}")
 
-    def summary(self, kernel):
+    def summary(self, kernel, verify: bool = False):
         """Sums over the kernel's main-path shapes (activations mode, so
         no rotate=True rows, and none of the off-path itq3_x rows): one
-        call at each shape. The bound of the sum is the sum of the per-call
-        bounds, labelled by the larger part."""
+        call at each shape; the speculative verify shapes apart (``verify``),
+        so the decode and prefill sums stay comparable with earlier runs.
+        The bound of the sum is the sum of the per-call bounds, labelled by
+        the larger part. None where the kernel has no such row."""
         rows = [r for r in self.rows if r["kernel"] == kernel
                 and "rotate=True" not in r["shape"]
-                and "itq3_x" not in r["shape"]]
+                and "itq3_x" not in r["shape"]
+                and ("verify" in r["shape"]) == verify]
+        if not rows:
+            return None
         tot = {k: None if any(r.get(k) is None for r in rows)
                else sum(r[k] for r in rows)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -325,6 +357,10 @@ class Ledger:
 
 SMOLLM_PROJ = {"wq": (576, 576), "wk": (576, 192), "gate": (576, 1536),
                "down": (1536, 576)}
+# phase 10's speculative window: K = 4 drafts, so the verify pass runs
+# SLOTS x (K+1) = 20 rows through every projection
+SPEC_K = 4
+VERIFY_M = SLOTS * (SPEC_K + 1)
 
 
 def weight_bytes(qt) -> int:
@@ -626,12 +662,13 @@ def check_itq3(led: Ledger, gen: torch.Generator, dev, weights,
     order); its bound counts its TF32 products, and the f32 CUDA-core
     bound of the same shapes is reported beside it."""
     f32_bound = {}
-    m = 256
     for name, qt in weights.items():
         d = qt.data
         n, kb = d["plane2"].shape[:2]
         kpad = kb * 256
-        for rotate in (False, True):
+        # prefill (M = 256) in both modes; the verify pass's M = 20 (4 slots
+        # x a K = 4 window) in activations mode
+        for m, rotate in ((256, False), (256, True), (VERIFY_M, False)):
             w = dequant_blocks(d["plane2"], d["plane1"], d["scales"], d["zps"],
                                rotate_weights=rotate, fivelevel=False,
                                sub_blocks=0).reshape(n, kpad).T.contiguous()
@@ -649,7 +686,8 @@ def check_itq3(led: Ledger, gen: torch.Generator, dev, weights,
             err, rel = rel_err(got, plain())
             nbytes = m * kpad * 4 + weight_bytes(qt) + m * n * 4
             flops = 2 * m * n * kpad + (n * kb * 256 * 9 if rotate else 0)
-            shape = f"{name} M={m} rotate={rotate}"
+            shape = f"{name} M={m} rotate={rotate}" + (
+                " verify" if m == VERIFY_M else "")
             if not torch.equal(got, run()):
                 raise AssertionError(f"itq3_matmul {shape}: two calls differ")
             f32_bound[shape] = bound_ms(nbytes, flops)[0]
@@ -660,7 +698,8 @@ def check_itq3(led: Ledger, gen: torch.Generator, dev, weights,
                                                              else 2),
                     peak_ops=PEAK_TF32_FLOPS)
     report["itq3_matmul_f32_core_bound_ms"] = f32_bound
-    main = sum(v for k, v in f32_bound.items() if "rotate=False" in k)
+    main = sum(v for k, v in f32_bound.items()
+               if "rotate=False" in k and "verify" not in k)
     print(f"  itq3_matmul: two calls bit-equal at every shape; bound on the "
           f"f32 CUDA cores over the main-path shapes {main:.4f} ms (the "
           f"rows above: TF32 tensor cores)", flush=True)
@@ -1013,20 +1052,40 @@ def attn_extent(kv_len, q_offset, tq: int, t: int, causal: bool):
     return mask, keys_read, int(mask.sum())
 
 
+# (label, TQ, kv_len and q_offset per slot, causal, keys T). The verify
+# rows are the speculative window's (K = 4, so TQ = 5) over the spec
+# engine's max_len + K = 260-key cache, whose last tile holds 4 keys.
 ATTN_CASES = (
-    ("decode TQ=1", 1, [5, 64, 130, 255], [0, 0, 0, 0], False),
-    ("prefill TQ=64", 64, [64, 74, 164, 256], [0, 10, 100, 192], True),
+    ("decode TQ=1", 1, [5, 64, 130, 255], [0, 0, 0, 0], False, 256),
+    ("prefill TQ=64", 64, [64, 74, 164, 256], [0, 10, 100, 192], True, 256),
+    ("verify TQ=5", 5, [45, 105, 205, 260], [40, 100, 200, 255], True, 260),
 )
 # Untimed edges of the kernel's key splits, per slot (kv_len, q_offset):
 # decode: an empty row, a split boundary (32-key splits), two boundaries,
 # the full cache; prefill (64-key splits): a causally empty query tile
 # (kv_len 0 past offset 0), a limit on a split boundary, query tiles
-# straddling a boundary (rows empty in the second split only), full T.
+# straddling a boundary (rows empty in the second split only), full T;
+# verify (32-key splits over 260 keys): an empty window, a window ending
+# on a boundary, one straddling it, the full cache with its 4-key tail.
 ATTN_EDGES = (
-    ("edges decode TQ=1", 1, [0, 32, 64, 256], [0, 0, 0, 0], False, [0]),
+    ("edges decode TQ=1", 1, [0, 32, 64, 256], [0, 0, 0, 0], False, [0],
+     256),
     ("edges prefill TQ=64", 64, [0, 64, 104, 256], [20, 0, 40, 192], True,
-     [0]),
+     [0], 256),
+    ("edges verify TQ=5", 5, [0, 32, 67, 260], [0, 27, 62, 255], True, [0],
+     260),
 )
+
+
+def _gathered(q, kp, ksp, vp, vsp, kl, off, rows, t: int):
+    """The dense kernel's operands over the first ``t`` keys of the view
+    that a pool-row table gathers (R, MAXB*BS) from pooled planes."""
+    hd = kp.shape[-1]
+    span = rows.shape[1] * kp.shape[1]
+    return (q, kp[rows].reshape(-1, span, hd)[:, :t].contiguous(),
+            ksp[rows].reshape(-1, span)[:, :t].contiguous(),
+            vp[rows].reshape(-1, span, hd)[:, :t].contiguous(),
+            vsp[rows].reshape(-1, span)[:, :t].contiguous(), kl, off)
 
 
 def _bit_equal(a, b) -> bool:
@@ -1042,8 +1101,8 @@ def attn_grid_report(report: dict) -> None:
     """The kernel's grid at phase 3's shapes, and ptxas's registers and
     spills for both instantiations at head_dim 64."""
     grids = {}
-    for label, tq, *_ in ATTN_CASES:
-        tqb, st, grid = attn_grid(12, tq, 3, 256)
+    for label, tq, *_, t in ATTN_CASES:
+        tqb, st, grid = attn_grid(12, tq, 3, t)
         grids[label] = dict(query_tile=tqb, split_keys=32 * st, grid=grid)
         print(f"  attn grid {label}: {grid[0]} splits x {grid[1]} query tiles"
               f" x {grid[2]} rows = {math.prod(grid)} blocks ({32 * st}-key "
@@ -1062,14 +1121,15 @@ def check_attn_edges(gen: torch.Generator, dev, report: dict) -> None:
     """The split edges at phase 3's widths, untimed: dense and paged
     against the plain version (1e-4), paged equal to dense over the
     gathered view, two calls bit-equal, the empty rows exactly
-    m = -1e30, l = 0, acc = 0."""
-    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
-    maxb = t // BLOCK_SIZE
-    table = (1 + torch.randperm(slots * maxb, generator=gen, device=dev)
-             ).reshape(slots, maxb).to(torch.int32)
-    rows = paged_row_table(table, kvh)
+    m = -1e30, l = 0, acc = 0; and ``decode_attn_q8`` under ``auto``
+    raising for three shapes the kernel does not build."""
+    slots, kvh, g, hd = 4, 3, 3, 64
     out = {}
-    for label, tq, lens, offs, causal, empty in ATTN_EDGES:
+    for label, tq, lens, offs, causal, empty, t in ATTN_EDGES:
+        maxb = -(-t // BLOCK_SIZE)
+        table = (1 + torch.randperm(slots * maxb, generator=gen, device=dev)
+                 ).reshape(slots, maxb).to(torch.int32)
+        rows = paged_row_table(table, kvh)
         kv_len = [x for x in lens for _ in range(kvh)]
         q_off = [x for x in offs for _ in range(kvh)]
         pool, kw = _attn_case(gen, dev, r=(slots * maxb + 1) * kvh, tq=1, g=g,
@@ -1081,17 +1141,18 @@ def check_attn_edges(gen: torch.Generator, dev, report: dict) -> None:
         off = torch.tensor(q_off, dtype=torch.int32, device=dev)
         pargs = (q, kp, ksp, vp, vsp, kl, off, rows)
         pkw = dict(kw, block_size=BLOCK_SIZE)
-        dargs = (q, kp[rows].reshape(-1, t, hd).contiguous(),
-                 ksp[rows].reshape(-1, t).contiguous(),
-                 vp[rows].reshape(-1, t, hd).contiguous(),
-                 vsp[rows].reshape(-1, t).contiguous(), kl, off)
+        # the paged kernel against the dense one over the gathered view of
+        # its MAXB blocks; the dense kernel also over the first t keys
+        view = _gathered(q, kp, ksp, vp, vsp, kl, off, rows, maxb * BLOCK_SIZE)
+        dargs = _gathered(q, kp, ksp, vp, vsp, kl, off, rows, t)
         dense, paged = attn_q8(*dargs, **kw), attn_q8_paged(*pargs, **pkw)
+        dense_view = attn_q8(*view, **kw) if view[1].shape[1] != t else dense
         errs = _attn_errs(dense, attn_q8_ref(*dargs, **kw))
         empty_rows = [s * kvh + h for s in empty for h in range(kvh)]
         res = dict(
             rel=errs["rel"],
             paged_vs_dense=max((a - b).abs().max().item()
-                               for a, b in zip(paged, dense)),
+                               for a, b in zip(paged, dense_view)),
             dense_deterministic=_bit_equal(dense, attn_q8(*dargs, **kw)),
             paged_deterministic=_bit_equal(paged,
                                            attn_q8_paged(*pargs, **pkw)),
@@ -1106,6 +1167,20 @@ def check_attn_edges(gen: torch.Generator, dev, report: dict) -> None:
                 and res["dense_deterministic"] and res["paged_deterministic"]
                 and res["empty_exact"]):
             raise AssertionError(f"attn_q8 {label}: {res}")
+    # shapes the kernel does not build: on the card the serving entry
+    # points raise under "auto" too, never serving them plain
+    refused = []
+    for shp in ((4, kvh, g, 1, 256), (4, kvh, g, 1, 16), (4, kvh, 33, 1, hd)):
+        try:
+            decode_attn_q8(torch.zeros(shp, device=dev), {}, None, None,
+                           None, backend="auto")
+        except ValueError:
+            refused.append(shp)
+    print(f"  attn_q8 under auto refuses {len(refused)}/3 shapes the kernel "
+          f"does not build (head_dim 256, 16; 33 query heads)", flush=True)
+    if len(refused) != 3:
+        raise AssertionError(f"attn_q8 auto served unbuilt shapes: {refused}")
+    out["auto_refusals"] = len(refused)
     report["attn_edges"] = out
 
 
@@ -1114,7 +1189,9 @@ def check_attn_edges(gen: torch.Generator, dev, report: dict) -> None:
 # that attn_grid picks, so the choice rests on a measurement.
 ATTN_CUTS = {"decode TQ=1": [(1, 1), (1, 2), (1, 4), (1, 8)],
              "prefill TQ=64": [(10, 1), (10, 2), (10, 4), (10, 8), (5, 1),
-                               (5, 2), (5, 4), (2, 1), (2, 2)]}
+                               (5, 2), (5, 4), (2, 1), (2, 2)],
+             "verify TQ=5": [(5, 1), (5, 2), (5, 3), (5, 5), (5, 9), (3, 1),
+                             (1, 1), (1, 2)]}
 
 
 def attn_cut_sweep(gen: torch.Generator, dev, report: dict,
@@ -1125,11 +1202,11 @@ def attn_cut_sweep(gen: torch.Generator, dev, report: dict,
     the kernel line."""
     from repro_torch.kernels import attn_q8 as attn_mod
 
-    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
+    slots, kvh, g, hd = 4, 3, 3, 64
     chosen = attn_mod.attn_grid
     out = {}
     try:
-        for label, tq, lens, offs, causal in ATTN_CASES:
+        for label, tq, lens, offs, causal, t in ATTN_CASES:
             kv_len = [x for x in lens for _ in range(kvh)]
             q_off = [x for x in offs for _ in range(kvh)]
             args, kw = _attn_case(gen, dev, r=slots * kvh, tq=tq, g=g, hd=hd,
@@ -1161,8 +1238,8 @@ def attn_cut_sweep(gen: torch.Generator, dev, report: dict,
 
 
 def check_attn(led: Ledger, gen: torch.Generator, dev) -> None:
-    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
-    for label, tq, lens, offs, causal in ATTN_CASES:
+    slots, kvh, g, hd = 4, 3, 3, 64
+    for label, tq, lens, offs, causal, t in ATTN_CASES:
         kv_len = [x for x in lens for _ in range(kvh)]
         q_off = [x for x in offs for _ in range(kvh)]
         args, kw = _attn_case(gen, dev, r=slots * kvh, tq=tq, g=g, hd=hd, t=t,
@@ -1174,7 +1251,7 @@ def check_attn(led: Ledger, gen: torch.Generator, dev) -> None:
         mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
         nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
                   + 2 * len(kv_len) * 4 + 2 * (q.numel() // hd) * 4)
-        led.add("attn_q8", f"{label} R=12 G=3 HD=64 T=256",
+        led.add("attn_q8", f"{label} R=12 G=3 HD=64 T={t}",
                 **_attn_errs(got, want),
                 ms=device_ms(lambda: attn_q8(*args, **kw)),
                 plain_ms=device_ms(lambda: attn_q8_ref(*args, **kw)),
@@ -1206,16 +1283,17 @@ def check_attn_paged(led: Ledger, gen: torch.Generator, dev,
                      report: dict) -> None:
     """The paged kernel on phase 3's attention rows, their 256 keys cut
     into 16-key blocks scattered over a shuffled pool (the dense-equivalent
-    pool of 4 x 16 blocks plus the null block): the same bits as the dense
-    kernel over the gathered view, within 1e-4 of the plain version."""
-    slots, kvh, g, hd, t = 4, 3, 3, 64, 256
-    maxb = t // BLOCK_SIZE
-    nb = slots * maxb + 1
-    table = (1 + torch.randperm(slots * maxb, generator=gen, device=dev)
-             ).reshape(slots, maxb).to(torch.int32)
-    rows = paged_row_table(table, kvh)  # (R, MAXB) pool rows
+    pool of 4 x MAXB blocks plus the null block; the verify rows' 260 keys
+    take 17 blocks): the same bits as the dense kernel over the gathered
+    view, within 1e-4 of the plain version."""
+    slots, kvh, g, hd = 4, 3, 3, 64
     exact = {}
-    for label, tq, lens, offs, causal in ATTN_CASES:
+    for label, tq, lens, offs, causal, t in ATTN_CASES:
+        maxb = -(-t // BLOCK_SIZE)
+        nb = slots * maxb + 1
+        table = (1 + torch.randperm(slots * maxb, generator=gen, device=dev)
+                 ).reshape(slots, maxb).to(torch.int32)
+        rows = paged_row_table(table, kvh)  # (R, MAXB) pool rows
         kv_len = [x for x in lens for _ in range(kvh)]
         q_off = [x for x in offs for _ in range(kvh)]
         args, kw = _attn_case(gen, dev, r=nb * kvh, tq=1, g=g, hd=hd,
@@ -1230,21 +1308,21 @@ def check_attn_paged(led: Ledger, gen: torch.Generator, dev,
         got = attn_q8_paged(*pargs, **pkw)
         if not _bit_equal(got, attn_q8_paged(*pargs, **pkw)):
             raise AssertionError(f"attn_q8_paged {label}: two calls differ")
-        dense = (q, kp[rows].reshape(-1, t, hd).contiguous(),
-                 ksp[rows].reshape(-1, t).contiguous(),
-                 vp[rows].reshape(-1, t, hd).contiguous(),
-                 vsp[rows].reshape(-1, t).contiguous(), kl, off)
+        dense = _gathered(q, kp, ksp, vp, vsp, kl, off, rows,
+                          maxb * BLOCK_SIZE)
         vs_dense = attn_q8(*dense, **kw)
         exact[label] = max((a - b).abs().max().item()
                            for a, b in zip(got, vs_dense))
         if exact[label] != 0:
             raise AssertionError(f"attn_q8_paged {label}: differs from the "
                                  f"dense kernel by {exact[label]}")
-        mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
+        mask, keys_read, pairs = attn_extent(kv_len, q_off, tq,
+                                             maxb * BLOCK_SIZE, causal)
         nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
                   + sum(-(-k // BLOCK_SIZE) for k in keys_read) * 4
                   + 2 * len(kv_len) * 4 + 2 * (q.numel() // hd) * 4)
-        led.add("attn_q8_paged", f"{label} R=12 G=3 HD=64 BS=16 MAXB=16",
+        led.add("attn_q8_paged",
+                f"{label} R=12 G=3 HD=64 BS=16 MAXB={maxb}",
                 **_attn_errs(got, attn_q8_paged_ref(*pargs, **pkw)),
                 ms=device_ms(lambda: attn_q8_paged(*pargs, **pkw)),
                 plain_ms=device_ms(lambda: attn_q8_paged_ref(*pargs, **pkw)),
@@ -1292,7 +1370,9 @@ def check_itq3_int8(led: Ledger, gen: torch.Generator, dev, weights,
                            rotate_weights=False,
                            **kw).reshape(n, kpad).T.contiguous()
         for kernel, m, fn in (("itq3_matvec_int8", 4, itq3_matvec_int8),
-                              ("itq3_matmul_int8", 256, itq3_matmul_int8)):
+                              ("itq3_matmul_int8", 256, itq3_matmul_int8),
+                              ("itq3_matmul_int8", VERIFY_M,
+                               itq3_matmul_int8)):
             x = torch.randn(m, kpad, generator=gen, device=dev)
             xq, xs = act_encode(x)
             ones = torch.ones_like(d["scales"])
@@ -1316,7 +1396,8 @@ def check_itq3_int8(led: Ledger, gen: torch.Generator, dev, weights,
             err, rel = rel_err(run(), plain())
             xdec = act_decode(xq, xs)
             nbytes = m * kpad + m * 4 + weight_bytes(qt) + m * n * 4
-            led.add(kernel, f"{name} M={m}", err=err, rel=rel,
+            led.add(kernel, f"{name} M={m}" + (" verify" if m == VERIFY_M
+                                               else ""), err=err, rel=rel,
                     ms=device_ms(run), plain_ms=device_ms(plain),
                     library_ms=device_ms(lambda xdec=xdec: xdec @ w),
                     nbytes=nbytes, flops=2 * m * n * kpad,
@@ -2272,6 +2353,319 @@ def chaos_phase(dev, report: dict, cfg) -> None:
                            counters_repeat=same_counters)
 
 
+# --- phase 10: speculative decoding ------------------------------------------
+
+# Phase 10 (b)'s self-draft depth; (d)'s windows: SPEC_WINDOWS seeded
+# (4, K+1, vocab) windows of mixed knobs (two greedy rows among sampled
+# ones), each slot's (out, n) from the card against the CPU's. Only a
+# last-bit difference of the residual draw's f32 log, or of a softmax sum
+# at an acceptance boundary, may move one.
+SPEC_SMALL_DRAFT = 4
+SPEC_WINDOWS, SPEC_MIN_EQUAL = 1000, 999
+SPEC_ROWS = [(0.8, 0, 1.0), (0.0, 0, 1.0), (1.0, 40, 0.9), (1.3, 0, 0.95)]
+
+
+def spec_kw(params, cfg, depth: int, **kw) -> dict:
+    """Engine arguments of a ``depth``-layer self-draft with K = SPEC_K."""
+    from repro_torch.serve import spec
+
+    dparams, dcfg = spec.draft_from_params(params, cfg, depth)
+    return dict(draft_params=dparams, draft_cfg=dcfg,
+                num_draft_tokens=SPEC_K, **kw)
+
+
+def check_spec_serving(label, eng, reqs, wall, counts, cfg, depth: int, *,
+                       attn="attn_q8") -> dict:
+    """Hold a counted speculative run to its contract: every request
+    finishes with ``length``, no quarantine, one host sync per window and
+    per wave, and each kernel launched exactly as the window dictates. Per
+    window: the draft's K decode steps and its ``advance_cache`` (K+1
+    token passes of ``depth`` layers: per layer 7 fused matvecs, the
+    query and output FWHTs, one ``fwht_kv_encode``, one dense
+    ``attn_q8``), then the target's verify pass over 4 x (K+1) rows
+    (per layer 7 matmuls after 7 256-point FWHTs, the two head_dim FWHTs,
+    one ``fwht_kv_encode``, one ``attn``). Per wave: the target's prefill
+    and the draft's, prefill-shaped. Returns the run's numbers."""
+    st = eng.stats()
+    bad = [r.rid for r in reqs if r.finish_reason != "length"
+           or len(r.out) != MAX_NEW]
+    if bad or st["quarantined"]:
+        raise AssertionError(f"{label}: requests {bad} did not finish with "
+                             f"length, or a slot was quarantined")
+    hd = cfg.resolved_head_dim
+
+    def token_pass(per, layers, contraction, attention, rotate256):
+        per[contraction] += 7 * layers
+        per[f"fwht/{hd}"] += 2 * layers
+        per[f"fwht_kv/{hd}"] += layers
+        per[attention] += layers
+        if rotate256:
+            per["fwht/256"] += 7 * layers
+
+    per_window, per_wave = collections.Counter(), collections.Counter()
+    for _ in range(SPEC_K + 1):
+        token_pass(per_window, depth, "itq3_matvec", "attn_q8", False)
+    token_pass(per_window, cfg.num_layers, "itq3_matmul", attn, True)
+    token_pass(per_wave, cfg.num_layers, "itq3_matmul", attn, True)
+    token_pass(per_wave, depth, "itq3_matmul", "attn_q8", True)
+    windows, waves = st["spec_steps"], st["prefill_waves"]
+    expected = {k: per_window[k] * windows + per_wave[k] * waves
+                for k in per_window | per_wave}
+    if counts is not None and counts != expected:
+        raise AssertionError(f"{label}: launches {counts} != expected "
+                             f"{expected}")
+    if st["host_syncs"] != windows + waves or windows != st["decode_steps"]:
+        raise AssertionError(f"{label}: host syncs {st['host_syncs']} != "
+                             f"windows {windows} + waves {waves}")
+    committed = sum(r.accepted + r.spec_windows for r in reqs)
+    if not (st["tokens_decoded"] <= committed
+            and st["draft_accepted"] == sum(r.accepted for r in reqs)
+            and st["draft_proposed"] == sum(r.drafted for r in reqs)):
+        raise AssertionError(f"{label}: window counters disagree: {st}")
+    out = dict(
+        wall_s=wall, launches=counts, stats=st,
+        windows=windows, waves=waves,
+        acceptance_rate=st["acceptance_rate"],
+        tokens_per_window=st["tokens_decoded"] / windows,
+        ms_per_window=1e3 * st["decode_seconds"] / windows,
+        ms_per_token=1e3 * st["decode_seconds"] / st["tokens_decoded"],
+        launches_per_window=dict(per_window),
+        launches_per_wave=dict(per_wave),
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    print(f"  {label}: {windows} windows, {waves} waves, acceptance "
+          f"{st['draft_accepted']}/{st['draft_proposed']} = "
+          f"{st['acceptance_rate']:.4f}, {out['tokens_per_window']:.3f} tokens"
+          f" per window over 4 slots, {out['ms_per_window']:.1f} ms/window, "
+          f"{out['ms_per_token']:.2f} ms per committed token, "
+          f"{st['host_syncs']} host syncs, peak memory "
+          f"{out['peak_mem_bytes'] / 2**20:.0f} MiB", flush=True)
+    if counts is not None:
+        print(f"  launches per window {dict(per_window)}, per wave "
+              f"{dict(per_wave)}: exact", flush=True)
+    return out
+
+
+def check_perfect_acceptance(run: dict, reqs, parted: list) -> None:
+    """The perfect draft is the target, so every proposal is accepted and
+    each wave takes ceil((MAX_NEW - 1) / (K + 1)) windows (the prefill
+    emits the first token). A request may fall short only where a printed
+    parting (a top-2 tie within ``LOGITS_REL_TOL``, already held) explains
+    it: the draft's decode kernels and the verify kernels then chose
+    different tokens."""
+    st = run["stats"]
+    want = run["waves"] * -(-(MAX_NEW - 1) // (SPEC_K + 1))
+    short = {r.rid: (r.accepted, r.drafted) for r in reqs
+             if r.accepted != r.drafted}
+    unexplained = sorted(set(short) - {p["rid"] for p in parted})
+    print(f"  perfect draft: {st['draft_accepted']}/{st['draft_proposed']} "
+          f"accepted, {run['windows']} windows (want {want})"
+          + (f"; short of full acceptance {short}" if short else ""),
+          flush=True)
+    if unexplained or (not short and run["windows"] != want):
+        raise AssertionError(f"perfect draft: requests {unexplained} rejected"
+                             f" a proposal with no tie to explain it, or "
+                             f"{run['windows']} windows != {want}")
+
+
+def decode_margin(params, cfg, prompt, stream, j: int, dev) -> float:
+    """The non-speculative path's top-2 logit margin at stream position
+    ``j``, over the largest logit: the prompt prefilled and the stream's
+    first ``j`` tokens decoded through the kernels, one step at a time."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+
+    rt = Runtime(kv_quant=True)
+    cache = lm.init_cache(cfg, 1, MAX_LEN, kv_quant=True, device=dev)
+    logits, cache = lm.forward(params, prompt[None], rt, cfg, cache=cache,
+                               pos=0, last_only=True)
+    for i in range(j):
+        logits, cache = lm.decode_step(params, [[stream[i]]], cache,
+                                       torch.tensor([len(prompt) + i],
+                                                    device=dev), rt, cfg)
+    row = logits[0, 0].float()
+    top = row.topk(2).values
+    return float((top[0] - top[1]) / row.abs().max())
+
+
+def partings(params, cfg, reqs, other, dev) -> list:
+    """Each request whose stream parts from ``other``'s: the first
+    differing position and the non-speculative path's top-2 margin there
+    (relative to the largest logit)."""
+    out = []
+    for r, o in zip(reqs, other):
+        j = next((i for i, (a, b) in enumerate(zip(r.out, o.out)) if a != b),
+                 None)
+        if j is not None:
+            out.append(dict(rid=r.rid, position=j, spec=r.out[j],
+                            non_spec=o.out[j], margin=decode_margin(
+                                params, cfg, r.prompt, o.out, j, dev)))
+    return out
+
+
+def check_verify_on_card(dev, vocab: int) -> dict:
+    """SPEC_WINDOWS / 4 seeded batches of 4 windows at (4, K+1, ``vocab``):
+    the acceptance uniforms drawn on the card bit-equal to the CPU's, and
+    ``verify_commit`` on the card (the port's kernel-free ops on CUDA
+    tensors) against the CPU on every window's committed tokens and
+    count."""
+    from repro_torch.core import prng
+    from repro_torch.models import lm
+    from repro_torch.serve import spec
+
+    rng = np.random.default_rng(31)
+    rows, k1 = len(SPEC_ROWS), SPEC_K + 1
+    temp = torch.tensor([r[0] for r in SPEC_ROWS])
+    top_k = torch.tensor([r[1] for r in SPEC_ROWS])
+    top_p = torch.tensor([r[2] for r in SPEC_ROWS])
+    uni_equal, equal, diffs = True, 0, []
+    for d in range(SPEC_WINDOWS // rows):
+        logits = torch.from_numpy(
+            (rng.standard_normal((rows, k1, vocab)) * 3).astype(np.float32))
+        draft = logits[:, :SPEC_K] + torch.from_numpy(
+            rng.standard_normal((rows, SPEC_K, vocab)).astype(np.float32))
+        qlog = lm.top_mask(
+            (draft / temp.clamp_min(1e-6)[:, None, None]).reshape(-1, vocab),
+            top_k.repeat_interleave(SPEC_K),
+            top_p.repeat_interleave(SPEC_K)).reshape(rows, SPEC_K, vocab)
+        q = torch.softmax(qlog, dim=-1).double().numpy()
+        cand = np.zeros((rows, k1), np.int32)
+        cand[:, 0] = rng.integers(0, vocab, rows)
+        for s in range(rows):
+            for w in range(SPEC_K):
+                cand[s, w + 1] = (int(logits[s, w].argmax()) if temp[s] <= 0
+                                  and rng.random() < 0.7 else
+                                  rng.choice(vocab, p=q[s, w] / q[s, w].sum()))
+        kvec = torch.from_numpy(rng.integers(0, SPEC_K + 1, rows,
+                                             dtype=np.int64).astype(np.int32))
+        keys = rng.integers(0, 2**32, (rows, 2), dtype=np.uint64
+                            ).astype(np.int64)
+        gen = rng.integers(0, 200, rows)
+        if d < 8:  # the uniforms drawn on the card, exactly
+            tagged = prng.fold_in(torch.as_tensor(keys, device=dev),
+                                  spec.ACCEPT_TAG)
+            idx = torch.as_tensor(gen, device=dev)[:, None] + torch.arange(
+                SPEC_K, device=dev)
+            card_u = prng.uniform(prng.fold_in(tagged[:, None], idx), ())
+            uni_equal &= torch.equal(card_u.cpu(),
+                                     spec.accept_uniforms(keys, gen, SPEC_K))
+        args = dict(keys=keys, gen=gen)
+        cpu = spec.verify_commit(logits, torch.from_numpy(cand), kvec,
+                                 temp=temp, top_k=top_k, top_p=top_p,
+                                 qlog=qlog, **args)
+        card = spec.verify_commit(
+            logits.to(dev), torch.from_numpy(cand).to(dev), kvec.to(dev),
+            temp=temp.to(dev), top_k=top_k.to(dev), top_p=top_p.to(dev),
+            qlog=qlog.to(dev), **args)
+        card = [c.cpu() for c in card]
+        for s in range(rows):
+            n = int(cpu[1][s])
+            same = (int(card[1][s]) == n
+                    and torch.equal(card[0][s, :n], cpu[0][s, :n]))
+            equal += same
+            if not same:
+                diffs.append(dict(batch=d, row=s, cpu=cpu[0][s, :n].tolist(),
+                                  card=card[0][s, :int(card[1][s])].tolist()))
+    total = rows * (SPEC_WINDOWS // rows)
+    print(f"  verify_commit on the card: acceptance uniforms "
+          f"{'equal' if uni_equal else 'DIFFER'} to the CPU's; (out, n) equal "
+          f"on {equal}/{total} seeded windows of ({rows}, {k1}, {vocab})"
+          + "".join(f"; batch {x['batch']} row {x['row']}: cpu {x['cpu']} "
+                    f"card {x['card']}" for x in diffs), flush=True)
+    if not uni_equal or equal < SPEC_MIN_EQUAL * total // SPEC_WINDOWS:
+        raise AssertionError(f"verify_commit: uniforms equal {uni_equal}, "
+                             f"windows equal {equal}/{total}")
+    return dict(uniforms_equal=uni_equal, windows_equal=equal,
+                windows=total, differences=diffs)
+
+
+def spec_phase(dev, report: dict, cfg, dense_reqs) -> dict:
+    """Phase 10: speculative serving of phase 4's model and requests
+    (float path, ``kv_quant``, 4 slots, K = SPEC_K). Returns the counted
+    perfect-draft run's launches."""
+    params = float_path_params(cfg, dev)
+    prompts = make_prompts(cfg)
+    perfect = spec_kw(params, cfg, cfg.num_layers)
+    out: dict = {}
+
+    # (a) the perfect draft: the full-depth self-draft is the target
+    serve_run(params, cfg, prompts, dev, count=False, engine_kw=perfect)
+    eng, reqs, wall, counts = serve_run(params, cfg, prompts, dev,
+                                        count=True, engine_kw=perfect)
+    print(f"phase 10 (a): speculative, {cfg.num_layers}-layer self-draft "
+          f"(the target), K = {SPEC_K}", flush=True)
+    out["perfect"] = check_spec_serving("perfect draft", eng, reqs, wall,
+                                        counts, cfg, cfg.num_layers)
+    parted = partings(params, cfg, reqs, dense_reqs, dev)
+    same, total = agreement(reqs, dense_reqs)
+    out["perfect"].update(agreement_with_phase4=(same, total), partings=parted)
+    print(f"  greedy streams: {same}/{total} tokens equal to phase 4's counted"
+          f" run" + "".join(f"; rid {p['rid']} parts at {p['position']} "
+                            f"({p['spec']} vs {p['non_spec']}), top-2 margin "
+                            f"{p['margin']:.2e} of the largest logit"
+                            for p in parted), flush=True)
+    if any(p["margin"] > LOGITS_REL_TOL for p in parted):
+        raise AssertionError(f"speculative streams part from phase 4's "
+                             f"beyond a tie: {parted}")
+    check_perfect_acceptance(out["perfect"], reqs, parted)
+    del eng
+
+    # (b) a 4-layer self-draft, in turns with phase 4's engine
+    small = spec_kw(params, cfg, SPEC_SMALL_DRAFT)
+    turns: dict = {"non_spec": [], "spec": []}
+    runs = {}
+    for label in ("non_spec", "spec", "spec", "non_spec"):
+        e, rs, w, _ = serve_run(params, cfg, prompts, dev, count=False,
+                                engine_kw=small if label == "spec" else None)
+        es = e.stats()
+        turns[label].append(1e3 * es["decode_seconds"] / es["tokens_decoded"])
+        runs[label] = (e, rs, w)
+    e, rs, w = runs["spec"]
+    out["small"] = check_spec_serving(
+        f"{SPEC_SMALL_DRAFT}-layer draft", e, rs, w, None, cfg,
+        SPEC_SMALL_DRAFT)
+    out["small"]["turns_ms_per_token"] = turns
+    same, total = agreement(rs, dense_reqs)
+    out["small"]["agreement_with_phase4"] = (same, total)
+    print(f"  in turns (non-spec, spec, spec, non-spec): ms per committed "
+          f"token non-spec {turns['non_spec'][0]:.2f} / "
+          f"{turns['non_spec'][1]:.2f}, {SPEC_SMALL_DRAFT}-layer draft "
+          f"{turns['spec'][0]:.2f} / {turns['spec'][1]:.2f}; {same}/{total} "
+          f"tokens equal to phase 4's", flush=True)
+    del runs, e
+
+    # (c) the perfect draft on the paged path (dense-equivalent pool)
+    paged_kw = dict(perfect, paged=True, block_size=BLOCK_SIZE)
+    serve_run(params, cfg, prompts, dev, count=False, engine_kw=paged_kw)
+    peng, preqs, pwall, pcounts = serve_run(params, cfg, prompts, dev,
+                                            count=True, engine_kw=paged_kw)
+    print(f"phase 10 (c): the perfect draft on the paged path, "
+          f"{peng.stats()['pool_blocks']} blocks x {BLOCK_SIZE}", flush=True)
+    out["paged"] = check_spec_serving("paged perfect draft", peng, preqs,
+                                      pwall, pcounts, cfg, cfg.num_layers,
+                                      attn="attn_q8_paged")
+    same, total = agreement(preqs, reqs)
+    held = peng.stats()["pool_blocks_used"]
+    peng.pool.check(peng._table)
+    out["paged"].update(agreement_with_dense_spec=(same, total),
+                        blocks_held=held)
+    print(f"  streams: {same}/{total} tokens equal to (a)'s; {held} blocks "
+          f"held at the end; pool.check passes", flush=True)
+    if same != total or held:
+        raise AssertionError("paged speculative streams differ from the "
+                             "dense ones, or blocks are still held")
+    if (out["paged"]["windows"] != out["perfect"]["windows"]
+            or [(r.accepted, r.drafted) for r in preqs]
+            != [(r.accepted, r.drafted) for r in reqs]):
+        raise AssertionError("paged perfect draft: windows or per-request "
+                             "acceptance differ from (a)'s")
+
+    # (d) verify_commit on the card against the CPU
+    print("phase 10 (d): verify_commit, card against CPU", flush=True)
+    out["verify_vs_cpu"] = check_verify_on_card(dev, cfg.vocab_size)
+    report["spec"] = out
+    return counts
+
+
 def profile_phase(run, report: dict, key: str = "profile",
                   table: Path = TABLE) -> None:
     """With ``--profile``: one shorter kernel-path serving run (``run()``,
@@ -2396,6 +2790,7 @@ def main(argv=None) -> int:
         sampled_phase(dev, report, cfg, w3a8_reqs)
         chaos_phase(dev, report, cfg)
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        report["spec_launches"] = spec_phase(dev, report, cfg, dense_reqs)
 
     # kernel -> (source, the TPU kernel it replaces)
     kernel_table = {
@@ -2419,13 +2814,15 @@ def main(argv=None) -> int:
     kernels = []
     for name, (source, replaces) in kernel_table.items():
         s = led.summary(name)
+        v = led.summary(name, verify=True)
         kernels.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{source}.cu",
             replaces=replaces, launches=int(counts.get(name, 0)),
             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
             bound_ms=s["bound_ms"], bound_by=s["bound_by"],
             library_ms=s["library_ms"], shapes=s["shapes"],
-            **({"chain_ms": s["chain_ms"]} if "chain_ms" in s else {})))
+            **({"chain_ms": s["chain_ms"]} if "chain_ms" in s else {}),
+            **({"verify": v} if v else {})))
     report["kernels"] = kernels
     DETAILS.parent.mkdir(parents=True, exist_ok=True)
     DETAILS.write_text(json.dumps(report, indent=1, default=str))

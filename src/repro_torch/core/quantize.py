@@ -116,6 +116,12 @@ class QTensor:
         return QTensor({k: (v if k == "dsign" and v.dim() == 1 else v[i])
                         for k, v in self.data.items()}, self.meta)
 
+    def first_layers(self, n: int) -> "QTensor":
+        """The first ``n`` layers of a stacked leaf (views, no copy); a 1-D
+        ``dsign`` is shared by every layer and kept whole."""
+        return QTensor({k: (v if k == "dsign" and v.dim() == 1 else v[:n])
+                        for k, v in self.data.items()}, self.meta)
+
 
 # ---------------------------------------------------------------------------
 # Shape plumbing: (..., K, N) <-> output-major blocks (..., N, KB, block)

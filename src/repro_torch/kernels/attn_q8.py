@@ -14,7 +14,8 @@ version :func:`attn_q8_paged_ref`) is the same kernel over a block pool
 (``serve/paged.py``): key ``t`` of row ``i`` lies in pool row
 ``table[i, t // BS]`` at offset ``t % BS``. :func:`decode_attn_q8` and
 :func:`prefill_attn_q8` are the serving entry points: they rotate q, call
-the kernel (or, with ``backend="ref"``, the plain versions
+the kernel (or, with ``backend="ref"``, and under ``"auto"`` on CPU
+tensors for a shape :func:`kernel_supported` refuses, the plain versions
 :func:`decode_attn_q8_ref` / :func:`prefill_attn_q8_ref`, over
 :func:`paged_to_dense` of a paged cache), merge the decode self token,
 normalize and apply the final inverse FWHT. Both rotations run in the FWHT
@@ -43,7 +44,8 @@ from repro_torch.kernels.fwht import fwht_last
 __all__ = ["attn_q8", "attn_q8_ref", "attn_q8_split_ref", "attn_q8_paged",
            "attn_q8_paged_ref", "attn_grid", "decode_attn_q8",
            "decode_attn_q8_ref", "prefill_attn_q8", "prefill_attn_q8_ref",
-           "paged_row_table", "paged_to_dense", "ATTN_BACKENDS"]
+           "paged_row_table", "paged_to_dense", "kernel_supported",
+           "ATTN_BACKENDS"]
 
 NEG_INF = -1e30
 ATTN_BACKENDS = ("auto", "ref", "cuda")
@@ -331,12 +333,34 @@ def _merge_self_token(acc, m, l, s_self, v_self):
     return (acc * alpha + p_self * v_self) / l_tot
 
 
+def kernel_supported(head_dim: int, g: int) -> bool:
+    """The kernel's shape gate, static shapes only: a power-of-two
+    head_dim in [32, 128] and at most ``ROWS_PER_BLOCK`` query heads per KV
+    head."""
+    return is_pow2(head_dim) and 32 <= head_dim <= 128 and g <= ROWS_PER_BLOCK
+
+
 def _use_kernel(backend: str, x: torch.Tensor) -> bool:
+    """Kernel pass or plain path for q (B, KV, G, TQ, HD). ``auto`` takes
+    the plain path for a shape the kernel does not build only on CPU
+    tensors, as the reference's ``auto`` does; on any other device, and
+    under ``cuda``, such a shape raises. The gate reads the static shapes
+    and the device only, never the outcome of a build or a launch."""
     if backend not in ATTN_BACKENDS:
         raise ValueError(f"backend {backend!r} not in {ATTN_BACKENDS}")
+    if backend == "ref":
+        return False
+    g, hd = x.shape[2], x.shape[-1]
+    if not kernel_supported(hd, g):
+        if backend == "auto" and x.device.type == "cpu":
+            return False
+        raise ValueError(f"attn_q8: head_dim {hd} with {g} query heads per "
+                         f"KV head; the kernel builds a power-of-two head_dim"
+                         f" in [32, 128] and at most {ROWS_PER_BLOCK} query "
+                         f"heads")
     if backend == "cuda" and not x.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors")
-    return backend != "ref"
+    return True
 
 
 def decode_attn_q8_ref(q_rot, k_codes, k_scale, v_codes, v_scale, kv_len, *,
@@ -418,9 +442,10 @@ def decode_attn_q8(q, cache, k_tok, v_tok, kv_len, *, backend: str = "auto"):
     in the kernel; the self term merges here. Returns (B, KV, G, 1, HD)."""
     b, kv, g, _, hd = q.shape
     sm_scale = 1.0 / math.sqrt(hd)
+    kernel = _use_kernel(backend, q)
     q_rot = fwht_last(q[..., 0, :].to(torch.float32),
                       backend=backend)  # (B, KV, G, HD)
-    if _use_kernel(backend, q):
+    if kernel:
         acc, m, l = _kernel_pass(q_rot.reshape(b * kv, 1, g, hd), cache,
                                  kv_len, None, kv=kv,
                                  sm_scale=sm_scale, causal=False)
@@ -454,9 +479,10 @@ def prefill_attn_q8(q, cache, kv_len, q_offset, *, backend: str = "auto"):
     (B, KV, G, TQ, HD) with the rotation undone."""
     b, kv, g, tq, hd = q.shape
     sm_scale = 1.0 / math.sqrt(hd)
+    kernel = _use_kernel(backend, q)
     q_rot = fwht_last(q.transpose(2, 3).to(torch.float32),
                       backend=backend)  # (B, KV, TQ, G, HD)
-    if _use_kernel(backend, q):
+    if kernel:
         acc, _, l = _kernel_pass(q_rot.reshape(b * kv, tq, g, hd), cache,
                                  kv_len, q_offset, kv=kv, sm_scale=sm_scale,
                                  causal=True)

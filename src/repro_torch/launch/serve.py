@@ -34,6 +34,13 @@ still ends with a finish reason:
     ... --kv-quant --chaos --stream --scheduler priority --max-queue 4 \
         --shed-policy shed_lowest
 
+Speculative decoding with a self-draft (an N-layer prefix of the target
+sharing its embedding and head): each decode tick becomes a window of
+``--num-draft-tokens`` proposals verified in one target pass; greedy
+token ids equal the non-speculative run's:
+
+    ... --kv-quant --draft-depth 2 --num-draft-tokens 4
+
 On a CUDA device every quantized projection, activation rotation, int8
 contraction and q8-cache attention runs on the hand-written kernels in
 ``csrc/``, and the quantizer's ``itq3_s`` blocks go through the
@@ -61,6 +68,7 @@ from repro_torch.serve.engine import Request, SamplingParams, ServeEngine
 from repro_torch.serve.quantized import (
     QuantPolicy, describe_quantized, quantize_params, quantized_bytes,
 )
+from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.scheduler import SCHEDULERS
 
 
@@ -144,6 +152,16 @@ def main(argv=None) -> None:
                          "clock skip + stall): every failure drains to a "
                          "terminal finish reason")
     ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--draft-depth", type=int, default=0,
+                    help="speculative decoding with a self-draft: serve "
+                         "with an N-layer prefix of the target as the "
+                         "draft model (0 = off). The decode tick becomes "
+                         "propose/verify/commit; greedy streams stay "
+                         "bit-identical to non-speculative serving")
+    ap.add_argument("--num-draft-tokens", type=int, default=4,
+                    help="speculative window size K: draft proposes K "
+                         "tokens per slot per step, one batched target "
+                         "pass verifies all K+1 positions")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -174,10 +192,11 @@ def main(argv=None) -> None:
         shed_policy=args.shed_policy,
         watchdog_timeout_s=args.watchdog_timeout_s, faults=faults,
         paged=args.paged, num_blocks=args.num_blocks,
-        block_size=args.block_size)
+        block_size=args.block_size, num_draft_tokens=args.num_draft_tokens)
     if args.load_quantized:
         t0 = time.perf_counter()
         eng = ServeEngine.from_checkpoint(args.load_quantized, cfg,
+                                          draft_depth=args.draft_depth,
                                           **engine_kw)
         step = ckpt_mod.latest_step(args.load_quantized)
         print(f"loaded quantized step-{step} tree from {args.load_quantized} "
@@ -202,7 +221,11 @@ def main(argv=None) -> None:
         if args.save_quantized:
             path = ckpt_mod.save(args.save_quantized, 0, params)
             print(f"saved quantized tree to {path}")
-        eng = ServeEngine(params, cfg, **engine_kw)
+        eng = ServeEngine(params, cfg, **engine_kw,
+                          **_draft_kw(params, cfg, args.draft_depth))
+    if eng.spec:
+        print(f"speculative decoding: {args.draft_depth}-layer self-draft, "
+              f"K={args.num_draft_tokens} tokens/window")
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}")
     if args.paged:
         st0 = eng.stats()
@@ -248,6 +271,11 @@ def main(argv=None) -> None:
           f"scheduler={st['scheduler']}, "
           f"cache {st['cache_bytes'] / 1e6:.1f} MB, "
           f"{st['cache_bytes_per_token']:.0f} B/token)")
+    if args.draft_depth:
+        print(f"speculation: acceptance {st['acceptance_rate']:.1%} "
+              f"({st['draft_accepted']}/{st['draft_proposed']} drafts), "
+              f"{st['tokens_per_step']:.2f} tokens/step over "
+              f"{st['spec_steps']} windows")
     if args.paged:
         print(f"paged: {st['preemptions']} preemptions, {st['resumes']} "
               f"resumes, {st['prefix_hits']} prefix hits, "
@@ -263,6 +291,14 @@ def main(argv=None) -> None:
             print(f"fault log: {faults.log}")
     for r in done[:3]:
         print(f"  rid={r.rid} -> {r.out[:10]}")
+
+
+def _draft_kw(params, cfg, depth: int) -> dict:
+    """The engine's draft arguments for ``--draft-depth`` (none when 0)."""
+    if not depth:
+        return {}
+    dparams, dcfg = spec_mod.draft_from_params(params, cfg, depth)
+    return dict(draft_params=dparams, draft_cfg=dcfg)
 
 
 def _leaves(tree):

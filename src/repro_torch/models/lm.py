@@ -32,7 +32,8 @@ from repro_torch.models.layers import (
 Params = dict[str, Any]
 
 __all__ = ["init_params", "init_cache", "forward", "decode_step",
-           "finite_rows", "top_mask", "sample_tokens", "layer_params"]
+           "score_tokens", "advance_cache", "finite_rows", "top_mask",
+           "sample_tokens", "layer_params"]
 
 
 def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
@@ -213,10 +214,33 @@ def decode_step(params: Params, tokens, cache: Params, pos, rt: Runtime,
                 cfg):
     """One autoregressive step against the cache. ``pos`` (B,) or scalar:
     per-row write index. Returns (logits (B, 1, V), cache)."""
+    return score_tokens(params, tokens, cache, pos, rt, cfg)
+
+
+def score_tokens(params: Params, tokens, cache: Params, pos, rt: Runtime,
+                 cfg):
+    """Score a T-token window per row against the cache in one forward
+    (the speculative verify pass). Token ``t`` is written at ``pos + t``
+    and attends causally to everything at or before it, so ``logits[:, t]``
+    is the next-token distribution after ``tokens[:, :t+1]``; under
+    ``kv_quant`` the span runs one ``prefill_attn_q8`` per layer. Returns
+    (logits (B, T, V), cache)."""
     tokens = _tokens(tokens, params)
     x = _embed(params, tokens)
     x, cache = _run_decoder(params, x, rt, cfg, cache=cache, pos=pos)
     return _head(params, x, rt, cfg), cache
+
+
+def advance_cache(params: Params, tokens, cache: Params, pos, rt: Runtime,
+                  cfg) -> Params:
+    """Append a token span to the cache at ``pos`` with no head: the
+    draft's last propose step (position ``pos + K``, so a fully accepted
+    window leaves no hole) and its admission prefill. Returns the
+    cache."""
+    tokens = _tokens(tokens, params)
+    _, cache = _run_decoder(params, _embed(params, tokens), rt, cfg,
+                            cache=cache, pos=pos)
+    return cache
 
 
 def finite_rows(logits: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,10 @@ Hot-path discipline, as in the reference:
   is the reference's measured baseline: logits rows fetched one per live
   slot and argmaxed on the host.
 * **In-place cache.** The cache is allocated once; decode writes one
-  token slice per layer into it (the reference's donated buffers).
+  token slice per layer into it (the reference's donated buffers). No
+  path reallocates it, so after the first step ``cache_donated`` is True
+  and ``cache_bytes_moved`` stays 0 (the tests hold every cache leaf's
+  ``data_ptr()`` across waves and steps).
 * **One call per admission wave.** All free slots are admitted together:
   prompts are padded to one shared ``prompt_pad`` bucket, prefilled into a
   zeroed sub-cache that is copied into the admitted slots (paged: straight
@@ -63,8 +66,25 @@ StreamEvent with its finish reason):
   ``FaultPlan``: its ``before_decode`` runs at the top of each decode step
   and, without an explicit ``clock``, the engine reads the plan's.
 
-Speculative decoding (``draft_params``) and tensor-parallel meshes
-(``mesh``) land with later slices and raise ``NotImplementedError``.
+Speculative decoding (``draft_params``, ``draft_cfg``,
+``num_draft_tokens``; ``serve/spec.py``): the decode tick becomes a
+propose / verify / commit window. The draft (often a layer prefix of the
+target, ``spec.draft_from_params``) proposes K candidates per slot from its
+own dense cache; one ``lm.score_tokens`` pass runs the target over the K+1
+window positions (under ``kv_quant`` one ``prefill_attn_q8`` per layer,
+dense or paged); ``spec.verify_commit`` picks each slot's accepted prefix
+and one window-end token on the device, and the whole (S, K+1) window and
+the (S,) counts come back in one transfer. The caches are ``max_len + K``
+positions long (paged: the table that wide), so a verify span never
+clamps; paged slots grow their chains by their window before it. Greedy
+streams equal the non-speculative engine's; a slot with ``draft=False``
+or ``draft_tokens=0`` rides the window with no proposal and commits the
+non-speculative stream, sampled ones included. Deadlines, cancellation,
+preemption (the draft's rows ride the swap entry) and quarantine land at
+window boundaries.
+
+Tensor-parallel meshes (``mesh``) land with a later slice and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -81,6 +101,7 @@ from repro_torch.ft.monitor import HeartbeatMonitor
 from repro_torch.models import lm
 from repro_torch.models.layers import Runtime
 from repro_torch.serve import paged as paged_mod
+from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.sampling import (
     FINISH_CANCELLED, FINISH_DEADLINE, FINISH_ERROR, FINISH_LENGTH,
     FINISH_REJECTED, FINISH_STOP, SamplingParams, StreamEvent,
@@ -92,10 +113,7 @@ __all__ = ["Request", "ServeEngine", "SamplingParams", "StreamEvent"]
 # In-band numeric-health sentinel (token ids are always >= 0).
 _POISONED = -1
 
-_LATER = {
-    "draft_params": "the speculative-decoding slice (ROADMAP Queue 1 item 4)",
-    "mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)",
-}
+_LATER = {"mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)"}
 
 
 @dataclasses.dataclass
@@ -113,6 +131,10 @@ class Request:
     done: bool = False
     finish_reason: Optional[str] = None
     preemptions: int = 0  # times this request was swapped out mid-flight
+    # --- speculative accounting (filled by the engine) ---
+    drafted: int = 0       # draft tokens proposed for this request
+    accepted: int = 0      # of those, tokens the verifier committed
+    spec_windows: int = 0  # propose / verify / commit windows executed
     # --- lifecycle stamps (engine clock seconds, filled by the engine) ---
     t_submit: Optional[float] = None
     t_admit: Optional[float] = None
@@ -132,6 +154,10 @@ class Request:
             out["decode_tok_s"] = (n - 1) / dt if dt > 0 else float("inf")
         if self.preemptions:
             out["preemptions"] = self.preemptions
+        if self.drafted:
+            out["draft_proposed"] = self.drafted
+            out["draft_accepted"] = self.accepted
+            out["acceptance_rate"] = self.accepted / self.drafted
         return out
 
 
@@ -147,13 +173,42 @@ class ServeEngine:
                  shed_policy: str = "reject",
                  watchdog_timeout_s: Optional[float] = None, faults=None,
                  paged: bool = False, num_blocks: Optional[int] = None,
-                 block_size: int = 16, draft_params=None, mesh=None):
-        for name, value in (("draft_params", draft_params), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(f"{name}: lands with {_LATER[name]}")
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: this slice serves the dense family")
+                 block_size: int = 16, draft_params=None, draft_cfg=None,
+                 draft_rt: Optional[Runtime] = None,
+                 num_draft_tokens: int = 4, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(f"mesh: lands with {_LATER['mesh']}")
+        # --- speculative decoding (serve/spec.py), refused as the
+        # reference refuses it ---
+        self.spec = draft_params is not None
+        if self.spec:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs a draft_cfg")
+            if sample_on_host:
+                raise ValueError(
+                    "sample_on_host is the measured baseline; speculative "
+                    "decoding needs on-device sampling (the accept/commit "
+                    "decision rides the window's one token transfer)")
+            if num_draft_tokens < 1:
+                raise ValueError(
+                    f"num_draft_tokens must be >= 1, got {num_draft_tokens}")
+            for c, role in ((cfg, "target"), (draft_cfg, "draft")):
+                if c.family not in ("dense", "vlm", "moe"):
+                    raise ValueError(
+                        f"speculative decoding needs pure-attention "
+                        f"families (dense/vlm/moe); the {role} is "
+                        f"{c.family!r}: recurrent state cannot roll back a "
+                        f"rejected window")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: acceptance compares distributions "
+                    f"over the same token ids")
+        for c in (cfg, draft_cfg) if self.spec else (cfg,):
+            if c.family != "dense":
+                raise NotImplementedError(
+                    f"family {c.family!r}: this slice serves the dense "
+                    f"family")
         # Full f32 products: the port is held to the reference within f32
         # tolerances, which TF32's ~3 significant digits would break.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -165,6 +220,13 @@ class ServeEngine:
         self.params = params
         self.cfg = cfg
         self.rt = rt or Runtime()
+        self._spec_k = int(num_draft_tokens) if self.spec else 0
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params if self.spec else None
+        self.draft_rt = (draft_rt or self.rt) if self.spec else None
+        # the write horizon: a verify span starting at pos <= max_len - 2
+        # writes K+1 positions, so every cache reaches max_len + K
+        self._cache_len = max_len + self._spec_k
         self.slots = slots
         self.max_len = max_len
         self.prompt_pad = prompt_pad
@@ -202,7 +264,7 @@ class ServeEngine:
                     "planes")
             self.block_size = int(block_size)
             # table width: entries for every position a slot can reach
-            self._maxb = -(-max_len // self.block_size)
+            self._maxb = -(-self._cache_len // self.block_size)
             if num_blocks is None:
                 # dense-equivalent capacity plus the null block
                 num_blocks = slots * self._maxb + 1
@@ -214,9 +276,15 @@ class ServeEngine:
                 cfg, self.num_blocks, self.block_size, device=self.device)
         else:
             self.block_size = self.num_blocks = self.pool = None
-            self.cache = lm.init_cache(cfg, slots, max_len,
+            self.cache = lm.init_cache(cfg, slots, self._cache_len,
                                        kv_quant=self.rt.kv_quant,
                                        device=self.device)
+        # the draft's own cache: always dense (the draft is small), with the
+        # same horizon, so a fully accepted window's last proposal is cached
+        self.draft_cache = (lm.init_cache(
+            draft_cfg, slots, self._cache_len,
+            kv_quant=self.draft_rt.kv_quant, device=self.device)
+            if self.spec else None)
         # rid -> swap entry of a request preempted mid-flight
         self._swapped: dict[int, dict] = {}
         self.pos = np.zeros(slots, dtype=np.int32)  # next write index per slot
@@ -229,6 +297,8 @@ class ServeEngine:
         self._keys = np.zeros((slots, 2), np.uint32)
         self._slot_stop: list[frozenset[int]] = [frozenset()] * slots
         self._slot_max_new: list[int] = [0] * slots
+        # per-slot window size (0: one token; always 0 without a draft)
+        self._slot_draft_k = np.zeros(slots, np.int32)
         self._pending_events: list[StreamEvent] = []
         # --- counters (read by stats(), tests and chip_smoke.py) ---
         self.host_syncs = 0       # device->host transfers
@@ -248,6 +318,17 @@ class ServeEngine:
         self.max_concurrent = 0   # peak simultaneously decoding requests
         self.blocks_swapped = 0   # paged: blocks host-swapped by preemption
         self.pool_exhausted = 0   # paged: requests error-finished, pool dry
+        self.cache_donated = False  # True from the first step: in place
+        self.cache_bytes_moved = 0  # no step copies the cache
+        self.spec_steps = 0       # propose / verify / commit windows
+        self.draft_proposed = 0   # draft tokens offered for verification
+        self.draft_accepted = 0   # of those, tokens committed
+        if self.spec:
+            # SJF prices a request by its expected slot occupancy: a draft
+            # window commits up to K+1 tokens per step
+            set_cost = getattr(self.scheduler, "set_cost", None)
+            if set_cost is not None:
+                set_cost(self._admission_cost)
 
     @property
     def temperature(self) -> float:
@@ -262,20 +343,49 @@ class ServeEngine:
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, cfg, *, step: Optional[int] = None,
-                        mesh=None, device="cuda", **kw) -> "ServeEngine":
+                        mesh=None, draft_depth: int = 0, device="cuda",
+                        **kw) -> "ServeEngine":
         """Boot an engine from a bare checkpoint directory (the reference's
         layout). A policy-quantized tree's QTensors are rebuilt from their
         packed planes and metas, with no template and no second run of
-        Algorithm 1."""
+        Algorithm 1. With ``draft_depth`` > 0 the engine speculates, its
+        draft the ``draft_depth``-layer prefix of the restored tree
+        (:func:`serve.spec.draft_from_params`; the launcher's
+        ``--draft-depth``)."""
         if mesh is not None:
             raise NotImplementedError(f"mesh: lands with {_LATER['mesh']}")
         from repro_torch.checkpoint import ckpt as ckpt_mod
 
         params, _ = ckpt_mod.restore_params(ckpt_dir, step=step,
                                             device=device)
+        if draft_depth:
+            kw["draft_params"], kw["draft_cfg"] = spec_mod.draft_from_params(
+                params, cfg, draft_depth)
         return cls(params, cfg, device=device, **kw)
 
     # --- request lifecycle ------------------------------------------------
+    def _spec_k_for(self, req: Request) -> int:
+        """This request's window size: the engine's ``num_draft_tokens``,
+        capped (never raised) by ``SamplingParams.draft_tokens``, 0 with
+        ``draft=False`` or without a draft model."""
+        if not self.spec:
+            return 0
+        sp = req.sampling or self.default_sampling
+        if sp.draft is False:
+            return 0
+        if sp.draft_tokens is not None:
+            return max(0, min(int(sp.draft_tokens), self._spec_k))
+        return self._spec_k
+
+    def _admission_cost(self, req: Request) -> float:
+        """SJF job size under speculation: the prompt length plus the
+        expected decode windows, the output budget over the window's
+        tokens."""
+        sp = req.sampling or self.default_sampling
+        new = sp.max_new if sp.max_new is not None else req.max_new
+        return float(len(req.prompt)) + float(new) / (
+            1 + self._spec_k_for(req))
+
     def _resolve(self, req: Request) -> SamplingParams:
         sp = req.sampling or self.default_sampling
         over: dict = {}
@@ -328,6 +438,10 @@ class ServeEngine:
         self.scheduler.add(req)
         return True
 
+    def submit(self, req: Request) -> bool:
+        """Admit one request straight into a free slot (True) or not."""
+        return self.admit([req]) == 1
+
     def admit(self, reqs: list[Request]) -> int:
         """Admit as many of ``reqs`` (in order) as there are free slots,
         bypassing the scheduler; returns how many were admitted (a
@@ -379,6 +493,10 @@ class ServeEngine:
             self._release_blocks(s, zero=False)
         else:
             entry["cache"] = _take_slots(self.cache["attn"], [s])
+        if self.spec:
+            # the draft's rows ride the same entry: resume restores both
+            # models' state with no draft re-prefill
+            entry["draft"] = _take_slots(self.draft_cache["attn"], [s])
         self._swapped[rid] = entry
         self._free_slot(s)  # no terminal event: the stream pauses
         req.preemptions += 1
@@ -431,6 +549,8 @@ class ServeEngine:
         else:
             self._swapped.pop(req.rid)
             _put_slots(self.cache["attn"], sw["cache"], [s])
+        if "draft" in sw:
+            _put_slots(self.draft_cache["attn"], sw["draft"], [s])
         self._install_slot(s, req, self._resolve(req), pos=sw["pos"],
                            next_tok=sw["next_tok"])
         self.resumes += 1
@@ -645,13 +765,20 @@ class ServeEngine:
                                           "table": table},
                                    pos=0, last_idx=last_idx)
         else:
-            sub = lm.init_cache(self.cfg, len(group), self.max_len,
+            sub = lm.init_cache(self.cfg, len(group), self._cache_len,
                                 kv_quant=self.rt.kv_quant, device=self.device)
             logits, sub = lm.forward(self.params, toks, self.rt, self.cfg,
                                      cache=sub, pos=0, last_idx=last_idx)
-            idx = torch.as_tensor(free, device=self.device)
-            for k, v in self.cache["attn"].items():
-                v.index_copy_(1, idx, sub["attn"][k])
+            _copy_slots(self.cache, sub, free)
+        if self.spec:
+            # the draft takes the same padded bucket; its pad writes sit
+            # behind the kv_len mask like the target's
+            dsub = lm.init_cache(self.draft_cfg, len(group), self._cache_len,
+                                 kv_quant=self.draft_rt.kv_quant,
+                                 device=self.device)
+            _copy_slots(self.draft_cache, lm.advance_cache(
+                self.draft_params, toks, dsub, 0, self.draft_rt,
+                self.draft_cfg), free)
         last = logits[:, 0]
         if self.sample_on_host:
             # the baseline: one transfer per admitted row
@@ -684,6 +811,7 @@ class ServeEngine:
         self._top_k[s] = sp.top_k
         self._top_p[s] = sp.top_p
         self._keys[s] = sp.key_data(engine_seed=self.seed, rid=req.rid)
+        self._slot_draft_k[s] = self._spec_k_for(req)
         self._next_tok[s] = next_tok
 
     def _free_slot(self, s: int) -> None:
@@ -694,26 +822,51 @@ class ServeEngine:
         self._temp[s] = 0.0
         self._top_k[s] = 0
         self._top_p[s] = 1.0
+        self._slot_draft_k[s] = 0
 
     # --- decode -----------------------------------------------------------
-    def _step_events(self) -> list[StreamEvent]:
-        """One decode step for every slot -> one StreamEvent per emitted
-        token."""
+    def _step_begin(self):
+        """The head of a step or window: the fault hook, paged block
+        growth (which can finish slots), the live slots. Returns (events,
+        model cache, live slots, start of the step's wall); no live slot:
+        (events, None, [], start)."""
         if self.faults is not None:
             self.faults.before_decode(self)
         t0 = time.perf_counter()
         events: list[StreamEvent] = []
         cache = self.cache
         if self.paged:
-            # grow chains whose next write crosses a block boundary; a dry
-            # pool can finish slots, so check liveness again
+            # grow chains whose next write (or window) crosses a block
+            # boundary; a dry pool can finish slots, so check liveness again
             events = self._ensure_decode_blocks()
             if not any(r is not None for r in self.active):
-                return events
+                return events, None, [], t0
             cache = {"attn": self.cache["attn"],
                      "table": torch.as_tensor(self._table, device=self.device)}
         live = [s for s, r in enumerate(self.active) if r is not None]
         self.max_concurrent = max(self.max_concurrent, len(live))
+        return events, cache, live, t0
+
+    def _step_end(self, t0: float) -> None:
+        """The tail of a step or window, after its one transfer."""
+        self.decode_steps += 1
+        self.decode_seconds += time.perf_counter() - t0
+        self.cache_donated = True
+        if self.watchdog is not None:
+            now = self._clock()
+            self.stalled_steps += len(self.watchdog.failed(now))
+            self.watchdog.beat(0, self.decode_steps, now=now)
+
+    def _step_events(self) -> list[StreamEvent]:
+        """One decode step for every slot -> one StreamEvent per emitted
+        token. A speculative engine runs a propose / verify / commit
+        window instead; both fold their tokens through
+        :meth:`_commit_slot`."""
+        if self.spec:
+            return self._spec_step_events()
+        events, cache, live, t0 = self._step_begin()
+        if not live:
+            return events
         toks = torch.as_tensor(self._next_tok[:, None], device=self.device)
         positions = torch.as_tensor(self.pos, device=self.device)
         args = ()  # an all-greedy step: argmax only, no PRNG op
@@ -740,27 +893,145 @@ class ServeEngine:
             tok_np = tok.cpu().numpy()  # THE step's one transfer
             self.host_syncs += 1
             picked = {s: int(tok_np[s]) for s in live}
-        self.decode_steps += 1
-        self.decode_seconds += time.perf_counter() - t0
-        if self.watchdog is not None:
-            now = self._clock()
-            self.stalled_steps += len(self.watchdog.failed(now))
-            self.watchdog.beat(0, self.decode_steps, now=now)
+        self._step_end(t0)
+        for s in live:
+            events += self._commit_slot(s, self.active[s], [picked[s]])
+        return events
+
+    def _window_args(self, live: list[int]) -> tuple:
+        """The device arguments of one window's draws, computed on the host
+        from the keys and each request's token index and sent up before
+        the window's forwards are queued: (draft keys (K, S, 2), (uniforms
+        (S, K), window-end keys (S, K+1, 2)), temp, top_k, top_p); () when
+        every live slot is greedy (argmax only, no PRNG op)."""
+        if all(self._temp[s] <= 0 for s in live):
+            return ()
+        gen = np.asarray([len(r.out) if r is not None else 0
+                          for r in self.active], np.int64)
+        dkeys = np.stack([spec_mod.draft_keys(self._keys, gen, w)
+                          for w in range(self._spec_k)])
+        draws = spec_mod.window_draws(self._keys, gen, self._spec_k,
+                                      self.device)
+        top_k, top_p = self._filter_vectors(self._top_k, self._top_p)
+        dev = self.device
+        return (torch.as_tensor(dkeys, device=dev), draws,
+                torch.as_tensor(self._temp, device=dev),
+                None if top_k is None else torch.as_tensor(top_k, device=dev),
+                None if top_p is None else torch.as_tensor(top_p, device=dev))
+
+    def _propose(self, toks, positions, args):
+        """K draft steps from the draft's cache, then one ``advance_cache``
+        at ``pos + K`` (a fully accepted window leaves no hole). Returns
+        (cand (S, K+1) = [anchor, d_1..d_K], qlog (S, K, V) the draft's
+        scaled and masked logits, or None on an all-greedy window).
+        Proposal ``w`` is the argmax, or drawn under the slot's DRAFT
+        stream at index ``gen + w`` from exactly ``qlog[:, w]``."""
+        cand, qlogs, cur = [toks[:, 0]], [], toks
+        for w in range(self._spec_k):
+            logits, _ = lm.decode_step(self.draft_params, cur,
+                                       self.draft_cache, positions + w,
+                                       self.draft_rt, self.draft_cfg)
+            last = logits[:, 0].to(torch.float32)
+            d = torch.argmax(last, dim=-1).to(torch.int32)
+            if args:
+                dkeys, _, temp, top_k, top_p = args
+                scaled = last / torch.clamp_min(temp, 1e-6)[:, None]
+                if top_k is not None or top_p is not None:
+                    scaled = lm.top_mask(scaled, top_k, top_p)
+                d = torch.where(temp > 0, prng.categorical(
+                    dkeys[w], scaled).to(torch.int32), d)
+                qlogs.append(scaled)
+            cand.append(torch.clamp(d, 0, self.cfg.vocab_size - 1))
+            cur = cand[-1][:, None]
+        lm.advance_cache(self.draft_params, cur, self.draft_cache,
+                         positions + self._spec_k, self.draft_rt,
+                         self.draft_cfg)
+        return (torch.stack(cand, dim=1),
+                torch.stack(qlogs, dim=1) if qlogs else None)
+
+    def _verify(self, cache, cand, positions, kvec, args, qlog):
+        """One target pass over the K+1 window positions, then the accept
+        and commit decision. A slot whose logits are non-finite at a
+        position its window can use (<= kvec) reports a _POISONED row with
+        n = 1 (later rows read lookahead positions past a paged slot's
+        blocks, finite garbage in the null block)."""
+        logits, _ = lm.score_tokens(self.params, cand, cache, positions,
+                                    self.rt, self.cfg)
+        if args:
+            _, draws, temp, top_k, top_p = args
+            out, n = spec_mod.verify_commit(
+                logits, cand, kvec, temp=temp, top_k=top_k, top_p=top_p,
+                qlog=qlog, draws=draws)
+        else:
+            out, n = spec_mod.verify_commit(logits, cand, kvec)
+        used = (torch.arange(cand.shape[1], device=cand.device)[None, :]
+                <= kvec[:, None])
+        ok = (lm.finite_rows(logits) | ~used).all(dim=1)
+        out = torch.where(ok[:, None], out, _POISONED)
+        return out, torch.where(ok, n, 1)
+
+    def _spec_step_events(self) -> list[StreamEvent]:
+        """One speculative window for every slot: propose, verify, and
+        each slot commits its accepted prefix and one window-end token.
+        The (S, K+1) window and the (S,) counts come back in ONE transfer;
+        a slot with kvec = 0 commits one token through the same path."""
+        events, cache, live, t0 = self._step_begin()
+        if not live:
+            return events
+        kvec_np = self._slot_draft_k.copy()
+        dev = self.device
+        toks = torch.as_tensor(self._next_tok[:, None], device=dev)
+        positions = torch.as_tensor(self.pos, device=dev)
+        kvec = torch.as_tensor(kvec_np, device=dev)
+        args = self._window_args(live)
+        cand, qlog = self._propose(toks, positions, args)
+        out, n = self._verify(cache, cand, positions, kvec, args, qlog)
+        both = torch.cat([out, n[:, None].to(out.dtype)], dim=1)
+        both = both.cpu().numpy()  # THE window's one transfer
+        self.host_syncs += 1
+        self.spec_steps += 1
+        self._step_end(t0)
         for s in live:
             req = self.active[s]
-            tok_s = picked[s]
-            if tok_s == _POISONED:
-                # numeric quarantine: finish loudly, re-zero the slot's rows
+            n_s = int(both[s, -1])
+            window = [int(t) for t in both[s, :n_s]]
+            if window[0] != _POISONED:
+                # n - 1 of the slot's kvec proposals were committed (the
+                # window-end token is the target's), counted even when a
+                # stop or length finish inside the window drops the tail
+                kv = int(kvec_np[s])
+                self.draft_proposed += kv
+                self.draft_accepted += n_s - 1
+                req.drafted += kv
+                req.accepted += n_s - 1
+                req.spec_windows += 1
+            events += self._commit_slot(s, req, window)
+        return events
+
+    def _commit_slot(self, s: int, req: Request,
+                     toks: list) -> list[StreamEvent]:
+        """Fold committed tokens into one slot's stream (the one-token step
+        is a window of one). Stops at the first terminal condition: a
+        _POISONED sentinel quarantines the slot (``error``, its rows
+        re-zeroed); a stop or length finish drops the rest of the window
+        (the cache holds a few positions past the stream's end, never read:
+        kv_len follows ``pos``, which stops)."""
+        events: list[StreamEvent] = []
+        for tok in toks:
+            if tok == _POISONED:
                 self.quarantined += 1
                 events.append(self._finish_slot(s, req, FINISH_ERROR,
                                                 token=None))
                 self._zero_slot(s)
-                continue
-            req.out.append(tok_s)
-            self._next_tok[s] = tok_s
+                break
+            req.out.append(tok)
+            self._next_tok[s] = tok
             self.pos[s] += 1
             self.tokens_decoded += 1
-            events.append(self._emit(s, req, tok_s))
+            ev = self._emit(s, req, tok)
+            events.append(ev)
+            if ev.finished:
+                break
         return events
 
     def _ensure_decode_blocks(self) -> list[StreamEvent]:
@@ -771,7 +1042,11 @@ class ServeEngine:
         for s, req in enumerate(self.active):
             if req is None:
                 continue
-            need = paged_mod.blocks_needed(self.pos[s], self.block_size)
+            # a window can commit, and later read, up to pos + kvec; its
+            # verify writes past that land in the null block
+            need = paged_mod.blocks_needed(
+                self.pos[s], self.block_size,
+                lookahead=int(self._slot_draft_k[s]))
             while len(self._slot_blocks[s]) < need:
                 try:
                     blk = self.pool.alloc()
@@ -800,10 +1075,13 @@ class ServeEngine:
         return best[1] if best else None
 
     def _zero_slot(self, s: int) -> None:
-        """Quarantine cleanup of a dense slot's rows; a paged slot's
-        blocks were zeroed and freed by ``_finish_slot``."""
-        if not self.paged:
-            for v in self.cache["attn"].values():
+        """Quarantine cleanup of a dense slot's rows and its draft rows (the
+        draft cache is dense on every engine); a paged slot's blocks were
+        zeroed and freed by ``_finish_slot``."""
+        trees = ([] if self.paged else [self.cache]) + (
+            [self.draft_cache] if self.spec else [])
+        for tree in trees:
+            for v in tree["attn"].values():
                 v[:, s].zero_()
         self.pos[s] = 0
         self._next_tok[s] = 0
@@ -835,6 +1113,15 @@ class ServeEngine:
         if reason == FINISH_CANCELLED:
             self._pending_events.append(ev)
         return ev
+
+    def step(self) -> list[tuple[int, int]]:
+        """One decode step (a window on a speculative engine) for every
+        live slot: ``[(rid, token)]`` of its emitted tokens, ``[]`` when no
+        slot is live."""
+        if not any(r is not None for r in self.active):
+            return []
+        return [(e.rid, e.token) for e in self._step_events()
+                if e.token is not None]
 
     # --- accounting -------------------------------------------------------
     @property
@@ -870,6 +1157,8 @@ class ServeEngine:
             "cache_bytes_reserved": int(reserved),
             "cache_bytes_live": int(bytes_per_token * live_tokens),
             "cache_bytes_per_token": bytes_per_token,
+            "cache_donated": self.cache_donated,
+            "cache_bytes_moved": self.cache_bytes_moved,
             "scheduler": getattr(self.scheduler, "name",
                                  type(self.scheduler).__name__),
             "waiting": len(self.scheduler),
@@ -889,6 +1178,21 @@ class ServeEngine:
             "kv_quant": self.rt.kv_quant,
             "act_quant": self.rt.act_quant,
         }
+        if self.spec:
+            out.update(
+                speculative=True,
+                num_draft_tokens=self._spec_k,
+                spec_steps=self.spec_steps,
+                draft_proposed=self.draft_proposed,
+                draft_accepted=self.draft_accepted,
+                acceptance_rate=(self.draft_accepted / self.draft_proposed
+                                 if self.draft_proposed else float("nan")),
+                tokens_per_step=(self.tokens_decoded / self.decode_steps
+                                 if self.decode_steps else float("nan")),
+                draft_cache_bytes=int(sum(
+                    a.numel() * a.element_size()
+                    for a in self.draft_cache["attn"].values())),
+            )
         if self.paged:
             out.update(
                 paged=True,
@@ -904,6 +1208,14 @@ class ServeEngine:
 
 
 # --- slot swap: gather to host, scatter back ---------------------------------
+
+def _copy_slots(cache: dict, sub: dict, idx: list[int]) -> None:
+    """Copy a (G,)-slot sub-cache into slots ``idx`` of ``cache``, in
+    place."""
+    index = torch.as_tensor(idx, device=cache["attn"]["k"].device)
+    for k, v in cache["attn"].items():
+        v.index_copy_(1, index, sub["attn"][k])
+
 
 def _take_slots(attn: dict, idx: list[int]):
     """Rows ``idx`` of axis 1 (slots, or pool blocks) of every cache leaf,

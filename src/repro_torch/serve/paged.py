@@ -30,7 +30,7 @@ bit-identical values.
 from __future__ import annotations
 
 import hashlib
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -45,11 +45,13 @@ __all__ = ["BlockPool", "PoolExhausted", "init_paged_cache", "zero_blocks",
 NULL_BLOCK = 0
 
 
-def blocks_needed(pos: int, block_size: int) -> int:
-    """Blocks a slot must own before a decode step writing at ``pos``
-    (the reference's ``lookahead`` for speculative windows comes with
-    speculative decoding)."""
-    return int(pos) // int(block_size) + 1
+def blocks_needed(pos: int, block_size: int, lookahead: int = 0) -> int:
+    """Blocks a slot must own before a decode window starting at ``pos``:
+    every position the window can commit, up to ``pos + lookahead``
+    inclusive (a speculative window of K drafts commits at most K+1
+    tokens, the last at ``pos + K``). Verify writes past that land in the
+    null block, which is safe only for positions the mask never reads."""
+    return (int(pos) + int(lookahead)) // int(block_size) + 1
 
 
 class PoolExhausted(RuntimeError):
@@ -83,6 +85,9 @@ class BlockPool:
     def capacity(self) -> int:
         """Usable blocks (the null block is not allocatable)."""
         return self.num_blocks - 1
+
+    def available(self) -> int:
+        return len(self._free)
 
     def used(self) -> int:
         return self.capacity - len(self._free)
@@ -139,6 +144,18 @@ class BlockPool:
             out.append(h)
         return out
 
+    def lookup_prefix(self, key: bytes) -> Optional[int]:
+        """The live block holding chain hash ``key``, or None."""
+        return self._prefix.get(key)
+
+    def register_prefix(self, key: bytes, blk: int) -> None:
+        """Publish ``blk`` as the holder of chain hash ``key``; the first
+        writer wins (both wrote the same bytes). Freeing the block drops
+        its key."""
+        if key not in self._prefix:
+            self._prefix[key] = blk
+            self._block_key[blk] = key
+
     def alloc_prompt(self, prompt: np.ndarray) -> list[int]:
         """The block chain for a prompt: full prefix blocks are shared
         when a live holder exists, the rest allocated. All or nothing: on
@@ -149,7 +166,7 @@ class BlockPool:
         blocks: list[int] = []
         try:
             for i in range(nblk):
-                shared = self._prefix.get(keys[i]) if i < len(keys) else None
+                shared = self.lookup_prefix(keys[i]) if i < len(keys) else None
                 if shared is not None:
                     self.incref(shared)
                     self.prefix_hits += 1
@@ -157,8 +174,7 @@ class BlockPool:
                 else:
                     blk = self.alloc()
                     if i < len(keys):  # a full block: publish it for sharers
-                        self._prefix[keys[i]] = blk
-                        self._block_key[blk] = keys[i]
+                        self.register_prefix(keys[i], blk)
                     blocks.append(blk)
         except PoolExhausted:
             for blk in blocks:

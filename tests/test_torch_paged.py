@@ -48,6 +48,7 @@ from repro_torch.models.layers import Runtime as TRuntime
 from repro_torch.serve import kv_quant as tkv
 from repro_torch.serve import paged as tpaged
 from repro_torch.serve.engine import Request, ServeEngine
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_bridge import jax_quantized_params, to_numpy_tree
 
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -29,6 +29,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.layers import Runtime as TRuntime
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.sampling import SamplingParams
+from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_bridge import jax_quantized_params, to_numpy_tree
 
 SLOTS, MAX_LEN, MAX_NEW, ENGINE_SEED = 4, 128, 12, 5

@@ -112,9 +112,14 @@ def test_from_checkpoint_step_options_and_refusals(tmp_path):
                                       max_queue=2)
     assert eng.paged and eng.max_queue == 2 and eng.device.type == "cpu"
     assert eng.params["embed"].device.type == "cpu"
+    assert not eng.spec
+    spec = ServeEngine.from_checkpoint(path, cfg, device="cpu", draft_depth=1,
+                                       rt=TRuntime(kv_quant=True))
+    assert spec.spec and spec.draft_cfg.num_layers == 1
+    assert spec.draft_params["embed"] is spec.params["embed"]
     with pytest.raises(NotImplementedError, match="item 7"):
         ServeEngine.from_checkpoint(path, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="draft_cfg"):
         ServeEngine.from_checkpoint(path, cfg, device="cpu",
                                     draft_params={})
 
