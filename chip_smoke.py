@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py                 # every phase (1-12), one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --profile       # also trace a short run of each path
                                           # (its cut sweeps check, untimed)
@@ -147,6 +147,29 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    on 1000 seeded mixed-sampling windows at (4, 5, vocab): acceptance
    uniforms bit-equal, ``(out, n)`` equal on at least 999.
 
+11. The MoE path: olmoe-1b-7b at full width and depth (16 layers, 64
+   experts top-8), seeded on the card and quantized as drawn
+   (``lm.init_quantized_params``), phase 4's requests, ``kv_quant``. (a)
+   Uniform itq3_s: exact launches per decode step and prefill wave (per
+   layer 4 dense projections, 3 expert-axis launches, ``fwht_kv/128``,
+   two ``fwht/128``, one attention; plus the untied head), one host sync
+   per step and wave, two runs' streams equal, layer-forced logits within
+   1e-3 on the rows whose routing agrees (a real token's routing may part
+   only at a k/k+1 probability gap below 1e-6; a prefill's pad positions
+   are counted, not held), and a short traced run for the idle share. (b)
+   The mixed policy on W3A8, held alike. Phase 3 also times the four
+   expert-axis kernels at olmoe's shapes (E = 64; M = 4 and 40) beside
+   their plain versions and ``torch.bmm`` on the dequantized stacks,
+   sweeps their cuts, checks them untimed at their edges (ragged M and
+   N, E = 1 bit-equal to the one-matrix kernels, qwen3-moe's 128
+   experts), the attention at head_dim 128 (G = 1, 6, 16; dense and
+   paged) and the dense family's widest shapes (K = 96 and 27 blocks, a
+   256,000-column matvec).
+12. The rest of the dense family at full width and two layers:
+   nemotron-4-15b (LayerNorm, relu2, untied 256,000-column head,
+   ``kv_quant``) and stablelm-3b (LayerNorm, partial rotary, head_dim 80
+   on the fp cache), each held to phase 11's contract and parity.
+
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
 limit and one JSON line with every kernel's launches, error, times and
@@ -157,6 +180,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import math
 import re
@@ -795,7 +819,7 @@ def matmul_tile_sweep(gen: torch.Generator, dev, weights,
             row = {}
             for bm in itq3_mod.MATMUL_BM:
                 for sp in splits:
-                    itq3_mod.matmul_tiles = lambda m_, n_, kb_, t=(bm, sp): t
+                    itq3_mod.matmul_tiles = lambda *_, t=(bm, sp): t
 
                     def run():
                         return itq3_matmul(x, *planes, rotate_weights=False)
@@ -824,7 +848,7 @@ def _under_cut(rule: str, cut, fn):
     def call(*args, **kw):
         own = getattr(itq3_mod, rule)
         if cut is not None:
-            setattr(itq3_mod, rule, lambda m_, n_, kb_: cut)
+            setattr(itq3_mod, rule, lambda *_: cut)
         try:
             return fn(*args, **kw)
         finally:
@@ -1614,7 +1638,7 @@ def check_quantize(led: Ledger, gen: torch.Generator, dev,
 # --- phases 4 and 5: serve the full-width model ----------------------------
 
 def two_paths(params, cfg, tokens, caches, pos, last_idx, forced: bool,
-              act_quant: bool = False):
+              act_quant: bool = False, kv_quant: bool = True):
     """One prefill (or decode step) through the kernel path and the plain
     path, each on its own cache; returns both logits.
 
@@ -1630,8 +1654,9 @@ def two_paths(params, cfg, tokens, caches, pos, last_idx, forced: bool,
     from repro_torch.models import lm
     from repro_torch.models.layers import Runtime
 
-    rts = [Runtime(kv_quant=True, backend=b, decode_token_cache=not forced,
-                   act_quant=act_quant) for b in ("auto", "ref")]
+    rts = [Runtime(kv_quant=kv_quant, backend=b,
+                   decode_token_cache=not forced, act_quant=act_quant)
+           for b in ("auto", "ref")]
     if not forced:
         step = lm.decode_step if tokens.shape[1] == 1 else None
         return [step(params, tokens, c, pos, rt, cfg)[0] if step else
@@ -1671,7 +1696,7 @@ def serve_run(params, cfg, prompts, dev, *, count: bool,
 
     eng = ServeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
                       prompt_pad=PROMPT_PAD,
-                      rt=Runtime(kv_quant=True, **rt_kw), device=dev,
+                      rt=Runtime(**{"kv_quant": True, **rt_kw}), device=dev,
                       **(engine_kw or {}))
     reqs = [Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
@@ -2666,6 +2691,724 @@ def spec_phase(dev, report: dict, cfg, dense_reqs) -> dict:
     return counts
 
 
+# --- the MoE and dense-family slice: phase 3's shapes, phases 11 and 12 ---
+
+# olmoe-1b-7b's expert projections (K, N), its 64 experts, and the rows per
+# expert its serving path gives them: a decode step of 4 slots routes at
+# capacity 1 (M = 4); a prefill wave of 4 prompts in a 64-token bucket at
+# capacity ceil(int(1.25 * 64 * 8) / 64) = 10 (M = 40)
+OLMOE_EXPERTS = 64
+EXPERT_PROJ = {"gate": (2048, 1024), "down": (1024, 2048)}
+EXPERT_M = (("decode", 4), ("prefill", 40))
+# qwen3-moe-235b-a22b's widths, untimed: 128 experts, decode M = 4 and a
+# prefill wave's M = 4 x ceil(640 / 128) = 20
+QWEN3_EXPERTS = 128
+QWEN3_PROJ = {"gate": (4096, 1536), "down": (1536, 4096)}
+# MoE routing parity: a routing that parts kernel and plain path must sit
+# on a k/k+1 probability gap below this, as a phase-10 parting sits on a
+# top-2 tie; the logits are held on the rows whose routing agrees
+ROUTE_GAP_TOL = 1e-6
+# phase 12: each dense-family model at full width and two layers (full
+# depth would seed 15.6 B parameters for no new shape); stablelm-3b's
+# head_dim 80 has no int8 KV codec and serves on the fp cache
+DENSE_FAMILY = (("nemotron-4-15b", True), ("stablelm-3b", False))
+DENSE_FAMILY_LAYERS = 2
+
+
+def expert_stack(fmt: str, e: int, k: int, n: int, gen, dev):
+    """A seeded (E, K, N) expert stack quantized by the port to ``fmt``."""
+    w = torch.randn(e, k, n, generator=gen, device=dev) / math.sqrt(k)
+    return formats.quantize(w, fmt)
+
+
+def _planes(qt):
+    d = qt.data
+    return (d["plane2"], d["plane1"], d["scales"], d["zps"])
+
+
+def _stack_weight(qt, rotate: bool) -> torch.Tensor:
+    """The dequantized (E, K, N) f32 stack (the IFWHT'd one with
+    ``rotate``): the library yardstick's operand."""
+    e, n, kb = qt.data["plane2"].shape[:3]
+    w = dequant_blocks(*_planes(qt), rotate_weights=rotate,
+                       fivelevel=qt.meta.fivelevel,
+                       sub_blocks=qt.meta.sub_blocks)
+    return w.reshape(e, n, kb * 256).transpose(1, 2).contiguous()
+
+
+def _rows_fwht(x: torch.Tensor, fn) -> torch.Tensor:
+    return fn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+def _expert_forms(qt, x, int8: bool):
+    """(kernel name, run, plain) of the path's expert launch on ``x (E, M,
+    K)``: the float matvec rotating x itself (M <= 16) or the tiled kernel
+    on rotated rows; the int8 pair on the activation codes."""
+    kw = dict(fivelevel=qt.meta.fivelevel, sub_blocks=qt.meta.sub_blocks)
+    planes = _planes(qt)
+    small = x.shape[1] <= 16
+    if int8:
+        xq, xs = act_encode(x.reshape(-1, x.shape[-1]))
+        xq = xq.reshape(x.shape)
+        xs = xs.reshape(x.shape[0], x.shape[1], 1)
+        fn = itq3_matvec_int8 if small else itq3_matmul_int8
+        return (("itq3_matvec_int8_experts" if small
+                 else "itq3_matmul_int8_experts"),
+                lambda: fn(xq, xs, *planes, **kw),
+                lambda: itq3_matmul_int8_ref(xq, xs, *planes, **kw),
+                (xq, xs))
+    if small:
+        return ("itq3_matvec_experts",
+                lambda: itq3_matvec(x, *planes, rotate_weights=False,
+                                    rotate_x=True, **kw),
+                lambda: itq3_matmul_ref(_rows_fwht(x, fwht_ref), *planes,
+                                        rotate_weights=False, **kw), None)
+    return ("itq3_matmul_experts",
+            lambda: itq3_matmul(x, *planes, rotate_weights=False, **kw),
+            lambda: itq3_matmul_ref(x, *planes, rotate_weights=False, **kw),
+            None)
+
+
+def check_experts(led: Ledger, gen: torch.Generator, dev,
+                  report: dict) -> None:
+    """The four expert-axis kernels at olmoe's serving shapes (64
+    experts; decode M = 4, prefill M = 40; gate/up 2048 -> 1024, down
+    1024 -> 2048): one launch over the whole stack, timed beside its plain
+    version (the per-matrix plain function expert by expert) and
+    ``torch.bmm`` on the dequantized f32 stack; two calls bit-equal;
+    within 1e-4 of the plain version (the int8 pair: exact with unit
+    scales, 1e-5 with real ones). The float pair on itq3_s (the float
+    path's uniform policy), the int8 pair on itq3_s_sub (the mixed
+    policy's expert format). Bounds count every expert's planes once."""
+    for name, (k, n) in EXPERT_PROJ.items():
+        for fmt, int8 in (("itq3_s", False), ("itq3_s_sub", True)):
+            qt = expert_stack(fmt, OLMOE_EXPERTS, k, n, gen, dev)
+            e = OLMOE_EXPERTS
+            for label, m in EXPERT_M:
+                x = torch.randn(e, m, k, generator=gen, device=dev)
+                kernel, run, plain, codes = _expert_forms(qt, x, int8)
+                rot = not int8 and m <= 16
+                w = _stack_weight(qt, rotate=rot)
+                got = run()
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"{kernel} {name}: two calls "
+                                         f"differ")
+                err, rel = rel_err(got, plain())
+                if int8:
+                    xq, xs = codes
+                    ones = torch.ones_like(qt.data["scales"])
+                    kw = dict(fivelevel=False,
+                              sub_blocks=qt.meta.sub_blocks)
+                    fn = itq3_matvec_int8 if m <= 16 else itq3_matmul_int8
+                    unit = (fn(xq, torch.ones_like(xs), qt.data["plane2"],
+                               qt.data["plane1"], ones, qt.data["zps"], **kw)
+                            - itq3_matmul_int8_ref(
+                                xq, torch.ones_like(xs), qt.data["plane2"],
+                                qt.data["plane1"], ones, qt.data["zps"],
+                                **kw)).abs().max().item()
+                    if unit != 0:
+                        raise AssertionError(f"{kernel} {name}: unit-scale "
+                                             f"outputs differ by {unit}")
+                    xdec = act_decode(xq.reshape(-1, k),
+                                      xs.reshape(-1, 1)).reshape(e, m, k)
+                    def library(xd=xdec, w=w):
+                        return torch.bmm(xd, w)
+                    nbytes = e * m * (k + 4) + weight_bytes(qt) + e * m * n * 4
+                    flops, peak = 2 * e * m * n * k, PEAK_INT8_OPS
+                    tol = INT8_REL_TOL
+                else:
+                    def library(x=x, w=w):
+                        return torch.bmm(x, w)
+                    nbytes = e * m * k * 4 + weight_bytes(qt) + e * m * n * 4
+                    if m <= 16:  # f32 FMAs and the rotation of x
+                        flops, peak = 2 * e * m * n * k + 9 * e * m * k, \
+                            PEAK_F32_FLOPS
+                    else:  # two TF32 products per product (x hi and lo)
+                        flops, peak = 2 * 2 * e * m * n * k, PEAK_TF32_FLOPS
+                    tol = KERNEL_REL_TOL
+                led.add(kernel, f"olmoe {name} E={e} M={m} {label} {fmt}",
+                        err=err, rel=rel, ms=device_ms(run),
+                        plain_ms=device_ms(plain, reps=1),
+                        library_ms=device_ms(library), nbytes=nbytes,
+                        flops=flops, peak_ops=peak, tol=tol)
+                del w
+            del qt
+    torch.cuda.empty_cache()
+    print("  expert kernels: two calls bit-equal at every olmoe shape; the "
+          "int8 pair exact with unit scales", flush=True)
+
+
+def expert_tile_sweep(gen: torch.Generator, dev, report: dict,
+                      timed: bool = True) -> None:
+    """The four expert-axis kernels at olmoe's shapes under every cut
+    (the wrapper's rule replaced for the sweep only) beside the one the
+    rule picks: each within tolerance of the plain version and bit-equal
+    on two calls; for the float decode also the unfused pair (one
+    ``fwht.cu`` over all E x M rows, then the matvec on rotated x) at the
+    picked cut. Times printed and written to the details, not summed
+    into the kernel lines."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    e = OLMOE_EXPERTS
+    out = {}
+    for name, (k, n) in EXPERT_PROJ.items():
+        kb = k // 256
+        for fmt, int8 in (("itq3_s", False), ("itq3_s_sub", True)):
+            qt = expert_stack(fmt, e, k, n, gen, dev)
+            kw = dict(fivelevel=False, sub_blocks=qt.meta.sub_blocks)
+            planes = _planes(qt)
+            for label, m in EXPERT_M:
+                x = torch.randn(e, m, k, generator=gen, device=dev)
+                kernel, _, plain, codes = _expert_forms(qt, x, int8)
+                want = plain()
+                small = m <= 16
+                if int8:
+                    rule = "matvec_int8_tiles" if small else "matmul_tiles"
+                    fn = itq3_matvec_int8 if small else itq3_matmul_int8
+                    args, fkw = (*codes, *planes), kw
+                    tol = INT8_REL_TOL
+                else:
+                    rule = "matvec_tiles" if small else "matmul_tiles"
+                    fn = itq3_matvec if small else itq3_matmul
+                    args = (x, *planes)
+                    fkw = dict(kw, rotate_weights=False,
+                               **({"rotate_x": True} if small else {}))
+                    tol = KERNEL_REL_TOL
+                pick = getattr(itq3_mod, rule)(m, n, kb, e)
+                cuts = int8_cuts("itq3_matmul_int8" if not small
+                                 else "itq3_matvec_int8", kb)
+                if rule == "matvec_tiles":
+                    cuts = [c for c in cuts
+                            if itq3_mod.matvec_window(m, kb, *c) >= 1]
+                row = {}
+                for cut in cuts:
+                    run = _under_cut(rule, cut, fn)
+
+                    def call(run=run):
+                        return run(*args, **fkw)
+                    got = call()
+                    _, rel = rel_err(got, want)
+                    if not (rel <= tol and torch.equal(got, call())):
+                        raise AssertionError(f"{kernel} {name} cut {cut}: "
+                                             f"rel {rel:.2e} or not "
+                                             f"deterministic")
+                    row[f"{cut[0]}x{cut[1]}"] = cut_ms(call, timed)
+                if not int8 and small:
+                    def pair():
+                        xr = fwht(x.reshape(-1, k)).reshape(x.shape)
+                        return itq3_matvec(xr, *planes, rotate_weights=False,
+                                           **kw)
+                    if not torch.equal(pair(), fn(*args, **fkw)):
+                        raise AssertionError(f"{kernel} {name}: the pair "
+                                             f"differs from the fused form")
+                    row["pair"] = cut_ms(pair, timed)
+                key = f"{kernel} {name} M={m}"
+                out[key] = dict(pick=f"{pick[0]}x{pick[1]}", ms=row)
+                print(f"  {kernel} cuts {name} E={e} M={m} N={n} KB={kb} "
+                      f"(the rule picks {pick[0]}x{pick[1]}): "
+                      + cuts_line(row), flush=True)
+            del qt
+    torch.cuda.empty_cache()
+    report["expert_tiles_ms"] = out
+
+
+EXPERT_EDGE_FORMATS = ("itq3_s", "itq3_s_sub", "itq3_x")
+
+
+def _expert_edge(qt, x, int8: bool, tol: float, what: str) -> float:
+    """One untimed expert-axis case: within ``tol`` of the plain version,
+    two calls bit-equal, and E = 1 (the first expert as a stack of one)
+    bit-equal to the one-matrix call of the same kernel."""
+    kernel, run, plain, codes = _expert_forms(qt, x, int8)
+    got = run()
+    if not torch.equal(got, run()):
+        raise AssertionError(f"{what}: two calls differ")
+    _, rel = rel_err(got, plain())
+    if not rel <= tol:
+        raise AssertionError(f"{what}: rel error {rel:.3e} > {tol}")
+    first = type(qt)({k: v[:1] for k, v in qt.data.items()}, qt.meta)
+    _, run1, _, _ = _expert_forms(first, x[:1], int8)
+    flat = type(qt)({k: v[0] for k, v in qt.data.items()}, qt.meta)
+    kw = dict(fivelevel=qt.meta.fivelevel, sub_blocks=qt.meta.sub_blocks)
+    small = x.shape[1] <= 16
+    if int8:
+        xq, xs = codes
+        fn = itq3_matvec_int8 if small else itq3_matmul_int8
+        two_d = fn(xq[0], xs[0], *_planes(flat), **kw)
+    elif small:
+        two_d = itq3_matvec(x[0], *_planes(flat), rotate_weights=False,
+                            rotate_x=True, **kw)
+    else:
+        two_d = itq3_matmul(x[0], *_planes(flat), rotate_weights=False, **kw)
+    if not torch.equal(run1()[0], two_d):
+        raise AssertionError(f"{what}: E = 1 differs from the one-matrix "
+                             f"kernel")
+    return rel
+
+
+def check_expert_edges(gen: torch.Generator, dev, report: dict) -> None:
+    """Untimed edges of the expert axis: three formats, ragged M (the
+    matmul's 17, 33 and 65 rows leave a partial row tile at each expert's
+    end of the folded y axis) and ragged N, one and three blocks; E = 1
+    bit-equal to the one-matrix kernel; qwen3-moe's widths (128 experts,
+    4096 -> 1536 and 1536 -> 4096); a y axis past 65,535 refused."""
+    from repro_torch.kernels import itq3 as itq3_mod
+
+    worst = {}
+    cases = 0
+    for fmt in EXPERT_EDGE_FORMATS:
+        for n, kb in ((29, 1), (200, 3)):
+            qt = expert_stack(fmt, 3, kb * 256, n, gen, dev)
+            for int8 in (False, True):
+                if int8 and fmt == "itq3_x" and n == 200:
+                    continue
+                for m in (1, 5, 16, 17, 33, 65):
+                    x = torch.randn(3, m, kb * 256, generator=gen, device=dev)
+                    what = (f"expert {'int8' if int8 else 'float'} {fmt} "
+                            f"E=3 M={m} N={n} KB={kb}")
+                    rel = _expert_edge(qt, x, int8, INT8_REL_TOL if int8
+                                       else KERNEL_REL_TOL, what)
+                    key = "int8" if int8 else "float"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    cases += 1
+    for name, (k, n) in QWEN3_PROJ.items():
+        for fmt, int8 in (("itq3_s", False), ("itq3_s_sub", True)):
+            qt = expert_stack(fmt, QWEN3_EXPERTS, k, n, gen, dev)
+            for m in (4, 20):
+                x = torch.randn(QWEN3_EXPERTS, m, k, generator=gen,
+                                device=dev)
+                rel = _expert_edge(qt, x, int8, INT8_REL_TOL if int8
+                                   else KERNEL_REL_TOL,
+                                   f"qwen3-moe {name} {fmt} M={m}")
+                worst[f"qwen3 {name} {fmt} M={m}"] = rel
+                cases += 1
+            del qt
+    try:
+        itq3_mod._matmul_cut(65536, 17, 64, 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("an expert axis past the y limit was not "
+                             "refused")
+    torch.cuda.empty_cache()
+    report["expert_edges"] = dict(cases=cases, worst_rel=worst)
+    print(f"  expert edges: {cases} cases (ragged M and N, E = 1 bit-equal "
+          f"to the one-matrix kernels, qwen3-moe's 128 experts) within "
+          f"tolerance, two calls bit-equal", flush=True)
+
+
+# The dense family's widths the contraction kernels had not served:
+# nemotron's down (K = 96 blocks: the matvec stages x in windows) and
+# stablelm's (27 blocks: an odd count for the split rules), and nemotron's
+# untied head (N = 256,000) through the matvec
+WIDE_SHAPES = (("nemotron down", 24576, 6144), ("stablelm down", 6912, 2560))
+NEMOTRON_HEAD = (6144, 256000)
+
+
+def check_dense_family_widths(gen: torch.Generator, dev,
+                              report: dict) -> None:
+    """Untimed: itq3_matvec (fused, M = 4) and itq3_matmul (M = 256) at
+    nemotron's and stablelm's widest reductions, and the fused matvec at
+    nemotron's 256,000-column head, each within 1e-4 of its plain version
+    (the head's plain version column block by column block) and bit-equal
+    on two calls."""
+    rels = {}
+    for name, k, n in WIDE_SHAPES:
+        qt = formats.quantize(torch.randn(k, n, generator=gen, device=dev)
+                              / math.sqrt(k), "itq3_s")
+        planes = _planes(qt)
+        for m in (4, 256):
+            x = torch.randn(m, k, generator=gen, device=dev)
+            if m <= 16:
+                run = lambda x=x: itq3_matvec(  # noqa: E731
+                    x, *planes, rotate_weights=False, rotate_x=True)
+                want = itq3_matmul_ref(fwht_ref(x), *planes,
+                                       rotate_weights=False)
+            else:
+                run = lambda x=x: itq3_matmul(  # noqa: E731
+                    x, *planes, rotate_weights=False)
+                want = itq3_matmul_ref(x, *planes, rotate_weights=False)
+            got = run()
+            if not torch.equal(got, run()):
+                raise AssertionError(f"{name} M={m}: two calls differ")
+            rels[f"{name} M={m}"] = rel_err(got, want)[1]
+        del qt
+    k, n = NEMOTRON_HEAD
+    qt = formats.quantize(torch.randn(k, n, generator=gen, device=dev)
+                          / math.sqrt(k), "itq3_s")
+    planes = _planes(qt)
+    x = torch.randn(4, k, generator=gen, device=dev)
+    got = itq3_matvec(x, *planes, rotate_weights=False, rotate_x=True)
+    if not torch.equal(got, itq3_matvec(x, *planes, rotate_weights=False,
+                                        rotate_x=True)):
+        raise AssertionError("nemotron head: two calls differ")
+    xr = fwht_ref(x)
+    want = torch.cat([itq3_matmul_ref(xr, *(p[c:c + 32000] for p in planes),
+                                      rotate_weights=False)
+                      for c in range(0, n, 32000)], dim=1)
+    rels["nemotron head N=256000 M=4"] = rel_err(got, want)[1]
+    del qt, planes
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in rels.items() if not v <= KERNEL_REL_TOL}
+    report["dense_family_widths_rel"] = rels
+    if bad:
+        raise AssertionError(f"dense-family widths past 1e-4: {bad}")
+    print(f"  dense-family widths (K 96 and 27 blocks, N 256,000): max rel "
+          f"error {max(rels.values()):.2e}, two calls bit-equal", flush=True)
+
+
+# head_dim 128 attention: olmoe (16 KV heads, G = 1) and nemotron (8 KV
+# heads, G = 6) timed at the decode and prefill rows of phase 3; qwen3-moe
+# (4 KV heads, G = 16) checked untimed
+HD128_MODELS = (("olmoe", 16, 1, True), ("nemotron", 8, 6, True),
+                ("qwen3-moe", 4, 16, False))
+
+
+def check_attn_hd128(led: Ledger, gen: torch.Generator, dev,
+                     report: dict) -> None:
+    """attn_q8 dense and paged at head_dim 128 over 4 slots: within 1e-4
+    of its plain version, two calls bit-equal, the paged kernel the dense
+    one's bits over the gathered view; olmoe's and nemotron's rows timed
+    (kernel ``attn_q8_hd128``). Then the head_dim-128 rotations at
+    olmoe's serving rows (the query and output FWHTs, the KV codec),
+    bit-equal to their plain versions."""
+    hd = 128
+    exact = {}
+    for model, kvh, g, timed in HD128_MODELS:
+        for label, tq, lens, offs, causal, t in ATTN_CASES[:2]:
+            kv_len = [x for x in lens for _ in range(kvh)]
+            q_off = [x for x in offs for _ in range(kvh)]
+            args, kw = _attn_case(gen, dev, r=SLOTS * kvh, tq=tq, g=g, hd=hd,
+                                  t=t, kv_len=kv_len, q_offset=q_off,
+                                  causal=causal)
+            got, want = attn_q8(*args, **kw), attn_q8_ref(*args, **kw)
+            what = f"{model} {label} R={SLOTS * kvh} G={g} HD={hd} T={t}"
+            if not _bit_equal(got, attn_q8(*args, **kw)):
+                raise AssertionError(f"attn_q8 {what}: two calls differ")
+            errs = _attn_errs(got, want)
+            if not errs["rel"] <= KERNEL_REL_TOL:
+                raise AssertionError(f"attn_q8 {what}: rel error "
+                                     f"{errs['rel']:.3e}")
+            # the same rows through the paged kernel: a shuffled pool
+            maxb = -(-t // BLOCK_SIZE)
+            table = (1 + torch.randperm(SLOTS * maxb, generator=gen,
+                                        device=dev)).reshape(SLOTS, maxb)
+            rows = paged_row_table(table.to(torch.int32), kvh)
+            q, kc, ks, vc, vs, kl, off = args
+            pool = [torch.zeros((SLOTS * maxb + 1) * kvh, BLOCK_SIZE,
+                                *p.shape[2:], dtype=p.dtype, device=dev)
+                    for p in (kc, ks, vc, vs)]
+            for plane, dense in zip(pool, (kc, ks, vc, vs)):
+                plane[rows.reshape(-1)] = dense.reshape(
+                    dense.shape[0] * maxb, BLOCK_SIZE, *dense.shape[2:])
+            pkw = dict(kw, block_size=BLOCK_SIZE)
+            paged = attn_q8_paged(q, *pool, kl, off, rows, **pkw)
+            exact[what] = max((a - b).abs().max().item()
+                              for a, b in zip(paged, got))
+            if exact[what] != 0:
+                raise AssertionError(f"attn_q8_paged {what}: differs from "
+                                     f"the dense kernel")
+            if not timed:
+                continue
+            mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
+            nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
+                      + 2 * len(kv_len) * 4 + 2 * (q.numel() // hd) * 4)
+            # the MoE path's rows (olmoe) name the kernel line's entry; the
+            # others stay in the details
+            led.add("attn_q8_hd128" if model == "olmoe"
+                    else f"attn_q8_hd128/{model}", what, **errs,
+                    ms=device_ms(lambda: attn_q8(*args, **kw)),
+                    plain_ms=device_ms(lambda: attn_q8_ref(*args, **kw)),
+                    library_ms=device_ms(_attn_library(args, kw, mask, dev)),
+                    nbytes=nbytes, flops=pairs * g * 4 * hd)
+    # olmoe's rotations: q and out (4 slots x 16 heads per decode step,
+    # x 64 positions per wave), K and V (16 KV heads)
+    for m in (SLOTS * 16, SLOTS * 16 * PROMPT_PAD):
+        x = torch.randn(m, hd, generator=gen, device=dev)
+        if not torch.equal(fwht(x, hd), fwht_ref(x, hd)):
+            raise AssertionError(f"fwht/128 ({m},128): not the plain bits")
+    for t in (1, PROMPT_PAD):
+        k, v = _kv_pair(gen, dev, SLOTS, 16, t, hd)
+        if not _kv_equal(fwht_kv_encode(k, v), fwht_kv_encode_ref(k, v)):
+            raise AssertionError(f"fwht_kv/128 T={t}: not the plain bits")
+    report["attn_hd128_paged_vs_dense_abs_err"] = exact
+    print("  head_dim 128: attn_q8 dense and paged at G = 1, 6, 16 within "
+          "1e-4, paged == dense bit for bit; fwht/128 and fwht_kv/128 at "
+          "olmoe's rows bit-equal to the plain versions", flush=True)
+
+
+def family_contract(cfg, *, kv_quant: bool, act_quant: bool,
+                    head: bool) -> tuple:
+    """The kernels of one decode step (all SLOTS slots) and of one prefill
+    wave (SLOTS prompts in one PROMPT_PAD bucket) of ``cfg``: per layer its
+    dense projections (4 attention, plus the MLP's 3 for swiglu or 2), the
+    MoE's expert projections as one expert-axis launch each (M = slots x
+    capacity rows per expert), and with ``kv_quant`` the attention's two
+    head_dim FWHTs, one KV codec and one ``attn_q8``; ``head`` when the
+    untied head is a ternary leaf (one more contraction of SLOTS rows).
+    A contraction of M <= 16 rows is the matvec (float: it rotates x
+    itself), else a 256-point FWHT and the matmul; on the W3A8 path one
+    ``fwht_act_encode`` and the int8 kernel."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import Runtime
+
+    layers = cfg.num_layers
+    mlp = 3 if cfg.activation == "swiglu" else 2
+    moe = cfg.family == "moe"
+    hd = cfg.resolved_head_dim
+    out = []
+    for t in (1, PROMPT_PAD):
+        per = collections.Counter()
+
+        def add(rows, n, suffix=""):
+            small = rows <= 16
+            if act_quant:
+                per["fwht_act/256"] += n
+                per[("itq3_matvec_int8" if small else "itq3_matmul_int8")
+                    + suffix] += n
+            else:
+                per[("itq3_matvec" if small else "itq3_matmul")
+                    + suffix] += n
+                if not small:
+                    per["fwht/256"] += n
+        add(SLOTS * t, layers * (4 if moe else 4 + mlp))
+        if moe:
+            cap = moe_mod.capacity(cfg, Runtime(), t)
+            add(SLOTS * cap, layers * mlp, "_experts")
+        if head:
+            add(SLOTS, 1)
+        if kv_quant:
+            per[f"fwht/{hd}"] += 2 * layers
+            per[f"fwht_kv/{hd}"] += layers
+            per["attn_q8"] += layers
+        out.append(per)
+    return tuple(out)
+
+
+def check_family_serving(label, eng, reqs, wall, counts, per_step,
+                         per_wave) -> dict:
+    """A counted serving run held to its contract: every request finishes
+    with ``length`` and no slot is quarantined, one host sync per step and
+    per wave, and each kernel launched exactly ``per_step`` times per
+    decode step and ``per_wave`` times per prefill wave. Returns the run's
+    numbers."""
+    st = eng.stats()
+    bad = [r.rid for r in reqs if r.finish_reason != "length"
+           or len(r.out) != MAX_NEW]
+    if bad or st["quarantined"]:
+        raise AssertionError(f"{label}: requests {bad} did not finish with "
+                             f"length / {st['quarantined']} quarantined")
+    steps, waves = st["decode_steps"], st["prefill_waves"]
+    if st["host_syncs"] != steps + waves:
+        raise AssertionError(f"{label}: {st['host_syncs']} host syncs for "
+                             f"{steps} steps and {waves} waves")
+    expected = {k: per_step[k] * steps + per_wave[k] * waves
+                for k in per_step | per_wave}
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts} != expected "
+                             f"{expected}")
+    out = dict(
+        wall_s=wall, launches=counts, stats=st,
+        decode_tok_s=st["tokens_decoded"] / st["decode_seconds"],
+        decode_ms_per_step=1e3 * st["decode_seconds"] / steps,
+        prefill_ms_per_wave=1e3 * st["prefill_seconds"] / waves,
+        launches_per_decode_step=dict(per_step),
+        launches_per_prefill_wave=dict(per_wave),
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    print(f"  {label}: {len(reqs)} requests / "
+          f"{sum(len(r.out) for r in reqs)} tokens in {wall:.2f} s: decode "
+          f"{out['decode_tok_s']:.1f} tok/s ({out['decode_ms_per_step']:.1f} "
+          f"ms/step over {steps} steps), prefill "
+          f"{out['prefill_ms_per_wave']:.1f} ms/wave over {waves} waves, "
+          f"one host sync per step and wave, peak memory "
+          f"{out['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"  launches per decode step {dict(per_step)}; per prefill wave "
+          f"{dict(per_wave)}", flush=True)
+    return out
+
+
+def family_parity(params, cfg, prompts, dev, *, kv_quant: bool,
+                  act_quant: bool = False) -> dict:
+    """Layer-forced logits, kernel path against plain path (``two_paths``),
+    prefill then 4 decode steps, held to 1e-3 of the largest logit. For
+    an MoE the router's choices of both paths are compared at every layer:
+    a real token routed differently must sit on a k/k+1 probability gap
+    below ROUTE_GAP_TOL (printed with the two paths' largest probability
+    difference for it), and its batch row leaves that step's logits check.
+    A prefill's pad positions are counted apart and not held: they follow
+    the prompt, so the stable sort ranks them after every real token of
+    their expert (they never take a real token's slot) and no real token
+    attends them; their identical inputs repeat any one KV rounding tie
+    at every pad position of the row."""
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+
+    records = []
+    real = moe_mod.route
+
+    def spy(p, x, rt, cfg_):
+        out = real(p, x, rt, cfg_)
+        records.append((out[1], out[2]))
+        return out
+    n = SLOTS
+    toks = torch.as_tensor(np.stack([np.pad(p, (0, PROMPT_PAD - len(p)))
+                                     for p in prompts[:n]]), device=dev)
+    last = torch.as_tensor([len(p) - 1 for p in prompts[:n]], device=dev)
+    caches = [lm.init_cache(cfg, n, MAX_LEN, kv_quant=kv_quant, device=dev)
+              for _ in range(2)]
+    errs, partings, pad_partings = [], [], 0
+    moe_mod.route = spy
+    try:
+        tokens, pos, idx = toks, 0, last
+        for step in range(5):
+            records.clear()
+            logits = two_paths(params, cfg, tokens, caches, pos, idx, True,
+                               act_quant, kv_quant)
+            parted = set()
+            for layer, ((ki, kp), (pi, pp)) in enumerate(
+                    zip(records[0::2], records[1::2])):
+                for b, t in (ki != pi).any(-1).nonzero().tolist():
+                    if step == 0 and t > last[b]:
+                        pad_partings += 1
+                        continue
+                    top = torch.sort(pp[b, t], descending=True).values
+                    k = cfg.experts_per_token
+                    gap = (top[k - 1] - top[k]).item()
+                    dp = (kp[b, t] - pp[b, t]).abs().max().item()
+                    partings.append(dict(step=step, layer=layer, row=b,
+                                         token=t, gap=gap, max_dp=dp))
+                    print(f"  routing parts at step {step} layer {layer} row "
+                          f"{b} token {t}: k/k+1 gap {gap:.2e}, the paths' "
+                          f"largest probability difference {dp:.2e}",
+                          flush=True)
+                    if not gap < ROUTE_GAP_TOL:
+                        raise AssertionError(
+                            f"{cfg.name}: routing parts on a gap of {gap:.3e}")
+                    parted.add(b)
+            rows = [b for b in range(n) if b not in parted]
+            errs.append(rel_err(logits[0][rows], logits[1][rows])[1]
+                        if rows else 0.0)
+            tokens = logits[1][:, 0].argmax(-1)[:, None]
+            pos = last + 1 + step
+            idx = None
+    finally:
+        moe_mod.route = real
+    print(f"  layer-forced logits rel error (max |diff| / max |logit|), "
+          f"prefill then 4 decode steps: "
+          f"{', '.join(f'{e:.2e}' for e in errs)}; {len(partings)} routing "
+          f"partings of real tokens, {pad_partings} of prefill pad "
+          f"positions (not held)", flush=True)
+    if not max(errs) <= LOGITS_REL_TOL:
+        raise AssertionError(f"{cfg.name}: layer-forced logits rel error "
+                             f"{max(errs):.3e} > {LOGITS_REL_TOL}")
+    return dict(logits_rel=errs, routing_partings=partings,
+                pad_routing_partings=pad_partings)
+
+
+def family_serve(params, cfg, dev, report: dict, key: str, *,
+                 kv_quant: bool, act_quant: bool, head: bool,
+                 profile_table=None) -> dict:
+    """Serve phase 4's 8 requests on ``params`` twice (the first run warms
+    up; the streams must be equal), the second counted and held to
+    :func:`family_contract`; then the layer-forced parity, and with
+    ``profile_table`` one short traced run for the device's idle share.
+    Returns the counted run's launches."""
+    prompts = make_prompts(cfg)
+
+    def serve(count, max_new=MAX_NEW):
+        return serve_run(params, cfg, prompts, dev, count=count,
+                         max_new=max_new, kv_quant=kv_quant,
+                         act_quant=act_quant)
+
+    _, first, _, _ = serve(False)
+    eng, reqs, wall, counts = serve(True)
+    if [r.out for r in reqs] != [r.out for r in first]:
+        raise AssertionError(f"{key}: two runs' streams differ")
+    per_step, per_wave = family_contract(cfg, kv_quant=kv_quant,
+                                         act_quant=act_quant, head=head)
+    out = check_family_serving(f"{key} ({cfg.num_layers} layers)", eng,
+                               reqs, wall, counts, per_step, per_wave)
+    out["parity"] = family_parity(params, cfg, prompts, dev,
+                                  kv_quant=kv_quant, act_quant=act_quant)
+    report[key] = out
+    if profile_table is not None:
+        profile_phase(lambda: serve(False, max_new=PROFILE_NEW), report,
+                      f"{key}_profile", profile_table)
+    return counts
+
+
+def seeded_model(cfg, policy, dev, report: dict, key: str):
+    """``cfg`` at full width, seeded on the card and quantized as drawn;
+    records the seconds, the resident bytes and the peak memory."""
+    from repro_torch.models import lm
+    from repro_torch.serve.quantized import quantized_bytes
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_quantized_params(cfg, policy, seed=0, device=dev)
+    torch.cuda.synchronize()
+    info = dict(seed_quantize_s=time.perf_counter() - t0,
+                quantized_bytes=quantized_bytes(params),
+                seed_peak_mem_bytes=torch.cuda.max_memory_allocated())
+    report[f"{key}_model"] = info
+    print(f"  {cfg.name} at full width, {cfg.num_layers} layers: seeded and "
+          f"quantized on the card in {info['seed_quantize_s']:.1f} s, "
+          f"{info['quantized_bytes'] / 2**30:.2f} GiB resident, peak "
+          f"{info['seed_peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    return params
+
+
+def moe_phase(dev, report: dict) -> dict:
+    """Phase 11: olmoe-1b-7b at full width and depth (16 layers, d_model
+    2048, 64 experts top-8, vocab 50,304). (a) The float path: uniform
+    itq3_s, ``kv_quant``, 4 slots, phase 4's 8 requests; exact launches,
+    one host sync per step and wave, two runs' streams equal, layer-forced
+    logits under the routing rule, and a short traced run for the idle
+    share. (b) The W3A8 path: the mixed policy (experts itq3_s_sub, head
+    q8_0, router fp) with ``act_quant``, held alike. Returns (a)'s
+    launches, with (b)'s int8 ones."""
+    from repro_torch.configs import mixed_precision_recipe
+    from repro_torch.serve.quantized import QuantPolicy
+
+    cfg = get_config("olmoe-1b-7b")
+    print(f"phase 11: the MoE path, {cfg.name} ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, vocab {cfg.vocab_size})", flush=True)
+    params = seeded_model(cfg, "itq3_s", dev, report, "moe")
+    counts = family_serve(params, cfg, dev, report, "moe", kv_quant=True,
+                          act_quant=False, head=True,
+                          profile_table=TABLE.with_name(
+                              "chip_smoke_profile_moe.txt"))
+    del params
+    print("  (b) the W3A8 path: mixed policy, act_quant", flush=True)
+    policy = QuantPolicy.from_dict(mixed_precision_recipe(cfg))
+    params = seeded_model(cfg, policy, dev, report, "moe_w3a8")
+    w3a8 = family_serve(params, cfg, dev, report, "moe_w3a8", kv_quant=True,
+                        act_quant=True, head=False)
+    del params
+    torch.cuda.empty_cache()
+    return {**counts, **{k: v for k, v in w3a8.items() if "int8" in k}}
+
+
+def dense_family_phase(dev, report: dict) -> None:
+    """Phase 12: nemotron-4-15b (LayerNorm, relu2, GQA 48/8, untied
+    256,000-column head, ``kv_quant`` at head_dim 128) and stablelm-3b
+    (LayerNorm, rotary_pct 0.25, head_dim 80 on the fp cache), each at
+    full width and two layers, uniform itq3_s: greedy streams equal on two
+    runs, exact launches, layer-forced logits within 1e-3."""
+    print("phase 12: the rest of the dense family at full width, "
+          f"{DENSE_FAMILY_LAYERS} layers each", flush=True)
+    for arch, kv_quant in DENSE_FAMILY:
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=DENSE_FAMILY_LAYERS)
+        params = seeded_model(cfg, "itq3_s", dev, report, arch)
+        family_serve(params, cfg, dev, report, arch, kv_quant=kv_quant,
+                     act_quant=False, head=True)
+        del params
+        torch.cuda.empty_cache()
+
+
 def profile_phase(run, report: dict, key: str = "profile",
                   table: Path = TABLE) -> None:
     """With ``--profile``: one shorter kernel-path serving run (``run()``,
@@ -2764,6 +3507,14 @@ def main(argv=None) -> int:
     check_int8_edges(gen, dev, report)
     int8_tile_sweep(gen, dev, int8w, report, timed=not args.profile)
     int8_ptxas_report(report)
+    print("phase 3 (MoE and dense family): the expert axis at olmoe's "
+          "shapes, head_dim 128 attention, the dense family's widths",
+          flush=True)
+    check_experts(led, gen, dev, report)
+    expert_tile_sweep(gen, dev, report, timed=not args.profile)
+    check_expert_edges(gen, dev, report)
+    check_attn_hd128(led, gen, dev, report)
+    check_dense_family_widths(gen, dev, report)
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the
@@ -2791,6 +3542,12 @@ def main(argv=None) -> int:
         chaos_phase(dev, report, cfg)
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         report["spec_launches"] = spec_phase(dev, report, cfg, dense_reqs)
+        # the MoE path (phase 11) launches the expert forms and the head_dim
+        # 128 attention; phase 12 the rest of the dense family
+        moe = moe_phase(dev, report)
+        counts.update({k: v for k, v in moe.items() if k.endswith("_experts")})
+        counts["attn_q8_hd128"] = moe["attn_q8"]
+        dense_family_phase(dev, report)
 
     # kernel -> (source, the TPU kernel it replaces)
     kernel_table = {
@@ -2810,6 +3567,24 @@ def main(argv=None) -> int:
                             "src/repro/kernels/quantize_kernel.py:51"),
         "attn_q8_paged": ("attn_q8",
                           "src/repro/kernels/attn_decode.py:230 (table)"),
+        # the expert axis: the reference vmaps dense over the stacked
+        # experts (src/repro/models/moe.py:44), one pallas_call with an
+        # extra grid axis
+        "itq3_matvec_experts": ("itq3_matvec",
+                                "src/repro/kernels/itq3_matvec.py:82 "
+                                "(vmapped over experts)"),
+        "itq3_matmul_experts": ("itq3_matmul",
+                                "src/repro/kernels/itq3_matmul.py:339 "
+                                "(vmapped over experts)"),
+        "itq3_matvec_int8_experts": ("itq3_matvec_int8",
+                                     "src/repro/kernels/itq3_matvec.py:183 "
+                                     "(vmapped over experts)"),
+        "itq3_matmul_int8_experts": ("itq3_matmul_int8",
+                                     "src/repro/kernels/itq3_matmul.py:436 "
+                                     "(vmapped over experts)"),
+        "attn_q8_hd128": ("attn_q8",
+                          "src/repro/kernels/attn_decode.py:230 "
+                          "(head_dim 128)"),
     }
     kernels = []
     for name, (source, replaces) in kernel_table.items():

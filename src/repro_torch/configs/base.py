@@ -1,9 +1,12 @@
 """Model configuration for the port (copy of ``repro/configs/base.py``).
 
-Only the dense llama-family models this slice serves are registered:
-``smollm-135m`` and ``qwen1.5-0.5b``. ``reduced()`` gives the same topology
-at CPU-test size, exactly as the reference does, so a reduced config built
-here equals the reference's field for field.
+The models of the two self-attention families the port serves are
+registered: the dense ``smollm-135m``, ``qwen1.5-0.5b`` (RMSNorm, swiglu,
+tied), ``nemotron-4-15b`` (LayerNorm, relu2, untied) and ``stablelm-3b``
+(LayerNorm, partial rotary, untied), and the MoE ``olmoe-1b-7b`` and
+``qwen3-moe-235b-a22b``. ``reduced()`` gives the same topology at CPU-test
+size, exactly as the reference does, so a reduced config built here
+equals the reference's field for field.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ __all__ = ["ModelConfig", "get_config", "reduced", "ARCH_IDS",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense (the only family this slice serves)
+    family: str  # dense | moe (the families the port serves)
     num_layers: int
     d_model: int
     num_heads: int
@@ -26,8 +29,11 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
     norm: str = "rmsnorm"  # rmsnorm | layernorm
-    activation: str = "swiglu"
+    activation: str = "swiglu"  # swiglu | gelu | relu2
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     rotary_pct: float = 1.0
@@ -39,7 +45,8 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
 
-ARCH_IDS = ["qwen1.5-0.5b", "smollm-135m"]
+ARCH_IDS = ["qwen3-moe-235b-a22b", "olmoe-1b-7b", "qwen1.5-0.5b",
+            "nemotron-4-15b", "smollm-135m", "stablelm-3b"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -62,9 +69,10 @@ def mixed_precision_recipe(cfg: ModelConfig, *, head_fmt: str = "q8_0",
 
       * the LM head at 8-bit; tied-embedding models project through
         ``embed.T``, so the head rule targets the table there instead,
-      * MLP projections at the sub-block-scale ternary variant,
+      * MLP and expert projections at the sub-block-scale ternary variant,
       * every other matmul projection at plain ITQ3_S,
-      * norms and biases fp via the policy's no-match default.
+      * the MoE router, norms and biases fp via the policy's no-match
+        default.
     """
     from repro_torch.serve.quantized import MATMUL_LEAVES  # leaf vocabulary
 
@@ -88,7 +96,8 @@ def kv_cache_bytes_per_token(cfg: ModelConfig, *, kv_quant: bool = False,
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-topology config for CPU tests: 4 layers, d_model 128,
-    4 heads at head_dim 32, the GQA ratio preserved."""
+    4 heads at head_dim 32, the GQA ratio preserved; at most 8 experts and
+    top-2 routing."""
     kv_ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     return dataclasses.replace(
@@ -100,4 +109,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         head_dim=32,
         d_ff=256,
         vocab_size=512,
+        num_experts=min(cfg.num_experts, 8) if cfg.num_experts else 0,
+        experts_per_token=min(cfg.experts_per_token, 2)
+        if cfg.num_experts else 0,
     )

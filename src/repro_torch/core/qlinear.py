@@ -26,6 +26,15 @@ quantize them to int8 per row in one launch
 and contract against the int8 ``wint`` in the int8 kernels. It is honoured only
 for the ternary family, when the weight's ``QMeta.act_quant`` allows it and
 never for ``mode="dequant"``; ``ref`` then runs ``contract_int8``.
+
+:func:`qmatmul_experts` is the expert-batched entry, ``x (E, M, K)``
+against an ``(E, K, N)`` stacked QTensor (the MoE expert projections, the
+reference's ``jax.vmap`` of ``dense`` over the stack), with the same
+modes, backends and ``act_quant``: on the kernel path one FWHT (or one
+``fwht_act_encode``) over all E·M rows where the path has one, then ONE
+expert-axis launch of the matvec (M <= 16 rows per expert, as the
+reference decides per expert) or of the tiled kernel. It never loops
+over experts on the card; the plain paths take the experts one by one.
 """
 from __future__ import annotations
 
@@ -40,8 +49,8 @@ from repro_torch.kernels.itq3 import (
     itq3_matvec_int8,
 )
 
-__all__ = ["qmatmul", "qmatmul_kernel", "resolve_mode", "QLINEAR_MODES",
-           "QMATMUL_BACKENDS"]
+__all__ = ["qmatmul", "qmatmul_kernel", "qmatmul_experts", "resolve_mode",
+           "QLINEAR_MODES", "QMATMUL_BACKENDS"]
 
 QLINEAR_MODES = ("dequant", "weights", "activations", "auto")
 QMATMUL_BACKENDS = ("auto", "ref", "cuda")
@@ -57,9 +66,8 @@ def resolve_mode(x: torch.Tensor, m, mode: str) -> str:
     return "activations" if rows <= m.n else "weights"
 
 
-def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
-            backend: str = "auto", act_quant: bool = False) -> torch.Tensor:
-    """``x (..., K) @ W_hat (K, N) -> (..., N)`` in f32."""
+def _checked(x, qt, mode, backend):
+    """Validate the knobs; returns the format spec."""
     m = qt.meta
     if len(m.shape) != 2:
         raise ValueError(f"qmatmul expects 2-D weights, got shape {m.shape}")
@@ -69,7 +77,14 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
         raise ValueError(f"backend {backend!r} not in {QMATMUL_BACKENDS}")
     if backend == "cuda" and not x.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors")
-    spec = fmt_mod.get_format(m.fmt)
+    return fmt_mod.get_format(m.fmt)
+
+
+def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
+            backend: str = "auto", act_quant: bool = False) -> torch.Tensor:
+    """``x (..., K) @ W_hat (K, N) -> (..., N)`` in f32."""
+    m = qt.meta
+    spec = _checked(x, qt, mode, backend)
     mode = resolve_mode(x, m, mode) if spec.supports_fused else "dequant"
     act = act_quant and spec.supports_fused and m.act_quant \
         and mode != "dequant"
@@ -92,22 +107,45 @@ def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
       (quip3), then the float matvec, which rotates x itself in
       activations mode, or the FWHT kernel (activations mode) and the
       tiled kernel."""
-    m = qt.meta
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    x3 = x.reshape(1, -1, x.shape[-1])
+    return _contract(x3, qt, mode, act_quant, stacked=False).reshape(
+        *lead, qt.meta.n)
+
+
+def _contract(x3: torch.Tensor, qt: QTensor, mode: str, act_quant: bool, *,
+              stacked: bool) -> torch.Tensor:
+    """The kernel path on ``x3 (E, rows, K)``: one matrix (E = 1, the
+    wrappers given 2-D operands) or an expert stack (``stacked``, one
+    expert-axis launch). Returns ``(E, rows, N)``, or ``(rows, N)`` for
+    one matrix."""
+    m = qt.meta
+    e, rows = x3.shape[:2]
+    x2 = x3.reshape(e * rows, x3.shape[-1]).to(torch.float32)
     dsign = qt.data.get("dsign")
     d = qt.data
+    small = rows <= MATVEC_MAX_M
+    if stacked and dsign is not None and dsign.dim() == 2 and m.rotate:
+        # one sign diagonal per expert, (E, block), as the reference's
+        # nested vmap stacks it: w_hat = D H v, so pre-scale each expert's
+        # rows by its own D (a +-1 product: exact)
+        xp = pad_last_dim(x2, m.block)
+        x2 = (xp.reshape(e, rows, -1, m.block) * dsign.to(xp.dtype)[
+            :, None, None, :]).reshape(e * rows, -1)
+        dsign = None
+
+    def operand(t):  # the wrappers' operand: (E, rows, ...) for a stack
+        return t.reshape(e, rows, -1) if stacked else t
+
     if act_quant:
         xq, xs = fwht_act_encode(x2.contiguous(), block=m.block,
                                  rotate=m.rotate, dsign=dsign)
-        fn = itq3_matvec_int8 if xq.shape[0] <= MATVEC_MAX_M \
-            else itq3_matmul_int8
-        out = fn(xq, xs, d["plane2"], d["plane1"], d["scales"], d["zps"],
-                 fivelevel=m.fivelevel, sub_blocks=m.sub_blocks)
-        return out.reshape(*lead, m.n)
+        fn = itq3_matvec_int8 if small else itq3_matmul_int8
+        return fn(operand(xq), operand(xs), d["plane2"], d["plane1"],
+                  d["scales"], d["zps"], fivelevel=m.fivelevel,
+                  sub_blocks=m.sub_blocks)
     xp = pad_last_dim(x2, m.block)
     rotate_weights = rotate_x = False
-    small = xp.shape[0] <= MATVEC_MAX_M
     if m.rotate:
         if dsign is not None:
             # w_hat = D H v  =>  y = v . (H D x): pre-scale x by D either way
@@ -122,10 +160,36 @@ def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
             rotate_weights = True
         else:
             raise ValueError(f"unknown kernel mode {mode!r}")
-    xp = xp.contiguous()
+    xp = operand(xp).contiguous()
     planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
     kw = dict(rotate_weights=rotate_weights, fivelevel=m.fivelevel,
               sub_blocks=m.sub_blocks)
-    out = (itq3_matvec(xp, *planes, rotate_x=rotate_x, **kw) if small
-           else itq3_matmul(xp, *planes, **kw))
-    return out.reshape(*lead, m.n)
+    return (itq3_matvec(xp, *planes, rotate_x=rotate_x, **kw) if small
+            else itq3_matmul(xp, *planes, **kw))
+
+
+def qmatmul_experts(x: torch.Tensor, qt: QTensor, *,
+                    mode: str = "activations", backend: str = "auto",
+                    act_quant: bool = False) -> torch.Tensor:
+    """Expert-batched ``x (E, M, K) @ W_hat_e (K, N) -> (E, M, N)`` in f32
+    for a QTensor stacked ``(E, K, N)``. ``mode="auto"`` and the
+    matvec/matmul choice look at one expert's M rows, as the reference's
+    vmapped ``qmatmul`` does."""
+    m = qt.meta
+    spec = _checked(x, qt, mode, backend)
+    e = x.shape[0]
+    experts = next(v for k, v in qt.data.items() if k != "dsign").shape[0]
+    if x.dim() != 3 or experts != e:
+        raise ValueError(f"qmatmul_experts: x {tuple(x.shape)} against a "
+                         f"stack of {experts} experts")
+    mode = resolve_mode(x[0], m, mode) if spec.supports_fused else "dequant"
+    act = act_quant and spec.supports_fused and m.act_quant \
+        and mode != "dequant"
+    if backend == "ref" or mode == "dequant":
+        # the plain path: the per-matrix contraction, expert by expert
+        def one(i):
+            qe = qt.layer(i)
+            return (spec.contract_int8(x[i], qe) if act
+                    else spec.contract(x[i], qe, mode=mode))
+        return torch.stack([one(i) for i in range(e)])
+    return _contract(x, qt, mode, act, stacked=True)

@@ -40,6 +40,17 @@ __device__ __forceinline__ float warp_max(float v) {
 
 constexpr unsigned kZeroCodes = 0x55555555u;  // every 2-bit payload 1: q = 0
 
+// The expert axis of the contraction kernels: expert e of a stack of E
+// contractions reads its operands at e times these element strides from
+// the base pointers and writes its output likewise (the stacks are
+// contiguous (E, M, K) / (E, N, KB, ...) / (E, M, N); itq3_matmul.cu
+// addresses an expert by global rows instead and only checks the
+// strides). One matrix is E = 1, where e is 0 and nothing moves. `xscale`
+// is the int8 pair's row scales (0 for the float kernels).
+struct ExpertStrides {
+  long long x, xscale, plane2, plane1, scales, zps, out;
+};
+
 // The scale modes of the int8 kernels and the float matvec: d per block;
 // itq3_s_sub's 8 sub-blocks of 32 elements (the serving one); any other
 // divisor of 256, off the serving path.
@@ -91,16 +102,19 @@ template <int kMode>
 struct RunPlanes {
   uint4 b2[kRunBlocks], b1[kRunBlocks], sc[kRunBlocks];
 
+  // blk0: the first block of this matrix in a stack of them (an expert's
+  // index times the stack's stride in blocks; 0 for one matrix)
   __device__ __forceinline__ void load(
       const uint8_t* __restrict__ plane2, const uint8_t* __restrict__ plane1,
       const __half* __restrict__ scales, const __half* __restrict__ zps,
-      int n, int N, int KB, int kb, int kb_end, int q, int fivelevel) {
+      int n, int N, int KB, int kb, int kb_end, int q, int fivelevel,
+      long long blk0 = 0) {
 #pragma unroll
     for (int r = 0; r < kRunBlocks; ++r) {
       b2[r] = make_uint4(kZeroCodes, kZeroCodes, kZeroCodes, kZeroCodes);
       b1[r] = sc[r] = make_uint4(0u, 0u, 0u, 0u);  // features past N: zeros
       if (n < N && kb + r < kb_end) {
-        const long long blk = (long long)n * KB + kb + r;
+        const long long blk = blk0 + (long long)n * KB + kb + r;
         b2[r] = __ldg(reinterpret_cast<const uint4*>(plane2 + blk * 64) + q);
         if (fivelevel)
           b1[r] = __ldg(reinterpret_cast<const uint4*>(plane1 + blk * 32) +

@@ -59,7 +59,19 @@
 // shared memory and stores it. No workspace, no atomics: the order, not
 // the arrival, fixes the sums, so two calls give the same bits. The
 // wrapper picks BM and splits per shape (kernels/itq3.py matmul_tiles).
+//
+// Experts. A stack of E matrices with their E inputs (the MoE expert
+// projections, the vmapped pallas_call's extra grid axis on a TPU) is one
+// launch: y walks expert 0's row tiles, then expert 1's. The stacks are
+// contiguous, so an expert's rows of x, out and the planes are global
+// rows past the previous experts', each bounded by its own expert's end:
+// no offset pointer takes registers from the tile (with one, the 64-row
+// instantiations passed 128 registers, two no longer fit an SM, and a
+// 6-way split ran 1.8x slower). Each tile's arithmetic is the one
+// matrix's, so E = 1 gives the same bits; the E x N/64 x M/bm tiles fill
+// the card where one matrix's would not, so the cut rule counts them all.
 // wgmma and TMA staging are later work.
+#include <climits>
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -322,15 +334,17 @@ __device__ __forceinline__ void store_frag(float* __restrict__ out, int M,
 }
 
 // Launched with clusters of gridDim.z blocks along z when gridDim.z > 1.
+// Two 64-row blocks fit an SM's shared memory; at most 128 registers a
+// thread lets them both be resident (a split grid then runs in one wave).
 template <int kWM, int kMode>
-__global__ void __launch_bounds__(kWM * kWN * 32, 1)
+__global__ void __launch_bounds__(kWM * kWN * 32, kWM == 4 ? 2 : 1)
 itq3_matmul_kernel(const float* __restrict__ x,
                    const uint8_t* __restrict__ plane2,
                    const uint8_t* __restrict__ plane1,
                    const __half* __restrict__ scales,
                    const __half* __restrict__ zps, float* __restrict__ out,
                    int M, int N, int KB, int kb_per_split, int fivelevel,
-                   int sub_blocks) {
+                   int sub_blocks, int m_tiles) {
   constexpr int kBM = 16 * kWM, kThreads = 32 * kWM * kWN;
   extern __shared__ __align__(16) float smem[];
   float* wsm = smem;              // kBN x 256 weight operand
@@ -339,7 +353,15 @@ itq3_matmul_kernel(const float* __restrict__ x,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;  // MMA group / thread in group
   const int wm = warp / kWN, wn = warp % kWN;  // this warp's rows / columns
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  // blockIdx.y = expert * m_tiles + row tile (expert 0 for one matrix).
+  // An expert's rows of x and out follow the previous experts' M rows,
+  // its planes' rows their N rows (contiguous stacks, checked at launch),
+  // so the tile is addressed by global row indices, each bounded by its
+  // expert's end: no pointer is offset, and none is held in registers.
+  const int ex = blockIdx.y / m_tiles;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = (blockIdx.y - ex * m_tiles) * kBM + ex * M;
+  const int m_end = ex * M + M, nrow = ex * N;
   const int kb0 = blockIdx.z * kb_per_split;
   const int nchunks = (min(KB, kb0 + kb_per_split) - kb0) * 4;
   const long long K = (long long)KB * 256;
@@ -352,7 +374,7 @@ itq3_matmul_kernel(const float* __restrict__ x,
       for (int k = 0; k < kBM * (kKC / 4) / kThreads; ++k) {
         const int idx = threadIdx.x + k * kThreads;
         const int r = idx >> 4, g = idx & 15, m = m0 + r;
-        const bool ok = m < M;
+        const bool ok = m < m_end;
         cp_async16(dst + swz(r, g, kKC / 4),
                    ok ? x + (long long)m * K + kofs + 4 * g : x, ok);
       }
@@ -372,7 +394,8 @@ itq3_matmul_kernel(const float* __restrict__ x,
 
   const int ra = wm * 16 + gid, wr = wn * (8 * kNT) + gid;
   TilePlanes<kThreads> pl;
-  pl.load(plane2, plane1, scales, zps, n0, N, KB, kb0, fivelevel, sub_blocks);
+  pl.load(plane2, plane1, scales, zps, nrow + n0, nrow + N, KB, kb0,
+          fivelevel, sub_blocks);
   load_x(0);
   load_x(1);
   for (int i = 0; i < nchunks; ++i) {
@@ -380,11 +403,11 @@ itq3_matmul_kernel(const float* __restrict__ x,
     if (c == 0) {  // a new 256-block: decode its weight tile
       const int kb = kb0 + (i >> 2);
       __syncthreads();  // the previous block's tile is consumed
-      decode_tile<kThreads, kMode>(pl, wsm, sd, scales, n0, N, KB, kb,
-                                   fivelevel, sub_blocks);
+      decode_tile<kThreads, kMode>(pl, wsm, sd, scales, nrow + n0, nrow + N,
+                                   KB, kb, fivelevel, sub_blocks);
       if (i + 4 < nchunks)
-        pl.load(plane2, plane1, scales, zps, n0, N, KB, kb + 1, fivelevel,
-                sub_blocks);
+        pl.load(plane2, plane1, scales, zps, nrow + n0, nrow + N, KB, kb + 1,
+                fivelevel, sub_blocks);
       if constexpr (kMode == kWint) {
 #pragma unroll
         for (int h = 0; h < 2; ++h)
@@ -422,7 +445,7 @@ itq3_matmul_kernel(const float* __restrict__ x,
   if (nsplit == 1) {
 #pragma unroll
     for (int t = 0; t < kNT; ++t)
-      store_frag(out, M, N, m0 + ra, n0 + wr - gid + t * 8 + 2 * tig,
+      store_frag(out, m_end, N, m0 + ra, n0 + wr - gid + t * 8 + 2 * tig,
                  make_float4(acc[0][t][0], acc[0][t][1], acc[0][t][2],
                              acc[0][t][3]));
     return;
@@ -460,7 +483,7 @@ itq3_matmul_kernel(const float* __restrict__ x,
     }
     const int t = f / kThreads, th = f % kThreads, ln = th & 31;
     const int w = th >> 5;  // the fragment's warp: rows, columns as above
-    store_frag(out, M, N, m0 + (w / kWN) * 16 + (ln >> 2),
+    store_frag(out, m_end, N, m0 + (w / kWN) * 16 + (ln >> 2),
                n0 + (w % kWN) * (8 * kNT) + t * 8 + 2 * (ln & 3), sum);
   }
   cluster.sync();  // the partials stay until every block has read them
@@ -471,7 +494,7 @@ static int launch_tile(dim3 grid, cudaStream_t stream, const float* x,
                        const uint8_t* plane2, const uint8_t* plane1,
                        const __half* scales, const __half* zps, float* out,
                        int M, int N, int KB, int kb_per_split, int fivelevel,
-                       int sub_blocks) {
+                       int sub_blocks, int m_tiles) {
   constexpr int smem =
       (int)((kBN * 256 + kStages * 16 * kWM * kKC) * sizeof(float));
   const cudaError_t err = cudaFuncSetAttribute(
@@ -492,7 +515,7 @@ static int launch_tile(dim3 grid, cudaStream_t stream, const float* x,
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, itq3_matmul_kernel<kWM, kMode>, x,
                                  plane2, plane1, scales, zps, out, M, N, KB,
-                                 kb_per_split, fivelevel, sub_blocks);
+                                 kb_per_split, fivelevel, sub_blocks, m_tiles);
 }
 
 template <int kWM>
@@ -500,10 +523,10 @@ static int launch_rows(int mode, dim3 grid, cudaStream_t stream,
                        const float* x, const uint8_t* plane2,
                        const uint8_t* plane1, const __half* scales,
                        const __half* zps, float* out, int M, int N, int KB,
-                       int kbps, int fivelevel, int sub_blocks) {
+                       int kbps, int fivelevel, int sub_blocks, int m_tiles) {
 #define MATMUL_LAUNCH(MODE)                                                 \
   launch_tile<kWM, MODE>(grid, stream, x, plane2, plane1, scales, zps, out, \
-                         M, N, KB, kbps, fivelevel, sub_blocks)
+                         M, N, KB, kbps, fivelevel, sub_blocks, m_tiles)
   switch (mode) {
     case kWint: return MATMUL_LAUNCH(kWint);
     case kScaledQ: return MATMUL_LAUNCH(kScaledQ);
@@ -512,33 +535,47 @@ static int launch_rows(int mode, dim3 grid, cudaStream_t stream,
 #undef MATMUL_LAUNCH
 }
 
-// Grid (ceil(N / 64), ceil(M / bm), splits), bm 32 or 64, in clusters of
-// the splits (at most 8, the portable cluster size); the KB blocks are
-// cut into splits runs of ceil(KB / splits), which must leave none empty.
-// x must be 16-byte aligned.
+// Grid (ceil(N / 64), E * ceil(M / bm), splits), bm 32 or 64, in clusters
+// of the splits (at most 8, the portable cluster size); y walks the row
+// tiles of expert 0, then expert 1, ... of a stack of E matrices (E = 1:
+// one matrix), whose per-expert strides (in elements) must be those of
+// contiguous (E, M, K) / (E, N, KB, ...) / (E, M, N) stacks. The KB
+// blocks are cut into splits runs of ceil(KB / splits), which must leave
+// none empty. x must be 16-byte aligned.
 extern "C" int itq3_matmul_launch(const float* x, const uint8_t* plane2,
                                   const uint8_t* plane1, const __half* scales,
                                   const __half* zps, float* out, int M, int N,
                                   int KB, int rotate, int fivelevel,
-                                  int sub_blocks, int bm, int splits,
+                                  int sub_blocks, int bm, int splits, int E,
+                                  long long sx, long long splane2,
+                                  long long splane1, long long sscales,
+                                  long long szps, long long sout,
                                   cudaStream_t stream) {
   if (M < 1 || N < 1 || KB < 1 || splits < 1 || splits > KB ||
       splits > kMaxSplits ||
       sub_blocks < 0 || (sub_blocks && 256 % sub_blocks) ||
-      ((uintptr_t)x & 15))
+      ((uintptr_t)x & 15) || E < 1 || (sx & 3) || (bm != 32 && bm != 64))
     return (int)cudaErrorInvalidValue;
   const int kbps = (KB + splits - 1) / splits;
   if ((KB + kbps - 1) / kbps != splits) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, (M + bm - 1) / bm, splits);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const int m_tiles = (M + bm - 1) / bm;
+  const long long nb = (long long)N * KB;
+  if ((long long)E * m_tiles > 65535 ||
+      (long long)E * (M > N ? M : N) > INT_MAX ||
+      (E > 1 && (sx != (long long)M * KB * 256 || splane2 != nb * 64 ||
+                 splane1 != nb * 32 ||
+                 sscales != nb * (sub_blocks ? sub_blocks : 1) ||
+                 szps != nb || sout != (long long)M * N)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kBN - 1) / kBN, E * m_tiles, splits);
   const int mode = rotate ? kRotated : sub_blocks ? kScaledQ : kWint;
   switch (bm) {
     case 32: return launch_rows<2>(mode, grid, stream, x, plane2, plane1,
                                    scales, zps, out, M, N, KB, kbps,
-                                   fivelevel, sub_blocks);
+                                   fivelevel, sub_blocks, m_tiles);
     case 64: return launch_rows<4>(mode, grid, stream, x, plane2, plane1,
                                    scales, zps, out, M, N, KB, kbps,
-                                   fivelevel, sub_blocks);
+                                   fivelevel, sub_blocks, m_tiles);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -46,6 +46,11 @@
 //   order through distributed shared memory, then multiplies by xscale.
 //   No workspace, no atomics: two calls give the same bits, those of
 //   kernels/itq3.py itq3_matmul_int8_split_ref at the same cut.
+// - Experts. A stack of E matrices with their E inputs (the MoE expert
+//   projections) is one launch: y walks expert 0's row tiles, then expert
+//   1's, each expert's operands at fixed strides from the base pointers;
+//   E = 1 gives the one matrix's bits, and the cut rule counts every
+//   expert's tiles.
 // wgmma and TMA would raise a rate that does not bind at these shapes.
 #include <cooperative_groups.h>
 
@@ -270,7 +275,8 @@ itq3_matmul_int8_kernel(const int8_t* __restrict__ xq,
                         const __half* __restrict__ scales,
                         const __half* __restrict__ zps,
                         float* __restrict__ out, int M, int N, int KB,
-                        int kb_per_split, int fivelevel, int sub_blocks) {
+                        int kb_per_split, int fivelevel, int sub_blocks,
+                        int m_tiles, ExpertStrides es) {
   constexpr int kBM = 16 * kWM, kThreads = 32 * kWM * kWN;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* wsm = smem;                // 2 x kBN x kLD: the wint tiles
@@ -279,7 +285,17 @@ itq3_matmul_int8_kernel(const int8_t* __restrict__ xq,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;  // MMA group / thread in group
   const int wm = warp / kWN, wn = warp % kWN;  // this warp's rows / columns
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  // blockIdx.y = expert * m_tiles + row tile: 0 * m_tiles + tile for one
+  // matrix
+  const int ex = blockIdx.y / m_tiles;
+  xq += ex * es.x;
+  xscale += ex * es.xscale;
+  plane2 += ex * es.plane2;
+  plane1 += ex * es.plane1;
+  scales += ex * es.scales;
+  zps += ex * es.zps;
+  out += ex * es.out;
+  const int n0 = blockIdx.x * kBN, m0 = (blockIdx.y - ex * m_tiles) * kBM;
   const int kb0 = blockIdx.z * kb_per_split;
   const int nblk = min(KB, kb0 + kb_per_split) - kb0;
   const int nsub = sub_blocks ? sub_blocks : 1;
@@ -379,7 +395,8 @@ static int launch_tile(dim3 grid, cudaStream_t stream, const int8_t* xq,
                        const float* xscale, const uint8_t* plane2,
                        const uint8_t* plane1, const __half* scales,
                        const __half* zps, float* out, int M, int N, int KB,
-                       int kb_per_split, int fivelevel, int sub_blocks) {
+                       int kb_per_split, int fivelevel, int sub_blocks,
+                       int m_tiles, const ExpertStrides& es) {
   constexpr int smem = (2 * kBN + kStages * 16 * kWM) * kLD;
   const cudaError_t err = cudaFuncSetAttribute(
       itq3_matmul_int8_kernel<kWM, kMode>,
@@ -400,7 +417,7 @@ static int launch_tile(dim3 grid, cudaStream_t stream, const int8_t* xq,
   return (int)cudaLaunchKernelEx(&cfg, itq3_matmul_int8_kernel<kWM, kMode>,
                                  xq, xscale, plane2, plane1, scales, zps, out,
                                  M, N, KB, kb_per_split, fivelevel,
-                                 sub_blocks);
+                                 sub_blocks, m_tiles, es);
 }
 
 template <int kWM>
@@ -409,10 +426,11 @@ static int launch_rows(int mode, dim3 grid, cudaStream_t stream,
                        const uint8_t* plane2, const uint8_t* plane1,
                        const __half* scales, const __half* zps, float* out,
                        int M, int N, int KB, int kbps, int fivelevel,
-                       int sub_blocks) {
+                       int sub_blocks, int m_tiles, const ExpertStrides& es) {
 #define INT8_LAUNCH(MODE)                                                   \
   launch_tile<kWM, MODE>(grid, stream, xq, xscale, plane2, plane1, scales, \
-                         zps, out, M, N, KB, kbps, fivelevel, sub_blocks)
+                         zps, out, M, N, KB, kbps, fivelevel, sub_blocks,  \
+                         m_tiles, es)
   switch (mode) {
     case kBlock: return INT8_LAUNCH(kBlock);
     case kSub32: return INT8_LAUNCH(kSub32);
@@ -421,33 +439,44 @@ static int launch_rows(int mode, dim3 grid, cudaStream_t stream,
 #undef INT8_LAUNCH
 }
 
-// Grid (ceil(N / 64), ceil(M / bm), splits), bm 32 or 64, in clusters of
-// the splits (at most 8, the portable cluster size); the KB blocks are cut
-// into splits runs of ceil(KB / splits), which must leave none empty.
-// sub_blocks is 0 or any divisor of 256. xq must be 16-byte aligned.
+// Grid (ceil(N / 64), E * ceil(M / bm), splits), bm 32 or 64, in clusters
+// of the splits (at most 8, the portable cluster size); y walks the row
+// tiles of expert 0, then expert 1, ... of a stack of E matrices (E = 1:
+// one matrix), each expert's operands at the strides given (in elements)
+// from the base pointers. The KB blocks are cut into splits runs of
+// ceil(KB / splits), which must leave none empty. sub_blocks is 0 or any
+// divisor of 256. xq must be 16-byte aligned.
 extern "C" int itq3_matmul_int8_launch(const int8_t* xq, const float* xscale,
                                        const uint8_t* plane2,
                                        const uint8_t* plane1,
                                        const __half* scales, const __half* zps,
                                        float* out, int M, int N, int KB,
                                        int fivelevel, int sub_blocks, int bm,
-                                       int splits, cudaStream_t stream) {
+                                       int splits, int E, long long sx,
+                                       long long sxscale, long long splane2,
+                                       long long splane1, long long sscales,
+                                       long long szps, long long sout,
+                                       cudaStream_t stream) {
   if (M < 1 || N < 1 || KB < 1 || splits < 1 || splits > KB ||
       splits > kMaxSplits || sub_blocks < 0 || sub_blocks > 256 ||
-      (sub_blocks && 256 % sub_blocks) || ((uintptr_t)xq & 15))
+      (sub_blocks && 256 % sub_blocks) || ((uintptr_t)xq & 15) || E < 1 ||
+      (sx & 15) || (bm != 32 && bm != 64))
     return (int)cudaErrorInvalidValue;
   const int kbps = (KB + splits - 1) / splits;
   if ((KB + kbps - 1) / kbps != splits) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kBN - 1) / kBN, (M + bm - 1) / bm, splits);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const int m_tiles = (M + bm - 1) / bm;
+  if ((long long)E * m_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kBN - 1) / kBN, E * m_tiles, splits);
+  const ExpertStrides es = {sx,     sxscale, splane2, splane1,
+                            sscales, szps,   sout};
   const int mode = int8_scale_mode(sub_blocks);
   switch (bm) {
     case 32: return launch_rows<2>(mode, grid, stream, xq, xscale, plane2,
                                    plane1, scales, zps, out, M, N, KB, kbps,
-                                   fivelevel, sub_blocks);
+                                   fivelevel, sub_blocks, m_tiles, es);
     case 64: return launch_rows<4>(mode, grid, stream, xq, xscale, plane2,
                                    plane1, scales, zps, out, M, N, KB, kbps,
-                                   fivelevel, sub_blocks);
+                                   fivelevel, sub_blocks, m_tiles, es);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -50,6 +50,11 @@
 // - Sums. Each row's sum is added over the quad, each warp leaves its run's
 //   sums in shared memory, and they are added in ascending split order, so
 //   two calls give the same bits.
+// - Experts. A stack of E matrices with their E inputs (the MoE expert
+//   projections, the vmapped pallas_call's extra grid axis on a TPU) is one
+//   launch: blockIdx.y picks the expert, whose operands lie at fixed
+//   strides from the base pointers. Each expert's arithmetic is the one
+//   matrix's, so E = 1 gives the same bits as before the axis existed.
 #include "common.cuh"
 
 constexpr int kMaxM = 16;
@@ -226,11 +231,18 @@ itq3_matvec_kernel(const float* __restrict__ x,
                    const __half* __restrict__ zps, float* __restrict__ out,
                    int M, int N, int KB, int kb_per_split, int window,
                    int fivelevel, int sub_blocks, int features,
-                   int rotate_x) {
+                   int rotate_x, ExpertStrides es) {
   // whole: (M, KB) staged blocks; else per split two buffers of (M,
   // window); then the splits' sums
   extern __shared__ __align__(16) float smem[];
   const long long K = (long long)KB * 256;
+  const long long ex = blockIdx.y;  // the expert: 0 for one matrix
+  x += ex * es.x;
+  plane2 += ex * es.plane2;
+  plane1 += ex * es.plane1;
+  scales += ex * es.scales;
+  zps += ex * es.zps;
+  out += ex * es.out;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
   const int fw = features >> 3, nsplit = (int)(blockDim.x >> 5) / fw;
   const int f = (warp % fw) * 8 + (lane >> 2), s = warp / fw, ws = warp % fw;
@@ -336,7 +348,9 @@ itq3_matvec_kernel(const float* __restrict__ x,
   }
 }
 
-// Grid ceil(N / features) blocks of features / 8 x splits warps; the KB
+// Grid (ceil(N / features), E) blocks of features / 8 x splits warps,
+// blockIdx.y the expert of a stack of E matrices (E = 1: one matrix), its
+// operands at the strides `es` (in elements) from the base pointers; the KB
 // blocks are cut into splits runs of ceil(KB / splits), which must leave
 // none empty, and x staged in windows of `window` blocks of each run
 // (clamped to the run; whole when it covers the run, else two buffers).
@@ -348,14 +362,19 @@ extern "C" int itq3_matvec_launch(const float* x, const uint8_t* plane2,
                                   const __half* zps, float* out, int M, int N,
                                   int KB, int rotate, int fivelevel,
                                   int sub_blocks, int features, int splits,
-                                  int window, int rotate_x,
+                                  int window, int rotate_x, int E,
+                                  long long sx, long long splane2,
+                                  long long splane1, long long sscales,
+                                  long long szps, long long sout,
                                   cudaStream_t stream) {
   if (M < 1 || M > kMaxM || N < 1 || KB < 1 || splits < 1 || splits > KB ||
       (features != 8 && features != 16 && features != 32) ||
       features / 8 * splits > kMaxWarps || sub_blocks < 0 ||
       sub_blocks > 256 || (sub_blocks && 256 % sub_blocks) || window < 1 ||
-      (rotate && rotate_x) || ((uintptr_t)x & 15))
+      (rotate && rotate_x) || ((uintptr_t)x & 15) || E < 1 || E > 65535 ||
+      (sx & 3))
     return (int)cudaErrorInvalidValue;
+  const ExpertStrides es = {sx, 0, splane2, splane1, sscales, szps, sout};
   const int kbps = (KB + splits - 1) / splits;
   if ((KB + kbps - 1) / kbps != splits) return (int)cudaErrorInvalidValue;
   window = window < kbps ? window : kbps;
@@ -364,7 +383,7 @@ extern "C" int itq3_matvec_launch(const float* x, const uint8_t* plane2,
   const long long smem =
       4LL * (staged * kXBlock + (splits > 1 ? splits * features * M : 0));
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + features - 1) / features);
+  const dim3 grid((N + features - 1) / features, E);
   const dim3 block(32 * features / 8 * splits);
 #define MATVEC_LAUNCH(MODE, ROTW)                                            \
   do {                                                                       \
@@ -374,7 +393,7 @@ extern "C" int itq3_matvec_launch(const float* x, const uint8_t* plane2,
     if (err != cudaSuccess) return (int)err;                                 \
     itq3_matvec_kernel<MODE, ROTW><<<grid, block, smem, stream>>>(           \
         x, plane2, plane1, scales, zps, out, M, N, KB, kbps, window,         \
-        fivelevel, sub_blocks, features, rotate_x);                          \
+        fivelevel, sub_blocks, features, rotate_x, es);                      \
   } while (0)
   const int mode = int8_scale_mode(sub_blocks);
   if (rotate) {

@@ -35,6 +35,10 @@
 // - Splits. Each warp leaves its run's sums in shared memory; they are
 //   added in ascending split order, then multiplied by xscale: the bits of
 //   kernels/itq3.py itq3_matmul_int8_split_ref at the same cut.
+// - Experts. A stack of E matrices with their E inputs (the MoE expert
+//   projections) is one launch: blockIdx.y picks the expert, whose
+//   operands lie at fixed strides from the base pointers; E = 1 gives the
+//   one matrix's bits.
 #include "common.cuh"
 
 constexpr int kMaxM = 16;
@@ -132,7 +136,7 @@ __device__ __forceinline__ float sub_any_chain(float acc,
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(32 * kMaxWarps)
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
 itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
                         const float* __restrict__ xscale,
                         const uint8_t* __restrict__ plane2,
@@ -141,9 +145,16 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
                         const __half* __restrict__ zps,
                         float* __restrict__ out, int M, int N, int KB,
                         int kb_per_split, int fivelevel, int sub_blocks,
-                        int features) {
+                        int features, ExpertStrides es) {
   extern __shared__ __align__(16) uint8_t smem[];  // (M, K) codes, then sums
   const long long K = (long long)KB * 256;
+  // the expert (0 for one matrix): its codes staged below, its planes from
+  // its first block on (every plane's stride is es.zps blocks, checked at
+  // launch, so one offset serves the four and no plane pointer is held in
+  // registers across the loop), its outputs and row scales at the end
+  const long long ex = blockIdx.y;
+  const long long blk0 = ex * es.zps;
+  xq += ex * es.x;
   float* sums = reinterpret_cast<float*>(smem + M * K);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
   const int fw = features >> 3, nsplit = (int)(blockDim.x >> 5) / fw;
@@ -154,7 +165,7 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
 
   RunPlanes<kMode> pl;
   pl.load(plane2, plane1, scales, zps, n, N, KB, kb_begin, kb_end, q,
-          fivelevel);
+          fivelevel, blk0);
   for (long long g = threadIdx.x; g < M * K / 16; g += blockDim.x)
     cp_async16(smem + 16 * g, xq + 16 * g, true);
   cp_async_commit();
@@ -167,7 +178,8 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
     if (nsplit > 1)
       sums[(s * features + f) * M + m] = v;
     else if (n < N)
-      out[(long long)m * N + n] = __fmul_rn(v, xscale[m]);
+      out[ex * es.out + (long long)m * N + n] =
+          __fmul_rn(v, xscale[ex * es.xscale + m]);
   };
   if constexpr (kMode == kSubAny) {
     // rows one at a time, each block's planes (L1-resident after the
@@ -178,8 +190,8 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
       float acc = 0.f;
       for (int kb = kb_begin; kb < kb_end; ++kb) {
         if (kb != kb_begin || m) pl.load(plane2, plane1, scales, zps, n, N,
-                                         KB, kb, kb + 1, q, fivelevel);
-        const long long blk = (long long)n * KB + kb;
+                                         KB, kb, kb + 1, q, fivelevel, blk0);
+        const long long blk = blk0 + (long long)n * KB + kb;
         unsigned w[4][4], xw[4][4];
         int pc[4];
         itq3_decode_wint_unit(pl.b2[0], pl.b1[0], 0, q >= 2, fivelevel, w);
@@ -198,7 +210,7 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
     for (int kb = kb_begin; kb < kb_end; kb += kRunBlocks) {
       if (kb != kb_begin)
         pl.load(plane2, plane1, scales, zps, n, N, KB, kb, kb_end, q,
-                fivelevel);
+                fivelevel, blk0);
 #pragma unroll
       for (int r = 0; r < kRunBlocks; ++r) {
         if (kb + r >= kb_end) break;  // warp-uniform
@@ -240,11 +252,15 @@ itq3_matvec_int8_kernel(const int8_t* __restrict__ xq,
     float sum = sums[ff * M + m];
     for (int sp = 1; sp < nsplit; ++sp)  // in split order
       sum += sums[(sp * features + ff) * M + m];
-    out[(long long)m * N + nn] = __fmul_rn(sum, xscale[m]);
+    out[ex * es.out + (long long)m * N + nn] =
+        __fmul_rn(sum, xscale[ex * es.xscale + m]);
   }
 }
 
-// Grid ceil(N / features) blocks of features / 8 x splits warps; the KB
+// Grid (ceil(N / features), E) blocks of features / 8 x splits warps,
+// blockIdx.y the expert of a stack of E matrices (E = 1: one matrix), its
+// operands at the strides given (in elements) from the base pointers, the
+// planes' all one stride in blocks (as contiguous stacks have them); the KB
 // blocks are cut into splits runs of ceil(KB / splits), which must leave
 // none empty. sub_blocks is 0 or any divisor of 256. The (M, K) codes and
 // the splits' sums must fit the block's shared memory; xq must be 16-byte
@@ -255,20 +271,27 @@ extern "C" int itq3_matvec_int8_launch(const int8_t* xq, const float* xscale,
                                        const __half* scales, const __half* zps,
                                        float* out, int M, int N, int KB,
                                        int fivelevel, int sub_blocks,
-                                       int features, int splits,
-                                       cudaStream_t stream) {
+                                       int features, int splits, int E,
+                                       long long sx, long long sxscale,
+                                       long long splane2, long long splane1,
+                                       long long sscales, long long szps,
+                                       long long sout, cudaStream_t stream) {
   if (M < 1 || M > kMaxM || N < 1 || KB < 1 || splits < 1 || splits > KB ||
       (features != 8 && features != 16 && features != 32) ||
       features / 8 * splits > kMaxWarps || sub_blocks < 0 ||
       sub_blocks > 256 || (sub_blocks && 256 % sub_blocks) ||
-      ((uintptr_t)xq & 15))
+      ((uintptr_t)xq & 15) || E < 1 || E > 65535 || (sx & 15) ||
+      splane2 != 64 * szps || splane1 != 32 * szps ||
+      sscales != (sub_blocks ? sub_blocks : 1) * szps)
     return (int)cudaErrorInvalidValue;
+  const ExpertStrides es = {sx,     sxscale, splane2, splane1,
+                            sscales, szps,   sout};
   const int kbps = (KB + splits - 1) / splits;
   if ((KB + kbps - 1) / kbps != splits) return (int)cudaErrorInvalidValue;
   const long long smem = (long long)M * KB * 256 + 4LL * splits * features * M;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int mode = int8_scale_mode(sub_blocks);
-  const dim3 grid((N + features - 1) / features);
+  const dim3 grid((N + features - 1) / features, E);
   const dim3 block(32 * features / 8 * splits);
 #define MATVEC_LAUNCH(MODE)                                                  \
   do {                                                                       \
@@ -278,7 +301,7 @@ extern "C" int itq3_matvec_int8_launch(const int8_t* xq, const float* xscale,
     if (err != cudaSuccess) return (int)err;                                 \
     itq3_matvec_int8_kernel<MODE><<<grid, block, smem, stream>>>(            \
         xq, xscale, plane2, plane1, scales, zps, out, M, N, KB, kbps,        \
-        fivelevel, sub_blocks, features);                                    \
+        fivelevel, sub_blocks, features, es);                                \
   } while (0)
   switch (mode) {
     case kBlock: MATVEC_LAUNCH(kBlock); break;

@@ -1,5 +1,5 @@
 """Transformer building blocks (port of ``repro/models/layers.py``, the
-dense self-attention family).
+self-attention families: dense and MoE).
 
 Every matmul weight flows through :func:`dense`, which dispatches on the
 leaf type: a plain tensor (fp) or a :class:`~repro_torch.core.quantize.QTensor`
@@ -13,6 +13,9 @@ Where XLA wrote a functional cache update into a donated buffer, the port
 writes in place into the preallocated cache tensors (``index_put_`` over
 per-row positions, so no host sync is needed to place a ragged batch).
 Compute is float32 throughout, as the reference serving runtime is.
+The MLP serves the reference's three activations (swiglu, gelu in its
+tanh form, relu2) and norms both kinds (rmsnorm, layernorm with a bias);
+the MoE block is ``models/moe.py``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.core.quantize import QTensor
 from repro_torch.kernels.attn_q8 import decode_attn_q8, prefill_attn_q8
 from repro_torch.serve.kv_quant import kv_encode_pair
 
-__all__ = ["Runtime", "dense", "norm_apply", "rope", "mlp_apply",
+__all__ = ["Runtime", "dense", "norm_apply", "rope", "activate", "mlp_apply",
            "attention_apply"]
 
 Params = dict[str, Any]
@@ -47,6 +50,7 @@ class Runtime:
     # and contract against the ternary codes with int32 partials
     # (core/act_quant.py). QMeta.act_quant opts single weights out.
     act_quant: bool = False
+    capacity_factor: float = 1.25  # MoE expert capacity factor
 
 
 def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:
@@ -98,13 +102,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([out.to(x.dtype), xp], dim=-1)
 
 
+def activate(activation: str, up: torch.Tensor, gate=None) -> torch.Tensor:
+    """The MLP's hidden activation from its ``up`` (and, swiglu, ``gate``)
+    projection: ``silu(gate) * up``; ``gelu`` in the tanh form, which is
+    ``jax.nn.gelu``'s default; ``relu2`` = ``relu(up) ** 2``, no gate."""
+    if activation == "swiglu":
+        return torch.nn.functional.silu(gate) * up
+    if activation == "gelu":
+        return torch.nn.functional.gelu(up, approximate="tanh")
+    if activation == "relu2":
+        return torch.square(torch.relu(up))
+    raise ValueError(f"unknown activation {activation!r}")
+
+
 def mlp_apply(p: Params, x: torch.Tensor, rt: Runtime,
               activation: str) -> torch.Tensor:
-    if activation != "swiglu":
-        raise NotImplementedError(
-            f"activation {activation!r}: this slice serves swiglu models")
-    h = torch.nn.functional.silu(dense(x, p["gate"], rt)) * dense(
-        x, p["up"], rt)
+    gate = dense(x, p["gate"], rt) if activation == "swiglu" else None
+    h = activate(activation, dense(x, p["up"], rt), gate)
     return dense(h, p["down"], rt)
 
 

@@ -1,10 +1,12 @@
-"""Model assembly for the dense llama family (port of the dense half of
-``repro/models/lm.py``).
+"""Model assembly for the self-attention families (port of the dense and
+MoE half of ``repro/models/lm.py``).
 
 Parameters are a plain dict mirroring the reference pytree: ``embed``
 (V, D), or a QTensor of the transposed table (D, V) when a policy
 quantized it, ``ln_f``, optional ``lm_head``, and ``layers`` whose leaves
 carry a leading layer axis L (tensors, or QTensors with stacked planes).
+A dense layer holds an ``mlp`` (``gate`` only for swiglu), an MoE layer a
+``moe`` block: an fp ``router`` (L, D, E) and (L, E, K, N) expert stacks.
 Where the reference scans over the stacked layers, the port loops over
 them and takes each layer's views.
 
@@ -25,56 +27,158 @@ import torch
 from repro_torch.core import formats, prng
 from repro_torch.core.fwht import is_pow2
 from repro_torch.core.quantize import QTensor
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     Runtime, attention_apply, dense, mlp_apply, norm_apply,
 )
 
 Params = dict[str, Any]
 
-__all__ = ["init_params", "init_cache", "forward", "decode_step",
-           "score_tokens", "advance_cache", "finite_rows", "top_mask",
-           "sample_tokens", "layer_params"]
+__all__ = ["init_params", "init_quantized_params", "init_cache", "forward",
+           "decode_step", "score_tokens", "advance_cache", "finite_rows",
+           "top_mask", "sample_tokens", "layer_params"]
 
 
-def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
-    """Seeded random fp weights for the dense family, drawn with numpy:
-    embedding ~ N(0, 0.02^2), projections ~ N(0, 1/K) clipped at 3 sigma,
-    norm scales 1, biases 0. Layer leaves are stacked (L, ...)."""
-    if cfg.family != "dense":
+_FAMILIES = ("dense", "moe")
+
+
+def _check_family(cfg) -> None:
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: this slice serves the dense family")
-    rng = np.random.default_rng(seed)
-    d, f, n_l = cfg.d_model, cfg.d_ff, cfg.num_layers
+            f"family {cfg.family!r}: the port serves {_FAMILIES}; SSM, "
+            f"hybrid and the frontends are ROADMAP Queue 1 item 6")
+
+
+def _layer_spec(cfg) -> dict:
+    """One layer's leaves as the reference builds them, in the order the
+    seeded draws take them: ``("w", shape)`` a projection drawn N(0, 1/K)
+    clipped at 3 sigma (K = shape[-2]), ``("ones" | "zeros", shape)`` a
+    norm scale or a bias."""
+    d, f = cfg.d_model, cfg.d_ff
     hd = cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
 
-    def w(k, n):
-        x = rng.standard_normal((n_l, k, n), dtype=np.float32)
-        return np.clip(x, -3.0, 3.0) / np.float32(np.sqrt(k))
+    def norm():
+        out = {"scale": ("ones", (d,))}
+        if cfg.norm == "layernorm":
+            out["bias"] = ("zeros", (d,))
+        return out
 
-    ones = np.ones((n_l, d), np.float32)
-    attn = {"wq": w(d, h * hd), "wk": w(d, kvh * hd), "wv": w(d, kvh * hd),
-            "wo": w(h * hd, d)}
+    attn = {"wq": ("w", (d, h * hd)), "wk": ("w", (d, kvh * hd)),
+            "wv": ("w", (d, kvh * hd)), "wo": ("w", (h * hd, d))}
     if cfg.qkv_bias:
-        attn.update(bq=np.zeros((n_l, h * hd), np.float32),
-                    bk=np.zeros((n_l, kvh * hd), np.float32),
-                    bv=np.zeros((n_l, kvh * hd), np.float32))
-    tree = {
-        "embed": rng.standard_normal((cfg.vocab_size, d),
-                                     dtype=np.float32) * np.float32(0.02),
-        "ln_f": {"scale": np.ones((d,), np.float32)},
-        "layers": {"ln1": {"scale": ones}, "attn": attn,
-                   "ln2": {"scale": ones.copy()},
-                   "mlp": {"gate": w(d, f), "up": w(d, f), "down": w(f, d)}},
-    }
+        attn.update(bq=("zeros", (h * hd,)), bk=("zeros", (kvh * hd,)),
+                    bv=("zeros", (kvh * hd,)))
+    lead = (cfg.num_experts,) if cfg.family == "moe" else ()
+    ffn = {}
+    if cfg.family == "moe":
+        ffn["router"] = ("w", (d, cfg.num_experts))
+    if cfg.activation == "swiglu":
+        ffn["gate"] = ("w", lead + (d, f))
+    ffn.update(up=("w", lead + (d, f)), down=("w", lead + (f, d)))
+    return {"ln1": norm(), "attn": attn, "ln2": norm(),
+            "moe" if cfg.family == "moe" else "mlp": ffn}
+
+
+def _map_spec(spec, fn, path: str = ""):
+    if isinstance(spec, dict):
+        return {k: _map_spec(v, fn, f"{path}.{k}" if path else k)
+                for k, v in spec.items()}
+    return fn(path, *spec)
+
+
+def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
+    """Seeded random fp weights, drawn with numpy: embedding ~
+    N(0, 0.02^2), projections (and the MoE router) ~ N(0, 1/K) clipped at
+    3 sigma, norm scales 1, biases 0; the reference's tree (LayerNorm
+    biases, no gate but for swiglu, expert stacks). Layer leaves are
+    stacked (L, ...). For CPU-sized models: the whole f32 tree is held at
+    once (:func:`init_quantized_params` draws a full-width model on the
+    card)."""
+    _check_family(cfg)
+    rng = np.random.default_rng(seed)
+    d, n_l = cfg.d_model, cfg.num_layers
+    spec = _layer_spec(cfg)
+
+    def leaf(_, kind, shape):
+        if kind == "w":
+            x = rng.standard_normal((n_l,) + shape, dtype=np.float32)
+            return np.clip(x, -3.0, 3.0) / np.float32(np.sqrt(shape[-2]))
+        return (np.ones if kind == "ones" else np.zeros)(
+            (n_l,) + shape, np.float32)
+
+    # attention first, then the table, then the rest: the draw order of
+    # the earlier dense slices, so their seeded models are unchanged
+    attn = _map_spec(spec["attn"], leaf)
+    embed = rng.standard_normal((cfg.vocab_size, d),
+                                dtype=np.float32) * np.float32(0.02)
+    tree = {"embed": embed,
+            "ln_f": _map_spec(spec["ln1"], lambda p, kind, shape: leaf(
+                p, kind, shape)[0]),
+            "layers": {k: attn if k == "attn" else _map_spec(v, leaf)
+                       for k, v in spec.items()}}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = w(d, cfg.vocab_size)[0]
+        tree["lm_head"] = leaf(None, "w", (d, cfg.vocab_size))[0]
 
     def to_torch(node):
         if isinstance(node, dict):
             return {k: to_torch(v) for k, v in node.items()}
         return torch.as_tensor(node, device=device)
     return to_torch(tree)
+
+
+def init_quantized_params(cfg, policy, *, seed: int = 0,
+                          device="cuda") -> Params:
+    """Seeded random weights at full width, quantized under ``policy`` (a
+    format name or a ``QuantPolicy``) as they are drawn: one layer's leaf
+    at a time from a ``torch.Generator`` on ``device``, so the whole f32
+    model (27.7 GB for olmoe-1b-7b) is never held at once. The
+    distributions are :func:`init_params`'s; the draws are torch's, not
+    numpy's. Each quantized leaf is blocked per matrix, so stacking the
+    layers gives the planes of quantizing the stacked leaf at once."""
+    from repro_torch.serve.quantized import QuantPolicy, quantize_params
+
+    _check_family(cfg)
+    if not isinstance(policy, QuantPolicy):
+        policy = QuantPolicy.uniform(policy)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d = cfg.d_model
+
+    def draw(kind, shape):
+        if kind != "w":
+            return (torch.ones if kind == "ones" else torch.zeros)(
+                shape, dtype=torch.float32, device=device)
+        w = torch.randn(shape, generator=gen, device=device)
+        return w.clamp_(-3.0, 3.0).div_(float(np.sqrt(shape[-2])))
+
+    def quantized(path, w):
+        tree: Any = w
+        for key in reversed(path.split(".")):
+            tree = {key: tree}
+        out = quantize_params(tree, policy)
+        for key in path.split("."):
+            out = out[key]
+        return out
+
+    def stacked(path, kind, shape):
+        per_layer = [quantized(path, draw(kind, shape))
+                     for _ in range(cfg.num_layers)]
+        if isinstance(per_layer[0], QTensor):
+            return QTensor({k: torch.stack([q.data[k] for q in per_layer])
+                            for k in per_layer[0].data}, per_layer[0].meta)
+        return torch.stack(per_layer)
+
+    spec = _layer_spec(cfg)
+    params = {"layers": _map_spec({"layers": spec}, stacked)["layers"],
+              "embed": torch.randn((cfg.vocab_size, d), generator=gen,
+                                   device=device).mul_(0.02),
+              "ln_f": _map_spec(spec["ln1"],
+                                lambda _, kind, shape: draw(kind, shape))}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = quantized("lm_head",
+                                      draw("w", (d, cfg.vocab_size)))
+    return quantize_params(params, policy)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
@@ -109,12 +213,17 @@ def layer_params(layers: Params, i: int) -> Params:
 
 
 def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False):
+    """One decoder layer: attention, then the MLP or (a layer holding
+    ``moe``) the MoE block, whose aux loss serving drops."""
     h, new_kv = attention_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm),
                                 rt, cfg, cache=cache, pos=pos,
                                 token_cache=token_cache)
     x = x + h
-    m = mlp_apply(lp["mlp"], norm_apply(lp["ln2"], x, cfg.norm), rt,
-                  cfg.activation)
+    hn = norm_apply(lp["ln2"], x, cfg.norm)
+    if "moe" in lp:
+        m = moe_mod.moe_apply(lp["moe"], hn, rt, cfg)[0]
+    else:
+        m = mlp_apply(lp["mlp"], hn, rt, cfg.activation)
     return x + m, new_kv
 
 

@@ -113,7 +113,8 @@ __all__ = ["Request", "ServeEngine", "SamplingParams", "StreamEvent"]
 # In-band numeric-health sentinel (token ids are always >= 0).
 _POISONED = -1
 
-_LATER = {"mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)"}
+_LATER = {"mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)",
+          "families": "ROADMAP Queue 1 item 6"}
 
 
 @dataclasses.dataclass
@@ -205,10 +206,11 @@ class ServeEngine:
                     f"{cfg.vocab_size}: acceptance compares distributions "
                     f"over the same token ids")
         for c in (cfg, draft_cfg) if self.spec else (cfg,):
-            if c.family != "dense":
+            if c.family not in ("dense", "moe"):
                 raise NotImplementedError(
-                    f"family {c.family!r}: this slice serves the dense "
-                    f"family")
+                    f"family {c.family!r}: the port serves the dense and "
+                    f"MoE families; SSM, hybrid and the frontends land "
+                    f"with {_LATER['families']}")
         # Full f32 products: the port is held to the reference within f32
         # tolerances, which TF32's ~3 significant digits would break.
         torch.backends.cuda.matmul.allow_tf32 = False
