@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py                 # every phase (1-12), one card
+    python3 chip_smoke.py                 # every phase (1-13), one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --profile       # also trace a short run of each path
                                           # (its cut sweeps check, untimed)
@@ -169,6 +169,21 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    nemotron-4-15b (LayerNorm, relu2, untied 256,000-column head,
    ``kv_quant``) and stablelm-3b (LayerNorm, partial rotary, head_dim 80
    on the fp cache), each held to phase 11's contract and parity.
+13. The recurrent families at full width and depth, seeded on the card and
+   quantized as drawn, phase 4's requests on 4 slots through the engine's
+   chunk ladder (``prompt_chunk=32``: chunks of 32 rows run the matmul,
+   the rest the matvec): (a) rwkv6-3b (attention-free RWKV6, 32 layers,
+   untied 65,536-column head) on itq3_s; (b) zamba2-7b (81 Mamba2 layers,
+   one shared attention block before every 6th, head_dim 112 on the fp
+   cache) on itq3_s; (c) zamba2-7b on W3A8 under the mixed policy. Each:
+   exact launches per decode step and per ladder chunk (rwkv6 7 ternary
+   projections per layer and the head; zamba2 3 per layer and the shared
+   attention's 4 at each of its 14 applications), one host sync per step
+   and per admitted request, two runs' streams equal, layer-forced logits
+   within 1e-3, peak memory and resident bytes, and a short traced run
+   for the idle share. Phase 3 also holds the four contraction kernels at
+   these widths (K 2560 to 8960, N up to 65,536) against their plain
+   versions and times them (``<kernel>_ssm`` in the kernel line).
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -3409,15 +3424,372 @@ def dense_family_phase(dev, report: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the recurrent families: phase 3's widths, phase 13 ---------------------
+
+# phase 13's ladder: prompts of 8-40 tokens are fed in power-of-two chunks
+# of at most 32 rows (the engine's own prompt_chunk), so a chunk of 32 runs
+# itq3_matmul and the rest (<= 16 rows) itq3_matvec
+RECURRENT_CHUNK = 32
+# (label, K, N) of the recurrent families' ITQ3_S projections: rwkv6-3b's
+# time mix, channel mix (K = 8960: 35 blocks) and untied 65,536-column head;
+# zamba2-7b's in and out projections and its shared attention
+SSM_SHAPES = (("rwkv6 r/k/v/g/o", 2560, 2560), ("rwkv6 cm_k", 2560, 8960),
+              ("rwkv6 cm_v", 8960, 2560), ("zamba2 wz/wx", 3584, 7168),
+              ("zamba2 out_proj", 7168, 3584), ("zamba2 attn", 3584, 3584))
+RWKV_HEAD = ("rwkv6 head", 2560, 65536)
+# phase 13's cases: (key, arch, W3A8 under the mixed policy, the untied head
+# a ternary leaf); zamba2's head_dim 112 has no int8 KV codec, so its
+# shared attention serves on the fp cache
+# the traced window of each case: decode steps of 4 live slots, after an
+# untraced admission (a ladder's trace would hold ~0.5 M host events for
+# the profiler to walk)
+RECURRENT_PROFILE_STEPS = 3
+RECURRENT_CASES = (("rwkv6", "rwkv6-3b", False, True),
+                   ("zamba2", "zamba2-7b", False, False),
+                   ("zamba2_w3a8", "zamba2-7b", True, False))
+
+
+def check_ssm_widths(led: Ledger, gen: torch.Generator, dev,
+                     report: dict) -> None:
+    """The four contraction kernels at the recurrent families' widths, M =
+    4 (a decode step of 4 slots) and M = 32 (a ladder chunk), on itq3_s:
+    the fused float matvec (x unrotated) and the int8 matvec at M = 4, the
+    float matmul and the int8 matmul at M = 32, and the fused matvec alone
+    at rwkv6's head (N = 65,536). Each within 1e-4 of its plain version
+    (the int8 pair: exact with unit scales, 1e-5 with real ones), two calls
+    bit-equal, timed once per shape beside its bound, its plain version
+    and ``x @ W`` on the dequantized f32 weight (the IFWHT'd one for the
+    fused matvec). The kernels' instantiations are those phase 3's ptxas
+    reports hold spill-free; the line names them ``<kernel>_ssm``."""
+    unit = {}
+    for label, k, n in SSM_SHAPES + (RWKV_HEAD,):
+        qt = formats.quantize(torch.randn(k, n, generator=gen, device=dev)
+                              / math.sqrt(k), "itq3_s")
+        planes, wbytes = _planes(qt), weight_bytes(qt)
+        kw = dict(fivelevel=False, sub_blocks=0)
+        w = dequant_blocks(*planes, rotate_weights=False,
+                           **kw).reshape(n, k).T.contiguous()
+        w_rot = dequant_blocks(*planes, rotate_weights=True,
+                               **kw).reshape(n, k).T.contiguous()
+        head = label == RWKV_HEAD[0]
+        for m in (4,) if head else (4, RECURRENT_CHUNK):
+            x = torch.randn(m, k, generator=gen, device=dev)
+            xq, xs = act_encode(x)
+            xdec = act_decode(xq, xs)
+            small = m <= 16
+            forms = [(
+                "itq3_matvec_ssm" if small else "itq3_matmul_ssm",
+                (lambda x=x: itq3_matvec(x, *planes, rotate_weights=False,
+                                         rotate_x=True)) if small else
+                (lambda x=x: itq3_matmul(x, *planes, rotate_weights=False)),
+                (lambda x=x: itq3_matmul_ref(fwht_ref(x), *planes,
+                                             rotate_weights=False))
+                if small else (lambda x=x: itq3_matmul_ref(
+                    x, *planes, rotate_weights=False)),
+                (lambda x=x: x @ w_rot) if small else (lambda x=x: x @ w),
+                m * k * 4, 2 * m * n * k + (9 * m * k if small else 0),
+                PEAK_F32_FLOPS if small else PEAK_TF32_FLOPS,
+                1 if small else 2, KERNEL_REL_TOL)]
+            if not head:
+                fn = itq3_matvec_int8 if small else itq3_matmul_int8
+                name = ("itq3_matvec_int8_ssm" if small
+                        else "itq3_matmul_int8_ssm")
+                ones = torch.ones_like(planes[2])
+                got = fn(xq, torch.ones_like(xs), planes[0], planes[1], ones,
+                         planes[3], **kw)
+                want = itq3_matmul_int8_ref(xq, torch.ones_like(xs),
+                                            planes[0], planes[1], ones,
+                                            planes[3], **kw)
+                unit[f"{name} {label} M={m}"] = (got - want).abs().max().item()
+                forms.append((
+                    name,
+                    lambda fn=fn, xq=xq, xs=xs: fn(xq, xs, *planes, **kw),
+                    lambda xq=xq, xs=xs: itq3_matmul_int8_ref(xq, xs, *planes,
+                                                              **kw),
+                    lambda xdec=xdec: xdec @ w, m * k + m * 4,
+                    2 * m * n * k, PEAK_INT8_OPS, 1, INT8_REL_TOL))
+            for (name, run, plain, library, xbytes, ops, peak, products,
+                 tol) in forms:
+                got = run()
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"{name} {label} M={m}: two calls "
+                                         f"differ")
+                err, rel = rel_err(got, plain())
+                led.add(name, f"{label} ({k}x{n}) M={m}", err=err, rel=rel,
+                        ms=device_ms(run), plain_ms=device_ms(plain, reps=1),
+                        library_ms=device_ms(library, reps=2),
+                        nbytes=xbytes + wbytes + m * n * 4,
+                        flops=ops * products, peak_ops=peak, tol=tol)
+        del qt, planes, w, w_rot
+    torch.cuda.empty_cache()
+    report["ssm_widths_int8_unit_scale_abs_err"] = unit
+    if any(v != 0 for v in unit.values()):
+        raise AssertionError(f"int8 kernels at the recurrent widths: unit-"
+                             f"scale outputs differ: {unit}")
+    print(f"  recurrent widths: every kernel within its tolerance, two calls "
+          f"bit-equal; int8 with unit scales exact over {len(unit)} shapes",
+          flush=True)
+
+
+def ladder(plen: int, chunk: int = RECURRENT_CHUNK) -> list:
+    """The chunk sizes a ``plen``-token prompt is fed in: each time the
+    largest power of two <= ``chunk`` that fits what is left."""
+    sizes = []
+    while plen:
+        c = chunk
+        while c > plen:
+            c //= 2
+        sizes.append(c)
+        plen -= c
+    return sizes
+
+
+def recurrent_contract(cfg, *, act_quant: bool, head: bool):
+    """The kernels of one decode step (all SLOTS slots) and, as a function
+    of its rows, of one ladder chunk of ``cfg``: rwkv6 7 ternary
+    projections per layer (r, k, v, g, o and the channel mix's two);
+    zamba2 3 per layer (wz, wx, out_proj; wB, wC, wdt stay fp) and the
+    shared attention's 4 at each of its ceil(L / every) applications. A
+    contraction of M <= 16 rows is the fused matvec, else a 256-point FWHT
+    and the matmul; on W3A8 one ``fwht_act_encode`` and the int8 kernel.
+    ``head``: the untied ternary head, one more row per step and one on a
+    request's last chunk. No attention kernel: rwkv6 has none and zamba2
+    serves on the fp cache."""
+    if cfg.family == "ssm":
+        proj = 7 * cfg.num_layers
+    else:
+        proj = 3 * cfg.num_layers + 4 * -(-cfg.num_layers // cfg.attn_every)
+
+    def add(per, rows, n):
+        small = rows <= 16
+        if act_quant:
+            per["fwht_act/256"] += n
+            per["itq3_matvec_int8" if small else "itq3_matmul_int8"] += n
+        else:
+            per["itq3_matvec" if small else "itq3_matmul"] += n
+            if not small:
+                per["fwht/256"] += n
+
+    def per_chunk(rows: int, last: bool):
+        per = collections.Counter()
+        add(per, rows, proj)
+        if head and last:
+            add(per, 1, 1)
+        return per
+
+    per_step = collections.Counter()
+    add(per_step, SLOTS, proj + (1 if head else 0))
+    return per_step, per_chunk
+
+
+def check_recurrent_serving(label, eng, reqs, wall, counts, per_step,
+                            per_chunk) -> dict:
+    """A counted recurrent serving run held to its contract: every request
+    finishes with ``length``, no quarantine; one host sync per decode step
+    and per admitted request (its whole ladder); each kernel launched
+    exactly ``per_step`` times per step plus ``per_chunk`` over every
+    request's ladder. Returns the run's numbers."""
+    st = eng.stats()
+    bad = [r.rid for r in reqs if r.finish_reason != "length"
+           or len(r.out) != MAX_NEW]
+    if bad or st["quarantined"]:
+        raise AssertionError(f"{label}: requests {bad} did not finish with "
+                             f"length / {st['quarantined']} quarantined")
+    steps, admitted = st["decode_steps"], len(reqs)
+    ladders = [ladder(len(r.prompt)) for r in reqs]
+    if (st["host_syncs"] != steps + admitted
+            or st["prefill_waves"] != admitted
+            or st["prefill_chunks"] != sum(map(len, ladders))):
+        raise AssertionError(
+            f"{label}: {st['host_syncs']} host syncs, "
+            f"{st['prefill_waves']} admissions and {st['prefill_chunks']} "
+            f"ladder calls for {steps} steps and {admitted} requests "
+            f"({sum(map(len, ladders))} chunks)")
+    expected = collections.Counter({k: v * steps for k, v in
+                                    per_step.items()})
+    for sizes in ladders:
+        for i, c in enumerate(sizes):
+            expected.update(per_chunk(c, i == len(sizes) - 1))
+    if counts != dict(expected):
+        raise AssertionError(f"{label}: launches {counts} != expected "
+                             f"{dict(expected)}")
+    chunk_sizes = sorted({c for sizes in ladders for c in sizes})
+    out = dict(
+        wall_s=wall, launches=counts, stats=st,
+        decode_tok_s=st["tokens_decoded"] / st["decode_seconds"],
+        decode_ms_per_step=1e3 * st["decode_seconds"] / steps,
+        ms_per_admitted_request=1e3 * st["prefill_seconds"] / admitted,
+        ladder_calls=st["prefill_chunks"],
+        launches_per_decode_step=dict(per_step),
+        launches_per_chunk={c: dict(per_chunk(c, False))
+                            for c in chunk_sizes},
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    print(f"  {label}: {admitted} requests / "
+          f"{sum(len(r.out) for r in reqs)} tokens in {wall:.2f} s: decode "
+          f"{out['decode_tok_s']:.1f} tok/s ({out['decode_ms_per_step']:.1f} "
+          f"ms/step over {steps} steps), "
+          f"{out['ms_per_admitted_request']:.1f} ms per admitted request "
+          f"({st['prefill_chunks']} ladder calls), one host sync per step and "
+          f"request, peak memory {out['peak_mem_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    print(f"  launches per decode step {dict(per_step)}; per ladder chunk "
+          f"{out['launches_per_chunk']} (plus the head's on a request's "
+          f"last)", flush=True)
+    return out
+
+
+def recurrent_parity(params, cfg, prompts, dev, *, act_quant: bool) -> dict:
+    """Layer-forced logits, kernel path against plain path: a 32-token
+    prefill of 4 rows (the matmul) then 4 decode steps (the matvec), each
+    layer of both paths on the plain path's input and, after it, the
+    kernel path's state (and the layer's KV) overwritten with the plain
+    path's, so the paths start every layer from one state; held to 1e-3
+    of the largest logit."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+
+    rts = [Runtime(backend=b, act_quant=act_quant) for b in ("auto", "ref")]
+    toks = torch.as_tensor(np.stack([np.resize(p, RECURRENT_CHUNK)
+                                     for p in prompts[:SLOTS]]), device=dev)
+    caches = [lm.init_cache(cfg, SLOTS, MAX_LEN, device=dev)
+              for _ in range(2)]
+    errs, tokens, pos = [], toks, 0
+    for step in range(5):
+        x = lm._embed(params, tokens)
+        for i in range(cfg.num_layers):
+            outs = [lm.recurrent_layer_apply(params, x, rt, cfg, i, cache=c,
+                                             pos=pos, decode=step > 0)
+                    for rt, c in zip(rts, caches)]
+            for k, v in caches[0]["ssm"].items():
+                v[i].copy_(caches[1]["ssm"][k][i])
+            attn = (lm.hybrid_layer(cfg, i)[0] if cfg.family == "hybrid"
+                    else None)
+            if attn is not None:
+                for k, v in caches[0]["attn"].items():
+                    v[attn].copy_(caches[1]["attn"][k][attn])
+            x = outs[1]
+        logits = [lm._head(params, h[:, -1:], rt, cfg)
+                  for h, rt in zip(outs, rts)]
+        errs.append(rel_err(*logits)[1])
+        tokens = logits[1][:, 0].argmax(-1)[:, None]
+        pos = RECURRENT_CHUNK + step
+    print(f"  layer-forced logits rel error (max |diff| / max |logit|), "
+          f"prefill then 4 decode steps: "
+          f"{', '.join(f'{e:.2e}' for e in errs)}", flush=True)
+    if not max(errs) <= LOGITS_REL_TOL:
+        raise AssertionError(f"{cfg.name}: layer-forced logits rel error "
+                             f"{max(errs):.3e} > {LOGITS_REL_TOL}")
+    return dict(logits_rel=errs)
+
+
+def recurrent_serve(params, cfg, dev, report: dict, key: str, *,
+                    act_quant: bool, head: bool) -> dict:
+    """Phase 13 on one case: phase 4's 8 requests over 4 slots through the
+    chunk ladder (``prompt_chunk=32``), twice (the first warms up; the
+    streams must be equal), the second counted and held to
+    :func:`recurrent_contract`; the layer-forced parity; one short traced
+    decode window (:func:`decode_window`) for the idle share. Returns the
+    counted run's launches."""
+    prompts = make_prompts(cfg)
+
+    def serve(count, reqs=prompts, max_new=MAX_NEW):
+        return serve_run(params, cfg, reqs, dev, count=count,
+                         max_new=max_new, kv_quant=False,
+                         act_quant=act_quant,
+                         engine_kw={"prompt_chunk": RECURRENT_CHUNK})
+
+    _, first, _, _ = serve(False)
+    eng, reqs, wall, counts = serve(True)
+    if [r.out for r in reqs] != [r.out for r in first]:
+        raise AssertionError(f"{key}: two runs' streams differ")
+    per_step, per_chunk = recurrent_contract(cfg, act_quant=act_quant,
+                                             head=head)
+    out = check_recurrent_serving(f"{key} ({cfg.num_layers} layers)", eng,
+                                  reqs, wall, counts, per_step, per_chunk)
+    out["cache_bytes"] = eng.stats()["cache_bytes"]
+    out["parity"] = recurrent_parity(params, cfg, prompts, dev,
+                                     act_quant=act_quant)
+    report[key] = out
+    del eng
+    profile_phase(decode_window(params, cfg, prompts, dev,
+                                act_quant=act_quant),
+                  report, f"{key}_profile",
+                  TABLE.with_name(f"chip_smoke_profile_{key}.txt"),
+                  steps=RECURRENT_PROFILE_STEPS)
+    return counts
+
+
+def decode_window(params, cfg, prompts, dev, *, act_quant: bool):
+    """An engine with the first 4 requests admitted and one step taken;
+    returns the window a trace wraps: RECURRENT_PROFILE_STEPS decode steps
+    of the 4 live slots, timed on the host's clock to a synchronize."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, slots=SLOTS, max_len=MAX_LEN,
+                      prompt_chunk=RECURRENT_CHUNK,
+                      rt=Runtime(act_quant=act_quant), device=dev)
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts[:SLOTS])]
+    eng.admit(reqs)
+    eng.step()
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        for _ in range(RECURRENT_PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        return eng, reqs, time.perf_counter() - t0, None
+    return run
+
+
+def recurrent_phase(dev, report: dict) -> dict:
+    """Phase 13: rwkv6-3b (32 layers, d_model 2560, untied 65,536-column
+    head) and zamba2-7b (81 Mamba2 layers, d_model 3584, one shared
+    attention block before every 6th) at full width and depth, seeded on
+    the card and quantized as drawn. (a) rwkv6 on itq3_s; (b) zamba2 on
+    itq3_s, its shared attention on the fp cache; (c) zamba2 on W3A8
+    under the mixed policy (the tied table q8_0, every other projection
+    itq3_s: (b)'s planes, with the table quantized). Returns the float
+    kernels' launches of (a) and (b) and the int8 ones of (c)."""
+    from repro_torch.configs import mixed_precision_recipe
+    from repro_torch.serve.quantized import QuantPolicy, quantize_params
+
+    print("phase 13: the recurrent families at full width and depth, "
+          f"through the chunk ladder (prompt_chunk={RECURRENT_CHUNK})",
+          flush=True)
+    totals = collections.Counter()
+    params = None
+    for key, arch, act_quant, head in RECURRENT_CASES:
+        cfg = get_config(arch)
+        if act_quant:
+            policy = QuantPolicy.from_dict(mixed_precision_recipe(cfg))
+            params = quantize_params(params, policy)
+            print(f"  ({key}) W3A8: the mixed policy, act_quant; table "
+                  f"{params['embed'].meta.fmt}", flush=True)
+        else:
+            params = None
+            torch.cuda.empty_cache()
+            params = seeded_model(cfg, "itq3_s", dev, report, key)
+        counts = recurrent_serve(params, cfg, dev, report, key,
+                                 act_quant=act_quant, head=head)
+        totals.update(counts)
+    del params
+    torch.cuda.empty_cache()
+    return dict(totals)
+
+
 def profile_phase(run, report: dict, key: str = "profile",
-                  table: Path = TABLE) -> None:
+                  table: Path = TABLE, steps: int | None = None) -> None:
     """With ``--profile``: one shorter kernel-path serving run (``run()``,
     ``PROFILE_NEW`` new tokens per request) under ``torch.profiler``; the device's busy time is the sum of the self
     device time of every kernel and copy on the card (one stream, so they
     never overlap). Tracing slows the host, so the idle share read here is
     an upper bound on the unprofiled run's. Also counts the PyTorch
     operator calls the host issued (nested calls included), per layer and
-    forward pass."""
+    forward pass. ``steps``: ``run()`` traces a window of that many decode
+    steps of an engine whose admission ran untraced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3429,17 +3801,22 @@ def profile_phase(run, report: dict, key: str = "profile",
     busy_s = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA) / 1e6
     st = eng.stats()
-    passes = (st["decode_steps"] + st["prefill_waves"]) * eng.cfg.num_layers
+    what = "serving run" if steps is None else f"{steps}-step decode window"
+    if steps is None:
+        steps = st["decode_steps"]
+        passes = (steps + st["prefill_waves"]) * eng.cfg.num_layers
+    else:
+        passes = steps * eng.cfg.num_layers
     ops = sum(e.count for e in events if e.device_type == DeviceType.CPU
               and e.key.startswith("aten::"))
     report[key] = dict(wall_s=wall, device_busy_s=busy_s,
                        idle_share=1 - busy_s / wall,
-                       decode_steps=st["decode_steps"],
+                       decode_steps=steps,
                        aten_calls_per_layer_pass=ops / passes)
     table.parent.mkdir(parents=True, exist_ok=True)
     table.write_text(events.table(sort_by="self_device_time_total",
                                   row_limit=40))
-    print(f"  profiled serving run: device busy {busy_s:.3f} s of "
+    print(f"  profiled {what}: device busy {busy_s:.3f} s of "
           f"{wall:.3f} s wall (idle share {1 - busy_s / wall:.3f}); "
           f"{ops / passes:.0f} aten calls per layer and forward pass; "
           f"kernel table in {table.relative_to(ROOT)}", flush=True)
@@ -3515,6 +3892,10 @@ def main(argv=None) -> int:
     check_expert_edges(gen, dev, report)
     check_attn_hd128(led, gen, dev, report)
     check_dense_family_widths(gen, dev, report)
+    print("phase 3 (recurrent families): the contraction kernels at "
+          "rwkv6-3b's and zamba2-7b's widths, M = 4 and a 32-row ladder "
+          "chunk", flush=True)
+    check_ssm_widths(led, gen, dev, report)
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the
@@ -3548,6 +3929,11 @@ def main(argv=None) -> int:
         counts.update({k: v for k, v in moe.items() if k.endswith("_experts")})
         counts["attn_q8_hd128"] = moe["attn_q8"]
         dense_family_phase(dev, report)
+        # phase 13 launches the contraction kernels at the recurrent widths
+        recurrent = recurrent_phase(dev, report)
+        counts.update({f"{k}_ssm": recurrent.get(k, 0) for k in (
+            "itq3_matvec", "itq3_matmul", "itq3_matvec_int8",
+            "itq3_matmul_int8")})
 
     # kernel -> (source, the TPU kernel it replaces)
     kernel_table = {
@@ -3585,6 +3971,20 @@ def main(argv=None) -> int:
         "attn_q8_hd128": ("attn_q8",
                           "src/repro/kernels/attn_decode.py:230 "
                           "(head_dim 128)"),
+        # the recurrent families' widths (phase 13): K = 2560 to 8960, N up
+        # to rwkv6's 65,536-column head
+        "itq3_matvec_ssm": ("itq3_matvec",
+                            "src/repro/kernels/itq3_matvec.py:82 "
+                            "(recurrent widths)"),
+        "itq3_matmul_ssm": ("itq3_matmul",
+                            "src/repro/kernels/itq3_matmul.py:339 "
+                            "(recurrent widths)"),
+        "itq3_matvec_int8_ssm": ("itq3_matvec_int8",
+                                 "src/repro/kernels/itq3_matvec.py:183 "
+                                 "(recurrent widths)"),
+        "itq3_matmul_int8_ssm": ("itq3_matmul_int8",
+                                 "src/repro/kernels/itq3_matmul.py:436 "
+                                 "(recurrent widths)"),
     }
     kernels = []
     for name, (source, replaces) in kernel_table.items():

@@ -1,12 +1,14 @@
 """Model configuration for the port (copy of ``repro/configs/base.py``).
 
-The models of the two self-attention families the port serves are
-registered: the dense ``smollm-135m``, ``qwen1.5-0.5b`` (RMSNorm, swiglu,
-tied), ``nemotron-4-15b`` (LayerNorm, relu2, untied) and ``stablelm-3b``
-(LayerNorm, partial rotary, untied), and the MoE ``olmoe-1b-7b`` and
-``qwen3-moe-235b-a22b``. ``reduced()`` gives the same topology at CPU-test
-size, exactly as the reference does, so a reduced config built here
-equals the reference's field for field.
+The models of the four families the port serves are registered: the
+dense ``smollm-135m``, ``qwen1.5-0.5b`` (RMSNorm, swiglu, tied),
+``nemotron-4-15b`` (LayerNorm, relu2, untied) and ``stablelm-3b``
+(LayerNorm, partial rotary, untied), the MoE ``olmoe-1b-7b`` and
+``qwen3-moe-235b-a22b``, the attention-free RWKV6 ``rwkv6-3b`` (family
+``ssm``) and the Mamba2 + shared-attention ``zamba2-7b`` (``hybrid``).
+``reduced()`` gives the same topology at CPU-test size, exactly as the
+reference does, so a reduced config built here equals the reference's
+field for field.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ __all__ = ["ModelConfig", "get_config", "reduced", "ARCH_IDS",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe (the families the port serves)
+    family: str  # dense | moe | ssm | hybrid (the families the port serves)
     num_layers: int
     d_model: int
     num_heads: int
@@ -37,6 +39,11 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     rotary_pct: float = 1.0
+    # --- ssm / hybrid ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    attn_every: int = 0  # hybrid: shared attention block period (zamba2)
     tie_embeddings: bool = True
     eos_token_id: Optional[int] = None  # engine finishes a request on this
 
@@ -44,9 +51,14 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm" and self.attn_every == 0
 
-ARCH_IDS = ["qwen3-moe-235b-a22b", "olmoe-1b-7b", "qwen1.5-0.5b",
-            "nemotron-4-15b", "smollm-135m", "stablelm-3b"]
+
+ARCH_IDS = ["qwen3-moe-235b-a22b", "olmoe-1b-7b", "rwkv6-3b",
+            "qwen1.5-0.5b", "nemotron-4-15b", "smollm-135m", "stablelm-3b",
+            "zamba2-7b"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -87,22 +99,30 @@ def mixed_precision_recipe(cfg: ModelConfig, *, head_fmt: str = "q8_0",
 def kv_cache_bytes_per_token(cfg: ModelConfig, *, kv_quant: bool = False,
                              fp_bytes: int = 2) -> int:
     """Attention KV-cache bytes per cached token position across all
-    layers: 2 planes (K, V) x num_kv_heads x per-vector bytes, where the
-    rotated-int8 layout stores head_dim int8 codes plus one fp16 scale."""
+    attention layers: 2 planes (K, V) x num_kv_heads x per-vector bytes,
+    where the rotated-int8 layout stores head_dim int8 codes plus one fp16
+    scale. SSM families cache O(1) state, not per-token KV: 0; the hybrid
+    has ``ceil(L / attn_every)`` attention layers."""
+    if cfg.family == "ssm":
+        return 0
+    n_attn = cfg.num_layers
+    if cfg.family == "hybrid":
+        n_attn = -(-cfg.num_layers // cfg.attn_every)
     hd = cfg.resolved_head_dim
     per_vector = (hd + 2) if kv_quant else hd * fp_bytes
-    return 2 * cfg.num_layers * cfg.num_kv_heads * per_vector
+    return 2 * n_attn * cfg.num_kv_heads * per_vector
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-topology config for CPU tests: 4 layers, d_model 128,
-    4 heads at head_dim 32, the GQA ratio preserved; at most 8 experts and
-    top-2 routing."""
+    """Tiny same-topology config for CPU tests: 4 layers (7 for a hybrid,
+    so a tail follows its macroblocks), d_model 128, 4 heads at head_dim
+    32, the GQA ratio preserved; at most 8 experts and top-2 routing; an
+    SSM state of at most 16 and a shared-attention period of at most 3."""
     kv_ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     return dataclasses.replace(
         cfg,
-        num_layers=min(cfg.num_layers, 4),
+        num_layers=min(cfg.num_layers, 4 if cfg.attn_every == 0 else 7),
         d_model=128,
         num_heads=heads,
         num_kv_heads=max(1, heads // kv_ratio),
@@ -112,4 +132,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         num_experts=min(cfg.num_experts, 8) if cfg.num_experts else 0,
         experts_per_token=min(cfg.experts_per_token, 2)
         if cfg.num_experts else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        attn_every=min(cfg.attn_every, 3) if cfg.attn_every else 0,
     )

@@ -6,6 +6,11 @@ engine.
     python -m repro_torch.launch.serve --reduced --kv-quant --device cpu
     python -m repro_torch.launch.serve --arch smollm-135m --kv-quant   # GPU
 
+The recurrent families (``--arch rwkv6-3b``, ``--arch zamba2-7b``) admit
+each prompt through the engine's chunk ladder; ``--kv-quant`` changes
+nothing on the attention-free rwkv6-3b, and full-width zamba2-7b (head_dim
+112) serves its shared attention on the fp cache.
+
 Mixed precision through a policy (the arch's default recipe, or a JSON
 file ``{"rules": [{"pattern": ..., "fmt": ...}, ...]}``), the packed tree
 checkpointed and served straight from disk, on the W3A8 integer path:

@@ -1,5 +1,6 @@
 """Transformer building blocks (port of ``repro/models/layers.py``, the
-self-attention families: dense and MoE).
+self-attention families: dense and MoE; the recurrent blocks are
+``models/ssm.py``).
 
 Every matmul weight flows through :func:`dense`, which dispatches on the
 leaf type: a plain tensor (fp) or a :class:`~repro_torch.core.quantize.QTensor`
@@ -51,6 +52,7 @@ class Runtime:
     # (core/act_quant.py). QMeta.act_quant opts single weights out.
     act_quant: bool = False
     capacity_factor: float = 1.25  # MoE expert capacity factor
+    rwkv_mode: str = "chunked"  # RWKV6 prefill: chunked | scan (stepwise)
 
 
 def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:

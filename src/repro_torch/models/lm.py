@@ -1,21 +1,28 @@
-"""Model assembly for the self-attention families (port of the dense and
-MoE half of ``repro/models/lm.py``).
+"""Model assembly (port of ``repro/models/lm.py``): the dense, MoE, SSM
+(RWKV6) and hybrid (Mamba2 + shared attention) families.
 
 Parameters are a plain dict mirroring the reference pytree: ``embed``
 (V, D), or a QTensor of the transposed table (D, V) when a policy
-quantized it, ``ln_f``, optional ``lm_head``, and ``layers`` whose leaves
-carry a leading layer axis L (tensors, or QTensors with stacked planes).
-A dense layer holds an ``mlp`` (``gate`` only for swiglu), an MoE layer a
-``moe`` block: an fp ``router`` (L, D, E) and (L, E, K, N) expert stacks.
-Where the reference scans over the stacked layers, the port loops over
-them and takes each layer's views.
+quantized it, ``ln_f``, optional ``lm_head``, and stacked layer leaves
+(tensors, or QTensors with stacked planes). Dense, MoE and SSM models
+hold ``layers`` with a leading layer axis L: a dense layer an ``mlp``
+(``gate`` only for swiglu), an MoE layer a ``moe`` block (an fp
+``router`` (L, D, E) and (L, E, K, N) expert stacks), an SSM layer one
+RWKV6 block. A hybrid holds one ``shared_attn`` block (``ln``, ``attn``),
+``mamba_blocks`` stacked twice, (n_full, every, ...), and, when
+``attn_every`` does not divide L, a ``mamba_tail`` (tail, ...). Where the
+reference scans over the stacked layers, the port loops over them and
+takes each layer's views.
 
-The serving cache is ``{"attn": {"k", "v"[, "k_scale", "v_scale"]}}`` with
-(L, B, KV, T, X) leaves, preallocated once; prefill and decode write into
-it in place (the reference's donated buffers). A paged cache
-(``serve/paged.py``) is ``{"attn": {...}, "table": (B, MAXB) int32}`` with
-(L, NB, KV, BS, X) pool leaves; the table has no layer axis and joins each
-layer's cache view.
+The serving cache is preallocated once and written in place (the
+reference's donated buffers): ``{"attn": {"k", "v"[, "k_scale",
+"v_scale"]}}`` with (L, B, KV, T, X) leaves for the attention families;
+``{"ssm": {"wkv", "tm_prev", "cm_prev"}}`` with (L, B, ...) f32 leaves
+for RWKV6; for the hybrid ``{"attn": ...}`` over its ``ceil(L / every)``
+shared-attention applications plus ``{"ssm": {"ssm", "conv"}}`` (L, B,
+...). A paged cache (``serve/paged.py``, attention families only) is
+``{"attn": {...}, "table": (B, MAXB) int32}`` with (L, NB, KV, BS, X) pool
+leaves; the table has no layer axis and joins each layer's cache view.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from repro_torch.core import formats, prng
 from repro_torch.core.fwht import is_pow2
 from repro_torch.core.quantize import QTensor
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Runtime, attention_apply, dense, mlp_apply, norm_apply,
 )
@@ -36,39 +44,47 @@ Params = dict[str, Any]
 
 __all__ = ["init_params", "init_quantized_params", "init_cache", "forward",
            "decode_step", "score_tokens", "advance_cache", "finite_rows",
-           "top_mask", "sample_tokens", "layer_params"]
+           "top_mask", "sample_tokens", "layer_params", "hybrid_dims",
+           "hybrid_layer", "recurrent_layer_apply"]
 
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves {_FAMILIES}; SSM, "
-            f"hybrid and the frontends are ROADMAP Queue 1 item 6")
+            f"family {cfg.family!r}: the port serves {_FAMILIES}; the "
+            f"frontends (vlm, audio) are ROADMAP Queue 1 item 6")
 
 
-def _layer_spec(cfg) -> dict:
-    """One layer's leaves as the reference builds them, in the order the
-    seeded draws take them: ``("w", shape)`` a projection drawn N(0, 1/K)
-    clipped at 3 sigma (K = shape[-2]), ``("ones" | "zeros", shape)`` a
-    norm scale or a bias."""
-    d, f = cfg.d_model, cfg.d_ff
-    hd = cfg.resolved_head_dim
+def _norm_spec(d: int, kind: str) -> dict:
+    out = {"scale": ("ones", (d,))}
+    if kind == "layernorm":
+        out["bias"] = ("zeros", (d,))
+    return out
+
+
+def _attn_spec(cfg) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
-
-    def norm():
-        out = {"scale": ("ones", (d,))}
-        if cfg.norm == "layernorm":
-            out["bias"] = ("zeros", (d,))
-        return out
-
     attn = {"wq": ("w", (d, h * hd)), "wk": ("w", (d, kvh * hd)),
             "wv": ("w", (d, kvh * hd)), "wo": ("w", (h * hd, d))}
     if cfg.qkv_bias:
         attn.update(bq=("zeros", (h * hd,)), bk=("zeros", (kvh * hd,)),
                     bv=("zeros", (kvh * hd,)))
+    return attn
+
+
+def _layer_spec(cfg) -> dict:
+    """One dense or MoE layer's leaves as the reference builds them, in
+    the order the seeded draws take them. The kinds of every spec here:
+    ``("w", shape[, scale])`` a projection drawn N(0, 1/K) clipped at 3
+    sigma (K = shape[-2]), times ``scale``; ``("ones" | "zeros", shape)``
+    a norm scale or a bias; ``("normal", shape, std)``, ``("uniform",
+    shape)`` on [0, 1), ``("full", shape, value)`` and ``("alog",
+    shape)``, Mamba2's log(linspace(1, 16, H))."""
+    d, f = cfg.d_model, cfg.d_ff
     lead = (cfg.num_experts,) if cfg.family == "moe" else ()
     ffn = {}
     if cfg.family == "moe":
@@ -76,8 +92,74 @@ def _layer_spec(cfg) -> dict:
     if cfg.activation == "swiglu":
         ffn["gate"] = ("w", lead + (d, f))
     ffn.update(up=("w", lead + (d, f)), down=("w", lead + (f, d)))
-    return {"ln1": norm(), "attn": attn, "ln2": norm(),
+    return {"ln1": _norm_spec(d, cfg.norm), "attn": _attn_spec(cfg),
+            "ln2": _norm_spec(d, cfg.norm),
             "moe" if cfg.family == "moe" else "mlp": ffn}
+
+
+def _rwkv6_spec(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    h, hd = ssm_mod.rwkv6_dims(cfg)
+    lora = max(32, d // 32)
+    return {
+        "mu": ("uniform", (5, d)),  # token-shift mixes of r, k, v, w, g
+        "wr": ("w", (d, h * hd)), "wk": ("w", (d, h * hd)),
+        "wv": ("w", (d, h * hd)), "wg": ("w", (d, h * hd)),
+        "wo": ("w", (h * hd, d)),
+        "w_base": ("full", (h * hd,), -1.0),
+        "w_lora_a": ("w", (d, lora)), "w_lora_b": ("w", (lora, h * hd), 0.1),
+        "u": ("normal", (h, hd), 0.1),
+        "ln_out": _norm_spec(h * hd, "layernorm"),
+        "ln1": _norm_spec(d, "layernorm"), "ln2": _norm_spec(d, "layernorm"),
+        "cm_mu": ("uniform", (2, d)),
+        "cm_k": ("w", (d, f)), "cm_v": ("w", (f, d)),
+    }
+
+
+def _mamba_spec(cfg) -> dict:
+    """One hybrid layer: its pre-norm and a Mamba2 mixer."""
+    d, kw = cfg.d_model, cfg.ssm_conv
+    ed, h, n = ssm_mod.mamba2_dims(cfg)
+    return {"ln": _norm_spec(d, cfg.norm), "mamba": {
+        "wz": ("w", (d, ed)), "wx": ("w", (d, ed)), "wB": ("w", (d, n)),
+        "wC": ("w", (d, n)), "wdt": ("w", (d, h)),
+        "conv_x": ("normal", (kw, ed), 0.1),
+        "conv_B": ("normal", (kw, n), 0.1),
+        "conv_C": ("normal", (kw, n), 0.1),
+        "conv_b": ("zeros", (ed + 2 * n,)),
+        "A_log": ("alog", (h,)), "D": ("ones", (h,)),
+        "dt_bias": ("full", (h,), float(np.log(np.e - 1) - 2.0)),
+        "norm": {"scale": ("ones", (ed,))},
+        "out_proj": ("w", (ed, d))}}
+
+
+def hybrid_dims(cfg) -> tuple[int, int, int]:
+    """(attn_every, full macroblocks, tail layers) of a hybrid."""
+    every = cfg.attn_every
+    return every, cfg.num_layers // every, cfg.num_layers % every
+
+
+def _stacks(cfg) -> list:
+    """The recurrent families' stacked subtrees, in draw order: (key,
+    lead axes, one layer's spec)."""
+    if cfg.family == "ssm":
+        return [("layers", (cfg.num_layers,), _rwkv6_spec(cfg))]
+    every, n_full, tail = hybrid_dims(cfg)
+    out = [("shared_attn", (), {"ln": _norm_spec(cfg.d_model, cfg.norm),
+                                "attn": _attn_spec(cfg)}),
+           ("mamba_blocks", (n_full, every), _mamba_spec(cfg))]
+    if tail:
+        out.append(("mamba_tail", (tail,), _mamba_spec(cfg)))
+    return out
+
+
+def _const(kind, shape, arg=None) -> np.ndarray:
+    """A leaf that takes no draw."""
+    if kind == "alog":
+        row = np.log(np.linspace(1.0, 16.0, shape[-1])).astype(np.float32)
+        return np.broadcast_to(row, shape).copy()
+    value = {"ones": 1.0, "zeros": 0.0}.get(kind, arg)
+    return np.full(shape, value, np.float32)
 
 
 def _map_spec(spec, fn, path: str = ""):
@@ -91,34 +173,52 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
     """Seeded random fp weights, drawn with numpy: embedding ~
     N(0, 0.02^2), projections (and the MoE router) ~ N(0, 1/K) clipped at
     3 sigma, norm scales 1, biases 0; the reference's tree (LayerNorm
-    biases, no gate but for swiglu, expert stacks). Layer leaves are
-    stacked (L, ...). For CPU-sized models: the whole f32 tree is held at
+    biases, no gate but for swiglu, expert stacks; RWKV6's and Mamba2's
+    leaves at the reference's scales and constants). Layer leaves are
+    stacked (L, ...), a hybrid's (n_full, every, ...) and (tail, ...).
+    For CPU-sized models: the whole f32 tree is held at
     once (:func:`init_quantized_params` draws a full-width model on the
     card)."""
     _check_family(cfg)
     rng = np.random.default_rng(seed)
     d, n_l = cfg.d_model, cfg.num_layers
-    spec = _layer_spec(cfg)
 
-    def leaf(_, kind, shape):
+    def draw(kind, shape, arg=None):
         if kind == "w":
-            x = rng.standard_normal((n_l,) + shape, dtype=np.float32)
-            return np.clip(x, -3.0, 3.0) / np.float32(np.sqrt(shape[-2]))
-        return (np.ones if kind == "ones" else np.zeros)(
-            (n_l,) + shape, np.float32)
+            x = rng.standard_normal(shape, dtype=np.float32)
+            x = np.clip(x, -3.0, 3.0) / np.float32(np.sqrt(shape[-2]))
+            return x if arg is None else x * np.float32(arg)
+        if kind == "normal":
+            return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+                arg)
+        if kind == "uniform":
+            return rng.random(shape, dtype=np.float32)
+        return _const(kind, shape, arg)
 
-    # attention first, then the table, then the rest: the draw order of
-    # the earlier dense slices, so their seeded models are unchanged
-    attn = _map_spec(spec["attn"], leaf)
-    embed = rng.standard_normal((cfg.vocab_size, d),
-                                dtype=np.float32) * np.float32(0.02)
-    tree = {"embed": embed,
-            "ln_f": _map_spec(spec["ln1"], lambda p, kind, shape: leaf(
-                p, kind, shape)[0]),
-            "layers": {k: attn if k == "attn" else _map_spec(v, leaf)
-                       for k, v in spec.items()}}
+    def leaf(_, kind, shape, *arg):
+        return draw(kind, (n_l,) + shape, *arg)
+
+    ln_f = _map_spec(_norm_spec(d, cfg.norm),
+                     lambda _, kind, shape: _const(kind, shape))
+    if cfg.family in ("ssm", "hybrid"):
+        tree = {"embed": rng.standard_normal(
+            (cfg.vocab_size, d), dtype=np.float32) * np.float32(0.02),
+            "ln_f": ln_f}
+        for key, lead, spec in _stacks(cfg):
+            tree[key] = _map_spec(spec, lambda _, kind, shape, *arg, lead=lead:
+                                  draw(kind, lead + shape, *arg))
+    else:
+        # attention first, then the table, then the rest: the draw order
+        # of the earlier dense slices, so their seeded models are unchanged
+        spec = _layer_spec(cfg)
+        attn = _map_spec(spec["attn"], leaf)
+        embed = rng.standard_normal((cfg.vocab_size, d),
+                                    dtype=np.float32) * np.float32(0.02)
+        tree = {"embed": embed, "ln_f": ln_f,
+                "layers": {k: attn if k == "attn" else _map_spec(v, leaf)
+                           for k, v in spec.items()}}
     if not cfg.tie_embeddings:
-        tree["lm_head"] = leaf(None, "w", (d, cfg.vocab_size))[0]
+        tree["lm_head"] = draw("w", (d, cfg.vocab_size))
 
     def to_torch(node):
         if isinstance(node, dict):
@@ -145,12 +245,16 @@ def init_quantized_params(cfg, policy, *, seed: int = 0,
     gen.manual_seed(seed)
     d = cfg.d_model
 
-    def draw(kind, shape):
-        if kind != "w":
-            return (torch.ones if kind == "ones" else torch.zeros)(
-                shape, dtype=torch.float32, device=device)
-        w = torch.randn(shape, generator=gen, device=device)
-        return w.clamp_(-3.0, 3.0).div_(float(np.sqrt(shape[-2])))
+    def draw(kind, shape, arg=None):
+        if kind == "w":
+            w = torch.randn(shape, generator=gen, device=device)
+            w = w.clamp_(-3.0, 3.0).div_(float(np.sqrt(shape[-2])))
+            return w if arg is None else w.mul_(arg)
+        if kind == "normal":
+            return torch.randn(shape, generator=gen, device=device).mul_(arg)
+        if kind == "uniform":
+            return torch.rand(shape, generator=gen, device=device)
+        return torch.as_tensor(_const(kind, shape, arg), device=device)
 
     def quantized(path, w):
         tree: Any = w
@@ -161,55 +265,92 @@ def init_quantized_params(cfg, policy, *, seed: int = 0,
             out = out[key]
         return out
 
-    def stacked(path, kind, shape):
-        per_layer = [quantized(path, draw(kind, shape))
-                     for _ in range(cfg.num_layers)]
-        if isinstance(per_layer[0], QTensor):
-            return QTensor({k: torch.stack([q.data[k] for q in per_layer])
-                            for k in per_layer[0].data}, per_layer[0].meta)
-        return torch.stack(per_layer)
+    def stacked(lead):
+        """A leaf stacked over ``lead``, drawn and quantized one matrix at
+        a time."""
+        def leaf(path, kind, shape, *arg):
+            items = [quantized(path, draw(kind, shape, *arg))
+                     for _ in range(int(np.prod(lead)))]
+            return _stack_lead(items, lead)
+        return leaf
 
-    spec = _layer_spec(cfg)
-    params = {"layers": _map_spec({"layers": spec}, stacked)["layers"],
-              "embed": torch.randn((cfg.vocab_size, d), generator=gen,
-                                   device=device).mul_(0.02),
-              "ln_f": _map_spec(spec["ln1"],
-                                lambda _, kind, shape: draw(kind, shape))}
+    if cfg.family in ("ssm", "hybrid"):
+        params = {"embed": torch.randn((cfg.vocab_size, d), generator=gen,
+                                       device=device).mul_(0.02)}
+        for key, lead, spec in _stacks(cfg):
+            params[key] = _map_spec({key: spec}, stacked(lead))[key]
+    else:
+        spec = _layer_spec(cfg)
+        params = {"layers": _map_spec({"layers": spec},
+                                      stacked((cfg.num_layers,)))["layers"],
+                  "embed": torch.randn((cfg.vocab_size, d), generator=gen,
+                                       device=device).mul_(0.02)}
+    params["ln_f"] = _map_spec(_norm_spec(d, cfg.norm),
+                               lambda _, kind, shape: draw(kind, shape))
     if not cfg.tie_embeddings:
         params["lm_head"] = quantized("lm_head",
                                       draw("w", (d, cfg.vocab_size)))
     return quantize_params(params, policy)
 
 
+def _stack_lead(items: list, lead: tuple):
+    """Stack per-matrix leaves (tensors or QTensors) into ``lead`` axes."""
+    if not lead:
+        return items[0]
+
+    def stack(ts):
+        return torch.stack(ts).reshape(*lead, *ts[0].shape)
+    if isinstance(items[0], QTensor):
+        return QTensor({k: stack([q.data[k] for q in items])
+                        for k in items[0].data}, items[0].meta)
+    return stack(items)
+
+
 def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
                dtype=torch.float32, device="cuda") -> Params:
-    """Zeroed serving cache. ``kv_quant=True`` lays it out as rotated-int8
-    codes plus per-token fp16 scales (8.25 bits/element); it needs a
-    power-of-two head_dim."""
-    kvh, hd, n_l = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+    """Zeroed serving cache. ``kv_quant=True`` lays the attention planes
+    out as rotated-int8 codes plus per-token fp16 scales (8.25
+    bits/element); it needs a power-of-two head_dim, and an attention-free
+    model has no planes for it to change. Recurrent state is f32 whatever
+    the planes' dtype."""
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if kv_quant and not is_pow2(hd):
         raise ValueError(f"kv_quant needs a power-of-two head_dim, got {hd}")
-    shape = (n_l, batch, kvh, max_len)
-    if kv_quant:
-        attn = {"k": torch.zeros(*shape, hd, dtype=torch.int8, device=device),
-                "v": torch.zeros(*shape, hd, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(*shape, 1, dtype=torch.float16,
-                                       device=device),
-                "v_scale": torch.zeros(*shape, 1, dtype=torch.float16,
-                                       device=device)}
-    else:
-        attn = {"k": torch.zeros(*shape, hd, dtype=dtype, device=device),
+
+    def kv(n_layers):
+        shape = (n_layers, batch, kvh, max_len)
+        if kv_quant:
+            return {"k": torch.zeros(*shape, hd, dtype=torch.int8,
+                                     device=device),
+                    "v": torch.zeros(*shape, hd, dtype=torch.int8,
+                                     device=device),
+                    "k_scale": torch.zeros(*shape, 1, dtype=torch.float16,
+                                           device=device),
+                    "v_scale": torch.zeros(*shape, 1, dtype=torch.float16,
+                                           device=device)}
+        return {"k": torch.zeros(*shape, hd, dtype=dtype, device=device),
                 "v": torch.zeros(*shape, hd, dtype=dtype, device=device)}
-    return {"attn": attn}
+
+    def states(empty):
+        one = empty(cfg, batch, device=device)
+        return {k: v.expand(cfg.num_layers, *v.shape).contiguous()
+                for k, v in one.items()}
+
+    if cfg.family == "ssm":
+        return {"ssm": states(ssm_mod.rwkv6_empty_state)}
+    if cfg.family == "hybrid":
+        return {"attn": kv(-(-cfg.num_layers // cfg.attn_every)),
+                "ssm": states(ssm_mod.mamba2_empty_state)}
+    return {"attn": kv(cfg.num_layers)}
 
 
-def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s views of the stacked layer leaves."""
+def layer_params(layers: Params, i: int, *more: int) -> Params:
+    """Layer ``i``'s views of the stacked layer leaves; further indices
+    take inner lead axes (a hybrid's ``mamba_blocks[i, j]``)."""
     if isinstance(layers, dict):
-        return {k: layer_params(v, i) for k, v in layers.items()}
-    if isinstance(layers, QTensor):
-        return layers.layer(i)
-    return layers[i]
+        return {k: layer_params(v, i, *more) for k, v in layers.items()}
+    out = layers.layer(i) if isinstance(layers, QTensor) else layers[i]
+    return layer_params(out, *more) if more else out
 
 
 def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False):
@@ -237,6 +378,13 @@ def _layer_cache(cache, i: int) -> dict:
 
 
 def _run_decoder(params, x, rt, cfg, *, cache, pos):
+    if cfg.family in ("ssm", "hybrid"):
+        # a single token against a cache is a decode step
+        decode = cache is not None and x.shape[1] == 1
+        for i in range(cfg.num_layers):
+            x = recurrent_layer_apply(params, x, rt, cfg, i, cache=cache,
+                                      pos=pos, decode=decode)
+        return x, cache
     if cache is not None and x.shape[1] == 1 and rt.decode_token_cache:
         return _run_decoder_token(params, x, rt, cfg, cache=cache, pos=pos)
     for i in range(cfg.num_layers):
@@ -244,6 +392,54 @@ def _run_decoder(params, x, rt, cfg, *, cache, pos):
         x, _ = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
                                   cfg, cache=layer_cache, pos=pos)
     return x, cache
+
+
+def hybrid_layer(cfg, i: int) -> tuple[Optional[int], int, int]:
+    """Layer ``i`` of a hybrid: (the KV layer of the shared attention that
+    runs before it, or None; its macroblock, or -1 in the tail; its index
+    in that stack)."""
+    every, n_full, _ = hybrid_dims(cfg)
+    blk, j = divmod(i, every)
+    attn = blk if j == 0 else None
+    if blk < n_full:
+        return attn, blk, j
+    return attn, -1, i - n_full * every
+
+
+def recurrent_layer_apply(params, x, rt, cfg, i: int, *, cache, pos,
+                          decode: bool):
+    """Layer ``i`` of an SSM or hybrid stack, reading its recurrent state
+    from ``cache`` (None: zeros, no state kept) and writing the new one
+    back in place. RWKV6: one block. Zamba2: before the first layer of
+    each macroblock (and of the tail) the shared attention block, against
+    its own KV layer (the tail's is ``n_full``), then the layer's Mamba2
+    mixer. The shared attention takes the prefill branch at every length,
+    as the reference's does (no token cache)."""
+    state = None if cache is None else {k: v[i] for k, v in
+                                        cache["ssm"].items()}
+    if cfg.family == "ssm":
+        x, new = ssm_mod.rwkv6_apply(layer_params(params["layers"], i), x,
+                                     rt, cfg, state=state, decode=decode)
+    else:
+        attn, blk, j = hybrid_layer(cfg, i)
+        if attn is not None:
+            sa = params["shared_attn"]
+            kv = (None if cache is None else
+                  {k: v[attn] for k, v in cache["attn"].items()})
+            h, _ = attention_apply(sa["attn"], norm_apply(sa["ln"], x,
+                                                          cfg.norm),
+                                   rt, cfg, cache=kv, pos=pos)
+            x = x + h
+        lp = (layer_params(params["mamba_blocks"], blk, j) if blk >= 0
+              else layer_params(params["mamba_tail"], j))
+        h, new = ssm_mod.mamba2_apply(lp["mamba"],
+                                      norm_apply(lp["ln"], x, cfg.norm), rt,
+                                      cfg, state=state, decode=decode)
+        x = x + h
+    if cache is not None:
+        for k, v in new.items():
+            cache["ssm"][k][i].copy_(v)
+    return x
 
 
 def _run_decoder_token(params, x, rt, cfg, *, cache, pos):

@@ -31,6 +31,13 @@ Hot-path discipline, as in the reference:
   zeroed sub-cache that is copied into the admitted slots (paged: straight
   into the pool through the admitted slots' block-table rows), and each
   prompt's first token comes from its true last-prompt-token logits.
+* **The chunk ladder for recurrent families** (``ssm``, ``hybrid``).
+  Recurrent state integrates every fed token, so pad tokens would pollute
+  it: each admitted request is fed at its exact length in power-of-two
+  chunks (``prompt_chunk``, then halves), straight into its slot's rows.
+  The first chunk starts from a zeroed slot (state and KV rows), the
+  later ones continue from its state; the head runs on the last chunk
+  only, and its first token costs one host sync per request.
 * **Numeric quarantine.** A slot whose logits row is not finite reports
   the in-band ``-1`` sentinel instead of a token (riding the same
   transfer); it finishes with ``finish_reason="error"`` and its cache rows
@@ -43,10 +50,11 @@ Hot-path discipline, as in the reference:
   step first grows the chains whose next write crosses a block boundary,
   preempting a victim when the pool runs dry.
 * **Preemption.** :meth:`preempt` (or the scheduler's ``should_preempt``
-  hook, when every slot is busy) swaps a live slot's cache rows (paged:
-  its blocks) to host in one device->host copy, not counted as a step
-  sync, frees the slot and requeues the request; re-admission scatters the
-  rows back and decoding continues bit-identically, with no re-prefill.
+  hook, when every slot is busy) swaps a live slot's rows of every cache
+  leaf, recurrent state included (paged: its blocks), to host in one
+  device->host copy, not counted as a step sync, frees the slot and
+  requeues the request; re-admission scatters the rows back and decoding
+  continues bit-identically, with no re-prefill.
 
 Resilience, as in the reference (every failure ends in a terminal
 StreamEvent with its finish reason):
@@ -115,6 +123,8 @@ _POISONED = -1
 
 _LATER = {"mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)",
           "families": "ROADMAP Queue 1 item 6"}
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_RECURRENT = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -165,7 +175,8 @@ class Request:
 class ServeEngine:
     def __init__(self, params, cfg, *, slots: int = 4, max_len: int = 256,
                  rt: Optional[Runtime] = None, prompt_pad: int = 64,
-                 temperature: float = 0.0, seed: int = 0,
+                 prompt_chunk: int = 16, temperature: float = 0.0,
+                 seed: int = 0,
                  sample_on_host: bool = False,
                  sampling: Optional[SamplingParams] = None,
                  scheduler: "str | Scheduler | None" = None,
@@ -198,19 +209,20 @@ class ServeEngine:
                     raise ValueError(
                         f"speculative decoding needs pure-attention "
                         f"families (dense/vlm/moe); the {role} is "
-                        f"{c.family!r}: recurrent state cannot roll back a "
-                        f"rejected window")
+                        f"{c.family!r} — recurrent state cannot roll back "
+                        f"a rejected window (positional cache indexing is "
+                        f"what makes rejection free)")
             if draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
                     f"draft vocab {draft_cfg.vocab_size} != target vocab "
                     f"{cfg.vocab_size}: acceptance compares distributions "
                     f"over the same token ids")
         for c in (cfg, draft_cfg) if self.spec else (cfg,):
-            if c.family not in ("dense", "moe"):
+            if c.family not in _FAMILIES:
                 raise NotImplementedError(
-                    f"family {c.family!r}: the port serves the dense and "
-                    f"MoE families; SSM, hybrid and the frontends land "
-                    f"with {_LATER['families']}")
+                    f"family {c.family!r}: the port serves {_FAMILIES}; "
+                    f"the frontends (vlm, audio) land with "
+                    f"{_LATER['families']}")
         # Full f32 products: the port is held to the reference within f32
         # tolerances, which TF32's ~3 significant digits would break.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -232,6 +244,7 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.prompt_pad = prompt_pad
+        self.prompt_chunk = int(prompt_chunk)
         self.seed = int(seed)
         self.sample_on_host = bool(sample_on_host)
         # the engine default for requests without their own; the legacy
@@ -309,6 +322,7 @@ class ServeEngine:
         self.prefill_waves = 0
         self.decode_seconds = 0.0   # host wall per step, ending in its sync
         self.prefill_seconds = 0.0  # host wall per wave, ending in its sync
+        self.prefill_chunks = 0     # ladder calls (recurrent families)
         self.requests_rejected = 0  # backpressure: newcomer turned away
         self.requests_shed = 0      # backpressure: waiting victim dropped
         self.requests_invalid = 0
@@ -489,16 +503,16 @@ class ServeEngine:
             # the entry is self-contained, so the blocks can be reused at
             # once; resume scatters into fresh blocks
             blocks = list(self._slot_blocks[s])
-            entry.update(cache=_take_slots(self.cache["attn"], blocks),
+            entry.update(cache=_take_slots(self.cache, blocks),
                          nblocks=len(blocks))
             self.blocks_swapped += len(blocks)
             self._release_blocks(s, zero=False)
         else:
-            entry["cache"] = _take_slots(self.cache["attn"], [s])
+            entry["cache"] = _take_slots(self.cache, [s])
         if self.spec:
             # the draft's rows ride the same entry: resume restores both
             # models' state with no draft re-prefill
-            entry["draft"] = _take_slots(self.draft_cache["attn"], [s])
+            entry["draft"] = _take_slots(self.draft_cache, [s])
         self._swapped[rid] = entry
         self._free_slot(s)  # no terminal event: the stream pauses
         req.preemptions += 1
@@ -544,15 +558,15 @@ class ServeEngine:
                 self.scheduler.add(req)  # retry when blocks free up
                 return False
             self._swapped.pop(req.rid)
-            _put_slots(self.cache["attn"], sw["cache"], blocks)
+            _put_slots(self.cache, sw["cache"], blocks)
             self._slot_blocks[s] = blocks
             self._table[s, :] = paged_mod.NULL_BLOCK
             self._table[s, :n] = blocks
         else:
             self._swapped.pop(req.rid)
-            _put_slots(self.cache["attn"], sw["cache"], [s])
+            _put_slots(self.cache, sw["cache"], [s])
         if "draft" in sw:
-            _put_slots(self.draft_cache["attn"], sw["draft"], [s])
+            _put_slots(self.draft_cache, sw["draft"], [s])
         self._install_slot(s, req, self._resolve(req), pos=sw["pos"],
                            next_tok=sw["next_tok"])
         self.resumes += 1
@@ -691,6 +705,11 @@ class ServeEngine:
             if r.t_submit is None:
                 r.t_submit = now  # direct admit(): no queue wait
             r.t_admit = now
+        if self.cfg.family in _RECURRENT:
+            # no pad buckets for recurrent state: one ladder per request
+            for r, s in zip(fresh, free):
+                events += self._admit_chunked(r, s)
+            return events
         return events + self._admit_bucketed(fresh, free[:len(fresh)])
 
     def _group_sampling(self, group: list[Request]):
@@ -781,7 +800,50 @@ class ServeEngine:
             _copy_slots(self.draft_cache, lm.advance_cache(
                 self.draft_params, toks, dsub, 0, self.draft_rt,
                 self.draft_cfg), free)
-        last = logits[:, 0]
+        return self._finish_admission(group, free, plens, sps, logits[:, 0],
+                                      args, t0)
+
+    def _ladder(self, plen: int) -> list[int]:
+        """Chunk sizes feeding a ``plen``-token prompt: ``prompt_chunk``,
+        halved until it fits what is left, each time."""
+        sizes, rem = [], plen
+        while rem:
+            c = self.prompt_chunk
+            while c > rem:
+                c //= 2
+            sizes.append(c)
+            rem -= c
+        return sizes
+
+    def _admit_chunked(self, req: Request, s: int) -> list[StreamEvent]:
+        """Recurrent-family admission of one request into slot ``s``: its
+        rows of every cache leaf zeroed (a finished request's state must
+        not leak into the next), then the prompt fed in the chunk ladder
+        straight into the slot's rows, the state threaded between calls;
+        the head and the first token from the last chunk only."""
+        t0 = time.perf_counter()
+        prompt = np.asarray(req.prompt, np.int32)
+        sps, keys, temp, top_k, top_p = self._group_sampling([req])
+        args = () if self.sample_on_host else self._sampling_args(
+            keys, np.zeros(1), temp, top_k, top_p)
+        view = _slot_view(self.cache, s)
+        _zero_tree(view)
+        sizes = self._ladder(len(prompt))
+        off = 0
+        for c in sizes[:-1]:
+            lm.advance_cache(self.params, prompt[None, off:off + c], view,
+                             off, self.rt, self.cfg)
+            off += c
+        logits, _ = lm.forward(self.params, prompt[None, off:], self.rt,
+                               self.cfg, cache=view, pos=off, last_only=True)
+        self.prefill_chunks += len(sizes)
+        return self._finish_admission([req], [s], [len(prompt)], sps,
+                                      logits[:, 0], args, t0)
+
+    def _finish_admission(self, group, free, plens, sps, last, args,
+                          t0) -> list[StreamEvent]:
+        """Each admitted request's first token from its last-prompt logits
+        ``last`` (G, V), in one transfer, and its slot bound."""
         if self.sample_on_host:
             # the baseline: one transfer per admitted row
             firsts = [int(torch.argmax(last[g])) for g in range(len(group))]
@@ -1083,8 +1145,7 @@ class ServeEngine:
         trees = ([] if self.paged else [self.cache]) + (
             [self.draft_cache] if self.spec else [])
         for tree in trees:
-            for v in tree["attn"].values():
-                v[:, s].zero_()
+            _zero_tree(_slot_view(tree, s))
         self.pos[s] = 0
         self._next_tok[s] = 0
 
@@ -1128,24 +1189,33 @@ class ServeEngine:
     # --- accounting -------------------------------------------------------
     @property
     def cache_bytes(self) -> int:
-        return int(sum(a.numel() * a.element_size()
-                       for a in self.cache["attn"].values()))
+        """Bytes of every cache leaf: the attention planes and the
+        recurrent state."""
+        return _tree_bytes(self.cache)
 
     def stats(self) -> dict:
         """Counters for tests and ``chip_smoke.py``. Times are host wall
         seconds around work that ends in the step's device->host transfer,
         so they include the device time. ``cache_bytes_reserved`` is what
         requests claim (the whole dense cache; a pool's allocated blocks),
-        ``cache_bytes_live`` the bytes of the live slots' positions."""
+        ``cache_bytes_live`` the bytes of the live slots' positions.
+        ``cache_bytes_per_token`` counts the attention planes only: the
+        recurrent state is O(1) in tokens (an attention-free model reports
+        0), while ``cache_bytes`` holds every leaf. ``prefill_waves`` counts
+        admission calls that end in a sync: one per wave, or one per
+        request's ladder (recurrent families, whose ``prefill_chunks``
+        counts the ladder's calls)."""
+        attn = self.cache.get("attn", {})
+        attn_bytes = _tree_bytes(attn)
         if self.paged:
             n_tokens_cap = self.num_blocks * self.block_size
         else:
-            n_tokens_cap = self.slots * self.cache["attn"]["k"].shape[3]
-        bytes_per_token = self.cache_bytes / n_tokens_cap
+            n_tokens_cap = self.slots * (attn["k"].shape[3] if attn else 1)
+        bytes_per_token = attn_bytes / n_tokens_cap
         live_tokens = sum(int(self.pos[s]) for s, r in enumerate(self.active)
                           if r is not None)
         reserved = (bytes_per_token * self.pool.used() * self.block_size
-                    if self.paged else self.cache_bytes)
+                    if self.paged else attn_bytes)
         out = {
             "host_syncs": self.host_syncs,
             "tokens_decoded": self.tokens_decoded,
@@ -1180,6 +1250,8 @@ class ServeEngine:
             "kv_quant": self.rt.kv_quant,
             "act_quant": self.rt.act_quant,
         }
+        if self.cfg.family in _RECURRENT:
+            out["prefill_chunks"] = self.prefill_chunks
         if self.spec:
             out.update(
                 speculative=True,
@@ -1191,9 +1263,7 @@ class ServeEngine:
                                  if self.draft_proposed else float("nan")),
                 tokens_per_step=(self.tokens_decoded / self.decode_steps
                                  if self.decode_steps else float("nan")),
-                draft_cache_bytes=int(sum(
-                    a.numel() * a.element_size()
-                    for a in self.draft_cache["attn"].values())),
+                draft_cache_bytes=_tree_bytes(self.draft_cache),
             )
         if self.paged:
             out.update(
@@ -1210,38 +1280,72 @@ class ServeEngine:
 
 
 # --- slot swap: gather to host, scatter back ---------------------------------
+# Every cache leaf, attention plane or recurrent state, is (L, B, ...) with
+# its slots (paged: pool blocks) on axis 1.
+
+def _tree_leaves(tree: dict, prefix: tuple = ()):
+    """(path, tensor) of every leaf of a cache tree, in sorted key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _tree_leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def _leaf(tree: dict, path: tuple) -> torch.Tensor:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree_bytes(tree: dict) -> int:
+    return int(sum(a.numel() * a.element_size()
+                   for _, a in _tree_leaves(tree)))
+
+
+def _slot_view(tree: dict, s: int) -> dict:
+    """Slot ``s``'s rows of every leaf as a batch-of-one cache: views, so
+    a forward on it writes the engine cache in place."""
+    return {k: _slot_view(v, s) if isinstance(v, dict) else v[:, s:s + 1]
+            for k, v in tree.items()}
+
+
+def _zero_tree(tree: dict) -> None:
+    for _, a in _tree_leaves(tree):
+        a.zero_()
+
 
 def _copy_slots(cache: dict, sub: dict, idx: list[int]) -> None:
     """Copy a (G,)-slot sub-cache into slots ``idx`` of ``cache``, in
     place."""
-    index = torch.as_tensor(idx, device=cache["attn"]["k"].device)
-    for k, v in cache["attn"].items():
-        v.index_copy_(1, index, sub["attn"][k])
+    for path, v in _tree_leaves(cache):
+        index = torch.as_tensor(idx, device=v.device)
+        v.index_copy_(1, index, _leaf(sub, path))
 
 
-def _take_slots(attn: dict, idx: list[int]):
+def _take_slots(cache: dict, idx: list[int]):
     """Rows ``idx`` of axis 1 (slots, or pool blocks) of every cache leaf,
     gathered on the device and moved to host memory in ONE copy: a flat
-    uint8 buffer and each leaf's (key, dtype, shape). The int8 codes and
-    fp16 scales round-trip bit for bit."""
-    keys = sorted(attn)
-    index = torch.as_tensor(idx, dtype=torch.int64,
-                            device=attn[keys[0]].device)
-    parts = [attn[k].index_select(1, index) for k in keys]
+    uint8 buffer and each leaf's (path, dtype, shape). The int8 codes,
+    fp16 scales and f32 states round-trip bit for bit."""
+    leaves = list(_tree_leaves(cache))
+    index = torch.as_tensor(idx, dtype=torch.int64, device=leaves[0][1].device)
+    parts = [a.index_select(1, index) for _, a in leaves]
     flat = torch.cat([p.reshape(-1).view(torch.uint8) for p in parts]).cpu()
-    return flat, [(k, p.dtype, tuple(p.shape)) for k, p in zip(keys, parts)]
+    return flat, [(path, p.dtype, tuple(p.shape))
+                  for (path, _), p in zip(leaves, parts)]
 
 
-def _put_slots(attn: dict, swap, idx: list[int]) -> None:
+def _put_slots(cache: dict, swap, idx: list[int]) -> None:
     """Scatter a :func:`_take_slots` entry into rows ``idx`` of axis 1 of
     every leaf, in place (one host->device copy)."""
     flat, layout = swap
-    dev = attn[layout[0][0]].device
+    dev = _leaf(cache, layout[0][0]).device
     flat = flat.to(dev)
     index = torch.as_tensor(idx, dtype=torch.int64, device=dev)
     off = 0
-    for key, dtype, shape in layout:
+    for path, dtype, shape in layout:
         n = math.prod(shape) * dtype.itemsize
-        attn[key].index_copy_(1, index,
-                              flat[off:off + n].view(dtype).reshape(shape))
+        _leaf(cache, path).index_copy_(
+            1, index, flat[off:off + n].view(dtype).reshape(shape))
         off += n

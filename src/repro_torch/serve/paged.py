@@ -219,10 +219,11 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
     if not is_pow2(hd):
         raise ValueError(f"paged kv cache needs a power-of-two head_dim, "
                          f"got {hd}")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(
-            f"paged KV cache: the port serves the pure-attention families "
-            f"(dense/moe); {cfg.family!r} is ROADMAP Queue 1 item 6")
+            f"paged KV cache supports pure-attention families "
+            f"(dense/vlm/moe); {cfg.family!r} carries recurrent or "
+            f"cross-attention state that has no block structure")
     shape = (cfg.num_layers, num_blocks, kvh, block_size)
     return {"attn": {
         "k": torch.zeros(*shape, hd, dtype=torch.int8, device=device),

@@ -54,11 +54,12 @@ def test_reference_import_pattern():
 
 def test_every_port_module_is_checked():
     """The import guards above cover the modules of every slice (the
-    W3A8 path, the quantizer kernel, the checkpoints, the paged cache and
-    speculative decoding included)."""
+    W3A8 path, the quantizer kernel, the checkpoints, the paged cache,
+    speculative decoding and the recurrent families included)."""
     names = {p.relative_to(PORT).with_suffix("").as_posix() for p in SOURCES
              if PORT in p.parents}
     assert {"core/act_quant", "kernels/quantize", "kernels/itq3",
             "checkpoint/ckpt", "serve/quantized", "launch/serve",
             "serve/paged", "core/prng", "serve/faults", "ft/monitor",
-            "serve/spec"} <= names
+            "serve/spec", "models/ssm", "configs/rwkv6_3b",
+            "configs/zamba2_7b"} <= names
