@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py                 # every phase (1-13), one card
+    python3 chip_smoke.py                 # every phase (1-14), one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --profile       # also trace a short run of each path
                                           # (its cut sweeps check, untimed)
@@ -184,6 +184,25 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    for the idle share. Phase 3 also holds the four contraction kernels at
    these widths (K 2560 to 8960, N up to 65,536) against their plain
    versions and times them (``<kernel>_ssm`` in the kernel line).
+14. The frontend families at full width and depth, seeded on the card and
+   quantized as drawn, with seeded (4, P, F) features from a generator on
+   the card: (a) phi-3-vision-4.2b on itq3_s (head_dim 96 on the fp
+   cache), (a1) phase 4's requests through the engine, text only as the
+   reference serves a vlm (a cache of 256 + 576 positions), (a2) one
+   ``lm.forward(frontend_feats=...)`` of 4 images of 576 patches with
+   40-token prompts, then 16 greedy ``lm.decode_step``s; (b)
+   seamless-m4t-medium on itq3_s with ``kv_quant``: 4 utterances of 1,024
+   frames through the 12-layer encoder, 8-token decoder prompts
+   cross-attending the memory (the fp ``xattn`` cache), 32 greedy steps;
+   (c) (b) on W3A8 under the mixed policy. Each: exact launches per
+   decode step and per prefill, one host transfer per step (the engine's
+   run: per step and wave), two runs' streams equal, layer-forced logits
+   within 1e-3, ms per prefill and per step, peak memory and resident
+   bytes, and a traced 3-step decode window for the idle share. Phase 3
+   also holds the contraction kernels at these widths (K = 160 padded to
+   one block, M up to 4,096; the int8 pair at seamless's) and ``attn_q8``
+   at head_dim 64 with one query head per KV head against their plain
+   versions and times them (``<kernel>_frontend`` in the kernel line).
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -1276,21 +1295,27 @@ def attn_cut_sweep(gen: torch.Generator, dev, report: dict,
     report["attn_cuts_ms"] = out
 
 
-def check_attn(led: Ledger, gen: torch.Generator, dev) -> None:
-    slots, kvh, g, hd = 4, 3, 3, 64
-    for label, tq, lens, offs, causal, t in ATTN_CASES:
+def check_attn(led: Ledger, gen: torch.Generator, dev, *, name="attn_q8",
+               cases=ATTN_CASES, kvh: int = 3, g: int = 3, hd: int = 64,
+               model: str = "") -> None:
+    """The dense attention over SLOTS slots of ``kvh`` KV heads at
+    ``cases``: two calls bit-equal, within 1e-4 of its plain version,
+    timed beside ``scaled_dot_product_attention`` as row ``name``
+    (smollm-135m's rows by default)."""
+    for label, tq, lens, offs, causal, t in cases:
         kv_len = [x for x in lens for _ in range(kvh)]
         q_off = [x for x in offs for _ in range(kvh)]
-        args, kw = _attn_case(gen, dev, r=slots * kvh, tq=tq, g=g, hd=hd, t=t,
-                              kv_len=kv_len, q_offset=q_off, causal=causal)
+        args, kw = _attn_case(gen, dev, r=SLOTS * kvh, tq=tq, g=g, hd=hd,
+                              t=t, kv_len=kv_len, q_offset=q_off,
+                              causal=causal)
         got, want = attn_q8(*args, **kw), attn_q8_ref(*args, **kw)
         if not _bit_equal(got, attn_q8(*args, **kw)):
-            raise AssertionError(f"attn_q8 {label}: two calls differ")
+            raise AssertionError(f"{name} {model}{label}: two calls differ")
         q, kc, ks, vc, vs, _, _ = args
         mask, keys_read, pairs = attn_extent(kv_len, q_off, tq, t, causal)
         nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
                   + 2 * len(kv_len) * 4 + 2 * (q.numel() // hd) * 4)
-        led.add("attn_q8", f"{label} R=12 G=3 HD=64 T={t}",
+        led.add(name, f"{model}{label} R={SLOTS * kvh} G={g} HD={hd} T={t}",
                 **_attn_errs(got, want),
                 ms=device_ms(lambda: attn_q8(*args, **kw)),
                 plain_ms=device_ms(lambda: attn_q8_ref(*args, **kw)),
@@ -3455,30 +3480,49 @@ def check_ssm_widths(led: Ledger, gen: torch.Generator, dev,
     4 (a decode step of 4 slots) and M = 32 (a ladder chunk), on itq3_s:
     the fused float matvec (x unrotated) and the int8 matvec at M = 4, the
     float matmul and the int8 matmul at M = 32, and the fused matvec alone
-    at rwkv6's head (N = 65,536). Each within 1e-4 of its plain version
-    (the int8 pair: exact with unit scales, 1e-5 with real ones), two calls
-    bit-equal, timed once per shape beside its bound, its plain version
-    and ``x @ W`` on the dequantized f32 weight (the IFWHT'd one for the
-    fused matvec). The kernels' instantiations are those phase 3's ptxas
-    reports hold spill-free; the line names them ``<kernel>_ssm``."""
+    at rwkv6's head (N = 65,536); :func:`check_widths` holds and times
+    them (``<kernel>_ssm`` rows)."""
+    cases = [(label, k, n, (4, RECURRENT_CHUNK), True)
+             for label, k, n in SSM_SHAPES] + [RWKV_HEAD + ((4,), False)]
+    unit = check_widths(led, gen, dev, cases, "ssm")
+    report["ssm_widths_int8_unit_scale_abs_err"] = unit
+    print(f"  recurrent widths: every kernel within its tolerance, two calls "
+          f"bit-equal; int8 with unit scales exact over {len(unit)} shapes",
+          flush=True)
+
+
+def check_widths(led: Ledger, gen: torch.Generator, dev, cases,
+                 suffix: str) -> dict:
+    """The contraction kernels on itq3_s at ``cases``, each ``(label, K, N,
+    the Ms, with the int8 pair)``: M <= 16 the fused float matvec (x
+    unrotated) and the int8 matvec, else the float matmul and the int8
+    matmul; x is zero-padded to whole 256-blocks, as ``qmatmul`` pads it.
+    Each within 1e-4 of its plain version (the int8 pair: exact with unit
+    scales, 1e-5 with real ones), two calls bit-equal, timed once per
+    shape beside its bound, its plain version and ``x @ W`` on the
+    dequantized f32 weight (the IFWHT'd one for the fused matvec). The
+    kernels' instantiations are those phase 3's ptxas reports hold
+    spill-free; the rows are named ``<kernel>_<suffix>``. Returns the
+    int8 pair's unit-scale errors; raises if any is not 0."""
     unit = {}
-    for label, k, n in SSM_SHAPES + (RWKV_HEAD,):
+    for label, k, n, ms, int8 in cases:
         qt = formats.quantize(torch.randn(k, n, generator=gen, device=dev)
                               / math.sqrt(k), "itq3_s")
         planes, wbytes = _planes(qt), weight_bytes(qt)
+        kp = planes[0].shape[1] * 256  # K padded to whole blocks
         kw = dict(fivelevel=False, sub_blocks=0)
         w = dequant_blocks(*planes, rotate_weights=False,
-                           **kw).reshape(n, k).T.contiguous()
+                           **kw).reshape(n, kp).T.contiguous()
         w_rot = dequant_blocks(*planes, rotate_weights=True,
-                               **kw).reshape(n, k).T.contiguous()
-        head = label == RWKV_HEAD[0]
-        for m in (4,) if head else (4, RECURRENT_CHUNK):
-            x = torch.randn(m, k, generator=gen, device=dev)
+                               **kw).reshape(n, kp).T.contiguous()
+        for m in ms:
+            x = pad_last_dim(torch.randn(m, k, generator=gen, device=dev),
+                             256)
             xq, xs = act_encode(x)
             xdec = act_decode(xq, xs)
             small = m <= 16
             forms = [(
-                "itq3_matvec_ssm" if small else "itq3_matmul_ssm",
+                f"itq3_matvec_{suffix}" if small else f"itq3_matmul_{suffix}",
                 (lambda x=x: itq3_matvec(x, *planes, rotate_weights=False,
                                          rotate_x=True)) if small else
                 (lambda x=x: itq3_matmul(x, *planes, rotate_weights=False)),
@@ -3487,13 +3531,13 @@ def check_ssm_widths(led: Ledger, gen: torch.Generator, dev,
                 if small else (lambda x=x: itq3_matmul_ref(
                     x, *planes, rotate_weights=False)),
                 (lambda x=x: x @ w_rot) if small else (lambda x=x: x @ w),
-                m * k * 4, 2 * m * n * k + (9 * m * k if small else 0),
+                m * kp * 4, 2 * m * n * kp + (9 * m * kp if small else 0),
                 PEAK_F32_FLOPS if small else PEAK_TF32_FLOPS,
                 1 if small else 2, KERNEL_REL_TOL)]
-            if not head:
+            if int8:
                 fn = itq3_matvec_int8 if small else itq3_matmul_int8
-                name = ("itq3_matvec_int8_ssm" if small
-                        else "itq3_matmul_int8_ssm")
+                name = (f"itq3_matvec_int8_{suffix}" if small
+                        else f"itq3_matmul_int8_{suffix}")
                 ones = torch.ones_like(planes[2])
                 got = fn(xq, torch.ones_like(xs), planes[0], planes[1], ones,
                          planes[3], **kw)
@@ -3506,8 +3550,8 @@ def check_ssm_widths(led: Ledger, gen: torch.Generator, dev,
                     lambda fn=fn, xq=xq, xs=xs: fn(xq, xs, *planes, **kw),
                     lambda xq=xq, xs=xs: itq3_matmul_int8_ref(xq, xs, *planes,
                                                               **kw),
-                    lambda xdec=xdec: xdec @ w, m * k + m * 4,
-                    2 * m * n * k, PEAK_INT8_OPS, 1, INT8_REL_TOL))
+                    lambda xdec=xdec: xdec @ w, m * kp + m * 4,
+                    2 * m * n * kp, PEAK_INT8_OPS, 1, INT8_REL_TOL))
             for (name, run, plain, library, xbytes, ops, peak, products,
                  tol) in forms:
                 got = run()
@@ -3522,13 +3566,10 @@ def check_ssm_widths(led: Ledger, gen: torch.Generator, dev,
                         flops=ops * products, peak_ops=peak, tol=tol)
         del qt, planes, w, w_rot
     torch.cuda.empty_cache()
-    report["ssm_widths_int8_unit_scale_abs_err"] = unit
     if any(v != 0 for v in unit.values()):
-        raise AssertionError(f"int8 kernels at the recurrent widths: unit-"
+        raise AssertionError(f"int8 kernels at the {suffix} widths: unit-"
                              f"scale outputs differ: {unit}")
-    print(f"  recurrent widths: every kernel within its tolerance, two calls "
-          f"bit-equal; int8 with unit scales exact over {len(unit)} shapes",
-          flush=True)
+    return unit
 
 
 def ladder(plen: int, chunk: int = RECURRENT_CHUNK) -> list:
@@ -3780,6 +3821,387 @@ def recurrent_phase(dev, report: dict) -> dict:
     return dict(totals)
 
 
+# --- the frontend families: phase 3's widths, phase 14 ----------------------
+
+# phase 14's model-level loops: 4 images of 576 patches, each with a
+# 40-token prompt, then 16 greedy steps (phi); 4 utterances of 1,024
+# frames, each with an 8-token decoder prompt, then 32 greedy steps
+# (seamless)
+VLM_PROMPT, VLM_STEPS = 40, 16
+AUDIO_PROMPT, AUDIO_STEPS = 8, 32
+FRONTEND_PROFILE_STEPS = 3
+PHI_PREFILL_M = SLOTS * (576 + VLM_PROMPT)
+# (label, K, N, the Ms, with the int8 pair) at the frontend families'
+# widths: phi-3-vision's patch projection at 4 x 576 patches, its
+# attention and MLP at a decode step and at the image prefill's rows, its
+# untied head; seamless's frame projection (K = 160: one padded block)
+# and encoder at 4 x 1,024 frames, its decoder at a decode step, the int8
+# pair beside (W3A8 runs on seamless only)
+FRONTEND_SHAPES = (
+    ("phi frontend_proj", 1024, 3072, (SLOTS * 576,), False),
+    ("phi wq/wk/wv/wo", 3072, 3072, (SLOTS, PHI_PREFILL_M), False),
+    ("phi gate/up", 3072, 8192, (SLOTS, PHI_PREFILL_M), False),
+    ("phi down", 8192, 3072, (SLOTS, PHI_PREFILL_M), False),
+    ("phi head", 3072, 32064, (SLOTS,), False),
+    ("seamless frontend_proj", 160, 1024, (SLOTS * 1024,), True),
+    ("seamless attn", 1024, 1024, (SLOTS, SLOTS * 1024), True),
+    ("seamless up", 1024, 4096, (SLOTS, SLOTS * 1024), True),
+    ("seamless down", 4096, 1024, (SLOTS, SLOTS * 1024), True),
+)
+# seamless's self-attention on the int8 cache: 4 slots x 16 KV heads of
+# 64, G = 1; a decode step over the 256-key cache and the 8-token
+# decoder prompt's prefill
+FRONTEND_ATTN = (
+    ("decode TQ=1", 1, [9, 64, 130, 255], [0, 0, 0, 0], False, 256),
+    ("prefill TQ=8", 8, [8, 8, 8, 8], [0, 0, 0, 0], True, 256),
+)
+
+
+def check_frontend_widths(led: Ledger, gen: torch.Generator, dev,
+                          report: dict) -> None:
+    """The contraction kernels at the frontend families' widths
+    (:func:`check_widths`, ``<kernel>_frontend`` rows), then ``attn_q8``
+    at seamless's head_dim 64 with one query head per KV head (R = 64),
+    within 1e-4 of its plain version, two calls bit-equal, timed beside
+    ``scaled_dot_product_attention`` (``attn_q8_frontend``)."""
+    unit = check_widths(led, gen, dev, FRONTEND_SHAPES, "frontend")
+    report["frontend_widths_int8_unit_scale_abs_err"] = unit
+    check_attn(led, gen, dev, name="attn_q8_frontend", cases=FRONTEND_ATTN,
+               kvh=16, g=1, hd=64, model="seamless ")
+    print(f"  frontend widths: every kernel within its tolerance, two calls "
+          f"bit-equal; int8 with unit scales exact over {len(unit)} shapes; "
+          f"attn_q8 at HD 64, G 1 within 1e-4", flush=True)
+
+
+def frontend_inputs(cfg, prompt: int, dev):
+    """Seeded frontend features (SLOTS, frontend_len, frontend_dim) f32 and
+    prompts (SLOTS, ``prompt``), drawn from a generator on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    feats = torch.randn(SLOTS, cfg.frontend_len, cfg.frontend_dim,
+                        generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    return feats, toks
+
+
+def frontend_prefix(cfg) -> int:
+    """Cache positions ahead of the prompt: a vlm's patch prefix."""
+    return cfg.frontend_len if cfg.family == "vlm" else 0
+
+
+def frontend_contract(cfg, *, kv_quant: bool, act_quant: bool,
+                      prompt: int) -> tuple:
+    """The kernels of one greedy decode step and of the frontend prefill
+    (``lm.forward(frontend_feats=..., last_only=True)``) of SLOTS rows.
+    Per decoder layer the self-attention's 4 projections and the MLP's (3
+    for swiglu, else 2), plus on an audio model the cross-attention's
+    wq and wo (its wk and wv run on the memory at the prefill only). The
+    prefill adds ``frontend_proj`` on the SLOTS x frontend_len features;
+    a vlm's layers run over prefix and prompt rows together; an audio
+    model's encoder layers (4 + MLP each) and the cross-attention's wk,
+    wv run on the frame rows, its decoder on the prompt rows. An untied
+    head is one more contraction of SLOTS rows (a tied table contracts
+    plain). M <= 16 rows is the fused matvec, else a 256-point FWHT and
+    the matmul; on W3A8 one ``fwht_act_encode`` and the int8 kernel.
+    ``kv_quant``: per layer two head_dim FWHTs, one KV codec and one
+    ``attn_q8`` (the encoder and the cross-attention attend plain)."""
+    layers, hd = cfg.num_layers, cfg.resolved_head_dim
+    mlp = 3 if cfg.activation == "swiglu" else 2
+    audio = cfg.family == "audio"
+    head = 0 if cfg.tie_embeddings else 1
+
+    def add(per, rows, n):
+        small = rows <= 16
+        if act_quant:
+            per["fwht_act/256"] += n
+            per["itq3_matvec_int8" if small else "itq3_matmul_int8"] += n
+        else:
+            per["itq3_matvec" if small else "itq3_matmul"] += n
+            if not small:
+                per["fwht/256"] += n
+
+    step, prefill = collections.Counter(), collections.Counter()
+    add(step, SLOTS, layers * (4 + mlp + (2 if audio else 0)) + head)
+    frames = SLOTS * cfg.frontend_len
+    if audio:
+        add(prefill, frames, 1 + cfg.encoder_layers * (4 + mlp) + 2 * layers)
+        add(prefill, SLOTS * prompt, layers * (4 + mlp + 2))
+    else:
+        add(prefill, frames, 1)
+        add(prefill, frames + SLOTS * prompt, layers * (4 + mlp))
+    add(prefill, SLOTS, head)
+    if kv_quant:
+        for per in (step, prefill):
+            per[f"fwht/{hd}"] += 2 * layers
+            per[f"fwht_kv/{hd}"] += layers
+            per["attn_q8"] += layers
+    return ({k: v for k, v in step.items() if v},
+            {k: v for k, v in prefill.items() if v})
+
+
+def frontend_loop(params, cfg, feats, toks, dev, *, steps: int,
+                  kv_quant: bool, act_quant: bool, count: bool) -> dict:
+    """One frontend prefill (``lm.forward`` with the features, the head on
+    each row's last position) and ``steps`` greedy ``lm.decode_step``s
+    from its cache, each token fed back on the device and fetched to the
+    host once per step (the engine's one transfer). With ``count`` the
+    launch counters are reset just before and read just after."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+
+    rt = Runtime(kv_quant=kv_quant, act_quant=act_quant)
+    cache = lm.init_cache(cfg, SLOTS, MAX_LEN, kv_quant=kv_quant, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if count:
+        _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = lm.forward(params, toks, rt, cfg, frontend_feats=feats,
+                               cache=cache, last_only=True)
+    tok = lm.sample_tokens(logits[:, 0])
+    stream, transfers = [tok.cpu()], 1
+    prefill_s = time.perf_counter() - t0
+    pos = frontend_prefix(cfg) + toks.shape[1]
+    t1 = time.perf_counter()
+    for step in range(steps):
+        logits, cache = lm.decode_step(params, tok[:, None], cache,
+                                       pos + step, rt, cfg)
+        tok = lm.sample_tokens(logits[:, 0])
+        stream.append(tok.cpu())
+        transfers += 1
+    decode_s = time.perf_counter() - t1
+    counts = dict(_build.launches) if count else None
+    return dict(stream=torch.stack(stream).numpy(), prefill_s=prefill_s,
+                decode_s=decode_s, transfers=transfers, counts=counts,
+                finite=bool(torch.isfinite(logits).all()),
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                cache_bytes=sum(v.numel() * v.element_size()
+                                for part in cache.values()
+                                for v in part.values()))
+
+
+def forced_stack(params, cfg, key: str, x, caches, pos, rts, *,
+                 memory=None, causal=True):
+    """Every layer of ``params[key]`` on both paths (``rts``: kernel,
+    plain) from the plain path's input; after each layer the kernel
+    path's cache layer (self- and cross-attention) is overwritten with the
+    plain path's, so the paths start every layer from one state. Returns
+    both paths' last outputs and the largest per-layer rel error."""
+    from repro_torch.models import lm
+
+    worst = 0.0
+    n = cfg.num_layers if key == "layers" else cfg.encoder_layers
+    for i in range(n):
+        lp = lm.layer_params(params[key], i)
+        outs = [lm._dense_layer_apply(
+            lp, x, rt, cfg, pos=pos, causal=causal, memory=memory,
+            cache=None if c is None else lm._layer_cache(c, i),
+            xcache=lm._xattn_cache(c, i))[0] for rt, c in zip(rts, caches)]
+        worst = max(worst, rel_err(*outs)[1])
+        if caches[0] is not None:
+            for part in ("attn", "xattn"):
+                for k, v in caches[0].get(part, {}).items():
+                    v[i].copy_(caches[1][part][k][i])
+        x = outs[1]
+    return outs, worst
+
+
+def frontend_parity(params, cfg, feats, toks, dev, *, kv_quant: bool,
+                    act_quant: bool) -> dict:
+    """Layer-forced logits of the frontend prefill and 4 decode steps,
+    kernel path against plain path (:func:`forced_stack`), held to 1e-3
+    of the largest logit: the frontend projection (held to 1e-4, then
+    the plain one feeds both), a vlm's layers over prefix and prompt, an
+    audio model's encoder layer by layer (each held to 1e-3; the plain
+    memory feeds both decoders) and its decoder."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+
+    rts = [Runtime(kv_quant=kv_quant, backend=b, decode_token_cache=False,
+                   act_quant=act_quant) for b in ("auto", "ref")]
+    caches = [lm.init_cache(cfg, SLOTS, MAX_LEN, kv_quant=kv_quant,
+                            device=dev) for _ in range(2)]
+    projs = [lm.dense(feats, params["frontend_proj"], rt) for rt in rts]
+    proj_rel = rel_err(*projs)[1]
+    x, memory, enc_rel = lm._embed(params, toks), None, None
+    if cfg.family == "audio":
+        outs, enc_rel = forced_stack(params, cfg, "encoder", projs[1],
+                                     (None, None), 0, rts, causal=False)
+        memory = lm.norm_apply(params["enc_ln_f"], outs[1], cfg.norm)
+    else:
+        x = torch.cat([projs[1], x], dim=1)
+    errs, pos = [], 0
+    for step in range(5):
+        outs, _ = forced_stack(params, cfg, "layers", x, caches, pos, rts,
+                               memory=memory)
+        logits = [lm._head(params, h[:, -1:], rt, cfg)
+                  for h, rt in zip(outs, rts)]
+        errs.append(rel_err(*logits)[1])
+        x = lm._embed(params, logits[1][:, 0].argmax(-1)[:, None])
+        pos, memory = frontend_prefix(cfg) + toks.shape[1] + step, None
+    print(f"  layer-forced logits rel error (max |diff| / max |logit|), "
+          f"frontend prefill then 4 decode steps: "
+          f"{', '.join(f'{e:.2e}' for e in errs)}; frontend_proj "
+          f"{proj_rel:.2e}"
+          + ("" if enc_rel is None else f", encoder layers <= {enc_rel:.2e}"),
+          flush=True)
+    if not (max(errs) <= LOGITS_REL_TOL and proj_rel <= KERNEL_REL_TOL
+            and (enc_rel is None or enc_rel <= LOGITS_REL_TOL)):
+        raise AssertionError(f"{cfg.name}: layer-forced rel errors {errs}, "
+                             f"frontend_proj {proj_rel}, encoder {enc_rel}")
+    return dict(logits_rel=errs, frontend_proj_rel=proj_rel,
+                encoder_layer_rel=enc_rel)
+
+
+def frontend_window(params, cfg, feats, toks, dev, *, kv_quant: bool,
+                    act_quant: bool):
+    """The model-level loop's prefill, run untraced; returns the window a
+    trace wraps: FRONTEND_PROFILE_STEPS greedy decode steps, timed on the
+    host's clock to a synchronize."""
+    import types
+
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+
+    rt = Runtime(kv_quant=kv_quant, act_quant=act_quant)
+    cache = lm.init_cache(cfg, SLOTS, MAX_LEN, kv_quant=kv_quant, device=dev)
+    logits, cache = lm.forward(params, toks, rt, cfg, frontend_feats=feats,
+                               cache=cache, last_only=True)
+    first = lm.sample_tokens(logits[:, 0])
+    pos = frontend_prefix(cfg) + toks.shape[1]
+    torch.cuda.synchronize()
+
+    def run():
+        tok = first
+        t0 = time.perf_counter()
+        for step in range(FRONTEND_PROFILE_STEPS):
+            logits, _ = lm.decode_step(params, tok[:, None], cache,
+                                       pos + step, rt, cfg)
+            tok = lm.sample_tokens(logits[:, 0])
+            tok.cpu()
+        torch.cuda.synchronize()
+        return types.SimpleNamespace(cfg=cfg), None, \
+            time.perf_counter() - t0, None
+    return run
+
+
+def frontend_model_phase(params, cfg, dev, report: dict, key: str, *,
+                         kv_quant: bool, act_quant: bool, prompt: int,
+                         steps: int) -> dict:
+    """The model-level frontend path of phase 14 on one case: seeded
+    features and prompts, :func:`frontend_loop` twice (the first warms
+    up; the streams must be equal), the second counted and held to
+    :func:`frontend_contract` and to one transfer per step; the
+    layer-forced parity; a traced decode window for the idle share.
+    Returns the counted run's launches."""
+    feats, toks = frontend_inputs(cfg, prompt, dev)
+
+    def loop(count):
+        return frontend_loop(params, cfg, feats, toks, dev, steps=steps,
+                             kv_quant=kv_quant, act_quant=act_quant,
+                             count=count)
+    first = loop(False)
+    run = loop(True)
+    if not np.array_equal(run["stream"], first["stream"]):
+        raise AssertionError(f"{key}: two runs' streams differ")
+    if not run["finite"] or run["transfers"] != steps + 1:
+        raise AssertionError(f"{key}: non-finite logits or "
+                             f"{run['transfers']} transfers for {steps} "
+                             f"steps and one prefill")
+    per_step, per_prefill = frontend_contract(
+        cfg, kv_quant=kv_quant, act_quant=act_quant, prompt=prompt)
+    expected = {k: per_step.get(k, 0) * steps + per_prefill.get(k, 0)
+                for k in per_step | per_prefill}
+    if run["counts"] != expected:
+        raise AssertionError(f"{key}: launches {run['counts']} != expected "
+                             f"{expected}")
+    out = dict(
+        launches=run["counts"], launches_per_decode_step=per_step,
+        launches_per_prefill=per_prefill, stream=run["stream"].tolist(),
+        prefill_ms=1e3 * run["prefill_s"],
+        decode_ms_per_step=1e3 * run["decode_s"] / steps,
+        decode_tok_s=SLOTS * steps / run["decode_s"],
+        transfers=run["transfers"], peak_mem_bytes=run["peak_mem_bytes"],
+        cache_bytes=run["cache_bytes"])
+    print(f"  {key}: prefill of {SLOTS} x ({cfg.frontend_len} "
+          f"{cfg.frontend} features + {prompt} tokens) "
+          f"{out['prefill_ms']:.1f} ms, {steps} greedy steps at "
+          f"{out['decode_ms_per_step']:.1f} ms/step "
+          f"({out['decode_tok_s']:.1f} tok/s), one transfer per step, two "
+          f"runs equal; cache {run['cache_bytes'] / 2**30:.2f} GiB, peak "
+          f"memory {run['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"  launches per decode step {per_step}; per prefill "
+          f"{per_prefill}", flush=True)
+    out["parity"] = frontend_parity(params, cfg, feats, toks, dev,
+                                    kv_quant=kv_quant, act_quant=act_quant)
+    report[key] = out
+    profile_phase(frontend_window(params, cfg, feats, toks, dev,
+                                  kv_quant=kv_quant, act_quant=act_quant),
+                  report, f"{key}_profile",
+                  TABLE.with_name(f"chip_smoke_profile_{key}.txt"),
+                  steps=FRONTEND_PROFILE_STEPS)
+    return run["counts"]
+
+
+def frontend_phase(dev, report: dict) -> dict:
+    """Phase 14: the frontend families at full width and depth, seeded on
+    the card and quantized as drawn. (a) phi-3-vision-4.2b on itq3_s
+    (head_dim 96: the fp cache): (a1) phase 4's requests through the
+    engine, text only, as the reference serves a vlm (the cache 256 +
+    576 positions), held as phase 12's paths; (a2) the image path: 4
+    images and 40-token prompts in one frontend prefill, 16 greedy decode
+    steps. (b) seamless-m4t-medium on itq3_s with ``kv_quant``: 4
+    utterances of 1,024 frames through the encoder, 8-token decoder
+    prompts, 32 greedy steps. (c) (b) on W3A8 under the mixed policy.
+    Returns the float kernels' launches of (a) and (b) and the int8 ones
+    of (c)."""
+    from repro_torch.configs import mixed_precision_recipe
+    from repro_torch.serve.quantized import QuantPolicy
+
+    print("phase 14: the frontend families at full width and depth",
+          flush=True)
+    totals = collections.Counter()
+    cfg = get_config("phi-3-vision-4.2b")
+    params = seeded_model(cfg, "itq3_s", dev, report, "vlm")
+    print("  (a1) text through the engine, as the reference serves a vlm",
+          flush=True)
+    totals.update(family_serve(params, cfg, dev, report, "vlm_text",
+                               kv_quant=False, act_quant=False, head=True))
+    positions = report["vlm_text"]["stats"]["cache_bytes"] // (
+        2 * cfg.num_layers * SLOTS * cfg.num_kv_heads
+        * cfg.resolved_head_dim * 4)
+    if positions != MAX_LEN + cfg.frontend_len:
+        raise AssertionError(f"vlm engine cache of {positions} positions")
+    profile_phase(decode_window(params, cfg, make_prompts(cfg), dev,
+                                act_quant=False),
+                  report, "vlm_text_profile",
+                  TABLE.with_name("chip_smoke_profile_vlm_text.txt"),
+                  steps=FRONTEND_PROFILE_STEPS)
+    print("  (a2) the image path: lm.forward(frontend_feats=...), then "
+          "lm.decode_step", flush=True)
+    totals.update(frontend_model_phase(
+        params, cfg, dev, report, "vlm_image", kv_quant=False,
+        act_quant=False, prompt=VLM_PROMPT, steps=VLM_STEPS))
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_config("seamless-m4t-medium")
+    for key, policy, act_quant in (
+            ("audio", "itq3_s", False),
+            ("audio_w3a8", QuantPolicy.from_dict(mixed_precision_recipe(cfg)),
+             True)):
+        print(f"  ({'c' if act_quant else 'b'}) {cfg.name}"
+              + (": the mixed policy, act_quant" if act_quant else ""),
+              flush=True)
+        params = seeded_model(cfg, policy, dev, report, key)
+        totals.update(frontend_model_phase(
+            params, cfg, dev, report, key, kv_quant=True,
+            act_quant=act_quant, prompt=AUDIO_PROMPT, steps=AUDIO_STEPS))
+        del params
+        torch.cuda.empty_cache()
+    return dict(totals)
+
+
 def profile_phase(run, report: dict, key: str = "profile",
                   table: Path = TABLE, steps: int | None = None) -> None:
     """With ``--profile``: one shorter kernel-path serving run (``run()``,
@@ -3789,7 +4211,8 @@ def profile_phase(run, report: dict, key: str = "profile",
     an upper bound on the unprofiled run's. Also counts the PyTorch
     operator calls the host issued (nested calls included), per layer and
     forward pass. ``steps``: ``run()`` traces a window of that many decode
-    steps of an engine whose admission ran untraced."""
+    steps after an untraced admission, of an engine or of a model-level
+    loop (whose first return value then only carries ``cfg``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3800,9 +4223,9 @@ def profile_phase(run, report: dict, key: str = "profile",
     # device-side rows only: the operator rows repeat their kernels' time
     busy_s = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA) / 1e6
-    st = eng.stats()
     what = "serving run" if steps is None else f"{steps}-step decode window"
     if steps is None:
+        st = eng.stats()
         steps = st["decode_steps"]
         passes = (steps + st["prefill_waves"]) * eng.cfg.num_layers
     else:
@@ -3896,6 +4319,11 @@ def main(argv=None) -> int:
           "rwkv6-3b's and zamba2-7b's widths, M = 4 and a 32-row ladder "
           "chunk", flush=True)
     check_ssm_widths(led, gen, dev, report)
+    print("phase 3 (frontend families): the contraction kernels at "
+          "phi-3-vision-4.2b's and seamless-m4t-medium's widths (K = 160 "
+          "padded, M up to 4096), attn_q8 at head_dim 64 with G = 1",
+          flush=True)
+    check_frontend_widths(led, gen, dev, report)
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the
@@ -3934,6 +4362,12 @@ def main(argv=None) -> int:
         counts.update({f"{k}_ssm": recurrent.get(k, 0) for k in (
             "itq3_matvec", "itq3_matmul", "itq3_matvec_int8",
             "itq3_matmul_int8")})
+        # phase 14 launches them (and seamless's attention) at the
+        # frontend widths
+        frontend = frontend_phase(dev, report)
+        counts.update({f"{k}_frontend": frontend.get(k, 0) for k in (
+            "itq3_matvec", "itq3_matmul", "itq3_matvec_int8",
+            "itq3_matmul_int8", "attn_q8")})
 
     # kernel -> (source, the TPU kernel it replaces)
     kernel_table = {
@@ -3985,6 +4419,23 @@ def main(argv=None) -> int:
         "itq3_matmul_int8_ssm": ("itq3_matmul_int8",
                                  "src/repro/kernels/itq3_matmul.py:436 "
                                  "(recurrent widths)"),
+        # the frontend families' widths (phase 14): K = 160 (one padded
+        # block) to 8192, M up to 4096; the attention at HD 64, G = 1
+        "itq3_matvec_frontend": ("itq3_matvec",
+                                 "src/repro/kernels/itq3_matvec.py:82 "
+                                 "(frontend widths)"),
+        "itq3_matmul_frontend": ("itq3_matmul",
+                                 "src/repro/kernels/itq3_matmul.py:339 "
+                                 "(frontend widths)"),
+        "itq3_matvec_int8_frontend": ("itq3_matvec_int8",
+                                      "src/repro/kernels/itq3_matvec.py:183 "
+                                      "(frontend widths)"),
+        "itq3_matmul_int8_frontend": ("itq3_matmul_int8",
+                                      "src/repro/kernels/itq3_matmul.py:436 "
+                                      "(frontend widths)"),
+        "attn_q8_frontend": ("attn_q8",
+                             "src/repro/kernels/attn_decode.py:230 "
+                             "(head_dim 64, G = 1)"),
     }
     kernels = []
     for name, (source, replaces) in kernel_table.items():

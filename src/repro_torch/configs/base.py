@@ -1,11 +1,15 @@
 """Model configuration for the port (copy of ``repro/configs/base.py``).
 
-The models of the four families the port serves are registered: the
+Every model of the reference is registered, in its six families: the
 dense ``smollm-135m``, ``qwen1.5-0.5b`` (RMSNorm, swiglu, tied),
 ``nemotron-4-15b`` (LayerNorm, relu2, untied) and ``stablelm-3b``
 (LayerNorm, partial rotary, untied), the MoE ``olmoe-1b-7b`` and
 ``qwen3-moe-235b-a22b``, the attention-free RWKV6 ``rwkv6-3b`` (family
-``ssm``) and the Mamba2 + shared-attention ``zamba2-7b`` (``hybrid``).
+``ssm``), the Mamba2 + shared-attention ``zamba2-7b`` (``hybrid``), the
+vision-language ``phi-3-vision-4.2b`` (``vlm``: projected patch
+embeddings prefixed to the tokens) and the encoder-decoder
+``seamless-m4t-medium`` (``audio``: a non-causal encoder over projected
+frames, cross-attended by every decoder layer).
 ``reduced()`` gives the same topology at CPU-test size, exactly as the
 reference does, so a reduced config built here equals the reference's
 field for field.
@@ -23,7 +27,7 @@ __all__ = ["ModelConfig", "get_config", "reduced", "ARCH_IDS",
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid (the families the port serves)
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -44,6 +48,13 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     attn_every: int = 0  # hybrid: shared attention block period (zamba2)
+    # --- enc-dec ---
+    encoder_layers: int = 0
+    is_encoder_decoder: bool = False
+    # --- modality frontend (precomputed features, projected) ---
+    frontend: Optional[str] = None  # "vision" | "audio"
+    frontend_dim: int = 0  # patch / frame embedding width
+    frontend_len: int = 0  # patches / frames per input
     tie_embeddings: bool = True
     eos_token_id: Optional[int] = None  # engine finishes a request on this
 
@@ -57,8 +68,8 @@ class ModelConfig:
 
 
 ARCH_IDS = ["qwen3-moe-235b-a22b", "olmoe-1b-7b", "rwkv6-3b",
-            "qwen1.5-0.5b", "nemotron-4-15b", "smollm-135m", "stablelm-3b",
-            "zamba2-7b"]
+            "phi-3-vision-4.2b", "seamless-m4t-medium", "qwen1.5-0.5b",
+            "nemotron-4-15b", "smollm-135m", "stablelm-3b", "zamba2-7b"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -117,7 +128,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     """Tiny same-topology config for CPU tests: 4 layers (7 for a hybrid,
     so a tail follows its macroblocks), d_model 128, 4 heads at head_dim
     32, the GQA ratio preserved; at most 8 experts and top-2 routing; an
-    SSM state of at most 16 and a shared-attention period of at most 3."""
+    SSM state of at most 16 and a shared-attention period of at most 3;
+    at most 2 encoder layers, and a frontend of 8 features of width 64."""
     kv_ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     heads = 4
     return dataclasses.replace(
@@ -134,4 +146,7 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         if cfg.num_experts else 0,
         ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
         attn_every=min(cfg.attn_every, 3) if cfg.attn_every else 0,
+        encoder_layers=min(cfg.encoder_layers, 2),
+        frontend_dim=64 if cfg.frontend else 0,
+        frontend_len=8 if cfg.frontend else 0,
     )

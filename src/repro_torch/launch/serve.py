@@ -9,7 +9,12 @@ engine.
 The recurrent families (``--arch rwkv6-3b``, ``--arch zamba2-7b``) admit
 each prompt through the engine's chunk ladder; ``--kv-quant`` changes
 nothing on the attention-free rwkv6-3b, and full-width zamba2-7b (head_dim
-112) serves its shared attention on the fp cache.
+112) serves its shared attention on the fp cache. The frontend families
+serve as the reference's launcher serves them, text only: ``--arch
+phi-3-vision-4.2b`` with its ``max_len + frontend_len`` cache (head_dim
+96 at full width: the fp cache), and ``--arch seamless-m4t-medium``
+fails at its first admission, as the reference's does, for want of
+encoder frames (the model takes them through ``lm.forward``).
 
 Mixed precision through a policy (the arch's default recipe, or a JSON
 file ``{"rules": [{"pattern": ..., "fmt": ...}, ...]}``), the packed tree

@@ -1,6 +1,6 @@
-"""Transformer building blocks (port of ``repro/models/layers.py``, the
-self-attention families: dense and MoE; the recurrent blocks are
-``models/ssm.py``).
+"""Transformer building blocks (port of ``repro/models/layers.py``: the
+attention families' blocks, self- and cross-attention; the recurrent
+blocks are ``models/ssm.py``).
 
 Every matmul weight flows through :func:`dense`, which dispatches on the
 leaf type: a plain tensor (fp) or a :class:`~repro_torch.core.quantize.QTensor`
@@ -192,10 +192,14 @@ def _write_span(cache: dict, vals: dict, pos_vec: torch.Tensor, t: int):
 
 def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
                     cache: Optional[dict] = None, pos=0,
-                    token_cache: bool = False):
-    """Self-attention with RoPE. Returns (output (B, T, D), cache info).
+                    token_cache: bool = False, causal: bool = True,
+                    memory: Optional[torch.Tensor] = None,
+                    cross: bool = False):
+    """Self-attention with RoPE, or cross-attention (``cross``). Returns
+    (output (B, T, D), cache info).
 
-    * ``cache=None``: causal attention within ``x`` (no cache).
+    * ``cache=None``: attention within ``x`` (no cache), RoPE at positions
+      ``pos + 0..T-1``, causal unless ``causal=False`` (the encoder).
     * ``token_cache`` and T == 1 (decode): attend the PRE-write cache plus
       the current token's own (encoded, under kv_quant) K/V, and return
       the token's K/V for the caller to write at ``pos``.
@@ -206,13 +210,24 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
 
     A cache dict with a ``"table"`` entry is the paged pool (kv_quant
     only): writes scatter through the table and attention reads through
-    it."""
+    it.
+
+    Cross-attention has no RoPE, no bias on K/V and no mask; it attends
+    the plain way (``_sdpa``), as the reference does outside any kernel.
+    With ``memory`` (B, S, D) it projects K/V from it and, given a cache
+    (the layer's fp ``xattn`` leaves, (B, KV, S, HD)), writes them there
+    in place; without, it reads them from the cache (decode). The
+    reference replaces its cache by the projected K/V whatever their
+    length; here a memory whose length is not the cache's raises
+    ``ValueError`` instead of writing a cache of another size."""
     b, t, _ = x.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     g = h // kvh
 
     q = dense(x, p["wq"], rt, p.get("bq"))
+    if cross:
+        return _cross_attention(p, q, rt, cfg, cache=cache, memory=memory)
     k = dense(x, p["wk"], rt, p.get("bk")).reshape(b, t, kvh, hd)
     v = dense(x, p["wv"], rt, p.get("bv")).reshape(b, t, kvh, hd)
     pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
@@ -227,7 +242,7 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     quant_cache = cache is not None and "k_scale" in cache
     out_cache = None
     if cache is None:
-        out = _sdpa(q, k, v, causal=True, q_offset=pos_vec, kv_len=None)
+        out = _sdpa(q, k, v, causal=causal, q_offset=pos_vec, kv_len=None)
     elif t == 1 and token_cache:
         if quant_cache:
             # the token goes through the codec here, so its self term sees
@@ -262,3 +277,32 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
         out_cache = cache
     out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
     return dense(out, p["wo"], rt), out_cache
+
+
+def _cross_attention(p: Params, q: torch.Tensor, rt: Runtime, cfg, *,
+                     cache: Optional[dict], memory: Optional[torch.Tensor]):
+    """The cross branch of :func:`attention_apply` on the projected
+    queries ``q`` (B, T, H * HD)."""
+    b, t, _ = q.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    q = q.reshape(b, t, h, hd).transpose(1, 2).reshape(b, kvh, h // kvh, t,
+                                                       hd)
+    if memory is not None:
+        s = memory.shape[1]
+        if cache is not None and cache["k"].shape[2] != s:
+            raise ValueError(
+                f"cross-attention memory of {s} positions against a cache "
+                f"of {cache['k'].shape[2]} (the config's frontend_len)")
+        k = dense(memory, p["wk"], rt).reshape(b, s, kvh, hd).transpose(1, 2)
+        v = dense(memory, p["wv"], rt).reshape(b, s, kvh, hd).transpose(1, 2)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    else:
+        if cache is None:
+            raise ValueError("cross-attention decode needs cached memory K/V")
+        k, v = (cache[n].to(torch.float32) for n in ("k", "v"))
+    out = _sdpa(q, k, v, causal=False, q_offset=None, kv_len=None)
+    out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
+    return dense(out, p["wo"], rt), cache

@@ -1,22 +1,30 @@
-"""Model assembly (port of ``repro/models/lm.py``): the dense, MoE, SSM
-(RWKV6) and hybrid (Mamba2 + shared attention) families.
+"""Model assembly (port of ``repro/models/lm.py``): all six families of
+the reference, dense, MoE, SSM (RWKV6), hybrid (Mamba2 + shared
+attention), vlm (a projected patch prefix) and audio (an encoder-decoder
+with cross-attention).
 
 Parameters are a plain dict mirroring the reference pytree: ``embed``
 (V, D), or a QTensor of the transposed table (D, V) when a policy
 quantized it, ``ln_f``, optional ``lm_head``, and stacked layer leaves
-(tensors, or QTensors with stacked planes). Dense, MoE and SSM models
-hold ``layers`` with a leading layer axis L: a dense layer an ``mlp``
-(``gate`` only for swiglu), an MoE layer a ``moe`` block (an fp
-``router`` (L, D, E) and (L, E, K, N) expert stacks), an SSM layer one
-RWKV6 block. A hybrid holds one ``shared_attn`` block (``ln``, ``attn``),
-``mamba_blocks`` stacked twice, (n_full, every, ...), and, when
-``attn_every`` does not divide L, a ``mamba_tail`` (tail, ...). Where the
-reference scans over the stacked layers, the port loops over them and
-takes each layer's views.
+(tensors, or QTensors with stacked planes). Dense, MoE, SSM, vlm and
+audio models hold ``layers`` with a leading layer axis L: a dense layer
+an ``mlp`` (``gate`` only for swiglu), an MoE layer a ``moe`` block (an
+fp ``router`` (L, D, E) and (L, E, K, N) expert stacks), an SSM layer one
+RWKV6 block, an audio decoder layer also ``ln_x`` and an ``xattn`` block
+(wq, wk, wv, wo; no bias). A model with a frontend holds
+``frontend_proj`` (F, D); an audio model also the non-causal ``encoder``
+(L_enc, ...) of dense layers and its ``enc_ln_f``. A hybrid holds one
+``shared_attn`` block (``ln``, ``attn``), ``mamba_blocks`` stacked twice,
+(n_full, every, ...), and, when ``attn_every`` does not divide L, a
+``mamba_tail`` (tail, ...). Where the reference scans over the stacked
+layers, the port loops over them and takes each layer's views.
 
 The serving cache is preallocated once and written in place (the
 reference's donated buffers): ``{"attn": {"k", "v"[, "k_scale",
-"v_scale"]}}`` with (L, B, KV, T, X) leaves for the attention families;
+"v_scale"]}}`` with (L, B, KV, T, X) leaves for the attention families
+(a vlm's T counts its ``frontend_len`` prefix positions too; an audio
+model adds ``"xattn": {"k", "v"}``, (L, B, KV, frontend_len, HD) fp
+leaves, written by the prefill and read by every decode step);
 ``{"ssm": {"wkv", "tm_prev", "cm_prev"}}`` with (L, B, ...) f32 leaves
 for RWKV6; for the hybrid ``{"attn": ...}`` over its ``ceil(L / every)``
 shared-attention applications plus ``{"ssm": {"ssm", "conv"}}`` (L, B,
@@ -48,14 +56,12 @@ __all__ = ["init_params", "init_quantized_params", "init_cache", "forward",
            "hybrid_layer", "recurrent_layer_apply"]
 
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves {_FAMILIES}; the "
-            f"frontends (vlm, audio) are ROADMAP Queue 1 item 6")
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _norm_spec(d: int, kind: str) -> dict:
@@ -65,20 +71,23 @@ def _norm_spec(d: int, kind: str) -> dict:
     return out
 
 
-def _attn_spec(cfg) -> dict:
+def _attn_spec(cfg, bias: bool = True) -> dict:
+    """An attention block's projections, with the config's QKV biases
+    unless ``bias=False`` (cross-attention has none)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     attn = {"wq": ("w", (d, h * hd)), "wk": ("w", (d, kvh * hd)),
             "wv": ("w", (d, kvh * hd)), "wo": ("w", (h * hd, d))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and bias:
         attn.update(bq=("zeros", (h * hd,)), bk=("zeros", (kvh * hd,)),
                     bv=("zeros", (kvh * hd,)))
     return attn
 
 
-def _layer_spec(cfg) -> dict:
+def _layer_spec(cfg, cross: bool = False) -> dict:
     """One dense or MoE layer's leaves as the reference builds them, in
-    the order the seeded draws take them. The kinds of every spec here:
+    the order the seeded draws take them; ``cross`` adds an audio
+    decoder layer's ``ln_x`` and ``xattn``. The kinds of every spec here:
     ``("w", shape[, scale])`` a projection drawn N(0, 1/K) clipped at 3
     sigma (K = shape[-2]), times ``scale``; ``("ones" | "zeros", shape)``
     a norm scale or a bias; ``("normal", shape, std)``, ``("uniform",
@@ -92,9 +101,13 @@ def _layer_spec(cfg) -> dict:
     if cfg.activation == "swiglu":
         ffn["gate"] = ("w", lead + (d, f))
     ffn.update(up=("w", lead + (d, f)), down=("w", lead + (f, d)))
-    return {"ln1": _norm_spec(d, cfg.norm), "attn": _attn_spec(cfg),
-            "ln2": _norm_spec(d, cfg.norm),
-            "moe" if cfg.family == "moe" else "mlp": ffn}
+    out = {"ln1": _norm_spec(d, cfg.norm), "attn": _attn_spec(cfg)}
+    if cross:
+        out.update(ln_x=_norm_spec(d, cfg.norm),
+                   xattn=_attn_spec(cfg, bias=False))
+    out.update({"ln2": _norm_spec(d, cfg.norm),
+                "moe" if cfg.family == "moe" else "mlp": ffn})
+    return out
 
 
 def _rwkv6_spec(cfg) -> dict:
@@ -174,8 +187,10 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
     N(0, 0.02^2), projections (and the MoE router) ~ N(0, 1/K) clipped at
     3 sigma, norm scales 1, biases 0; the reference's tree (LayerNorm
     biases, no gate but for swiglu, expert stacks; RWKV6's and Mamba2's
-    leaves at the reference's scales and constants). Layer leaves are
-    stacked (L, ...), a hybrid's (n_full, every, ...) and (tail, ...).
+    leaves at the reference's scales and constants; a frontend's
+    projection, an audio model's encoder and cross-attention). Layer
+    leaves are stacked (L, ...), a hybrid's (n_full, every, ...) and
+    (tail, ...), an encoder's (L_enc, ...).
     For CPU-sized models: the whole f32 tree is held at
     once (:func:`init_quantized_params` draws a full-width model on the
     card)."""
@@ -195,11 +210,16 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
             return rng.random(shape, dtype=np.float32)
         return _const(kind, shape, arg)
 
-    def leaf(_, kind, shape, *arg):
-        return draw(kind, (n_l,) + shape, *arg)
+    def stacked(lead):
+        def leaf(_, kind, shape, *arg):
+            return draw(kind, lead + shape, *arg)
+        return leaf
+    leaf = stacked((n_l,))
 
-    ln_f = _map_spec(_norm_spec(d, cfg.norm),
-                     lambda _, kind, shape: _const(kind, shape))
+    def norm():
+        return _map_spec(_norm_spec(d, cfg.norm),
+                         lambda _, kind, shape: _const(kind, shape))
+    ln_f = norm()
     if cfg.family in ("ssm", "hybrid"):
         tree = {"embed": rng.standard_normal(
             (cfg.vocab_size, d), dtype=np.float32) * np.float32(0.02),
@@ -210,15 +230,21 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
     else:
         # attention first, then the table, then the rest: the draw order
         # of the earlier dense slices, so their seeded models are unchanged
-        spec = _layer_spec(cfg)
+        spec = _layer_spec(cfg, cross=cfg.family == "audio")
         attn = _map_spec(spec["attn"], leaf)
         embed = rng.standard_normal((cfg.vocab_size, d),
                                     dtype=np.float32) * np.float32(0.02)
         tree = {"embed": embed, "ln_f": ln_f,
                 "layers": {k: attn if k == "attn" else _map_spec(v, leaf)
                            for k, v in spec.items()}}
+        if cfg.family == "audio":
+            tree["encoder"] = _map_spec(_layer_spec(cfg),
+                                        stacked((cfg.encoder_layers,)))
+            tree["enc_ln_f"] = norm()
     if not cfg.tie_embeddings:
         tree["lm_head"] = draw("w", (d, cfg.vocab_size))
+    if cfg.frontend:
+        tree["frontend_proj"] = draw("w", (cfg.frontend_dim, d))
 
     def to_torch(node):
         if isinstance(node, dict):
@@ -280,16 +306,26 @@ def init_quantized_params(cfg, policy, *, seed: int = 0,
         for key, lead, spec in _stacks(cfg):
             params[key] = _map_spec({key: spec}, stacked(lead))[key]
     else:
-        spec = _layer_spec(cfg)
+        spec = _layer_spec(cfg, cross=cfg.family == "audio")
         params = {"layers": _map_spec({"layers": spec},
                                       stacked((cfg.num_layers,)))["layers"],
                   "embed": torch.randn((cfg.vocab_size, d), generator=gen,
                                        device=device).mul_(0.02)}
+        if cfg.family == "audio":
+            params["encoder"] = _map_spec(
+                {"encoder": _layer_spec(cfg)},
+                stacked((cfg.encoder_layers,)))["encoder"]
+            params["enc_ln_f"] = _map_spec(
+                _norm_spec(d, cfg.norm),
+                lambda _, kind, shape: draw(kind, shape))
     params["ln_f"] = _map_spec(_norm_spec(d, cfg.norm),
                                lambda _, kind, shape: draw(kind, shape))
     if not cfg.tie_embeddings:
         params["lm_head"] = quantized("lm_head",
                                       draw("w", (d, cfg.vocab_size)))
+    if cfg.frontend:
+        params["frontend_proj"] = quantized(
+            "frontend_proj", draw("w", (cfg.frontend_dim, d)))
     return quantize_params(params, policy)
 
 
@@ -308,18 +344,22 @@ def _stack_lead(items: list, lead: tuple):
 
 def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
                dtype=torch.float32, device="cuda") -> Params:
-    """Zeroed serving cache. ``kv_quant=True`` lays the attention planes
-    out as rotated-int8 codes plus per-token fp16 scales (8.25
+    """Zeroed serving cache. ``kv_quant=True`` lays the self-attention
+    planes out as rotated-int8 codes plus per-token fp16 scales (8.25
     bits/element); it needs a power-of-two head_dim, and an attention-free
     model has no planes for it to change. Recurrent state is f32 whatever
-    the planes' dtype."""
+    the planes' dtype. A vlm's planes hold ``max_len + frontend_len``
+    positions (the patch prefix); an audio model's cross-attention memory
+    (``xattn``, ``frontend_len`` positions) stays fp at ``dtype`` even
+    under ``kv_quant``: written once per prefill, read every step."""
+    _check_family(cfg)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if kv_quant and not is_pow2(hd):
         raise ValueError(f"kv_quant needs a power-of-two head_dim, got {hd}")
 
-    def kv(n_layers):
-        shape = (n_layers, batch, kvh, max_len)
-        if kv_quant:
+    def kv(n_layers, length=max_len, quant=kv_quant):
+        shape = (n_layers, batch, kvh, length)
+        if quant:
             return {"k": torch.zeros(*shape, hd, dtype=torch.int8,
                                      device=device),
                     "v": torch.zeros(*shape, hd, dtype=torch.int8,
@@ -341,7 +381,11 @@ def init_cache(cfg, batch: int, max_len: int, *, kv_quant: bool = False,
     if cfg.family == "hybrid":
         return {"attn": kv(-(-cfg.num_layers // cfg.attn_every)),
                 "ssm": states(ssm_mod.mamba2_empty_state)}
-    return {"attn": kv(cfg.num_layers)}
+    if cfg.family == "audio":
+        return {"attn": kv(cfg.num_layers),
+                "xattn": kv(cfg.num_layers, cfg.frontend_len, quant=False)}
+    return {"attn": kv(cfg.num_layers,
+                       max_len + (cfg.frontend_len if cfg.frontend else 0))}
 
 
 def layer_params(layers: Params, i: int, *more: int) -> Params:
@@ -353,13 +397,21 @@ def layer_params(layers: Params, i: int, *more: int) -> Params:
     return layer_params(out, *more) if more else out
 
 
-def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False):
-    """One decoder layer: attention, then the MLP or (a layer holding
-    ``moe``) the MoE block, whose aux loss serving drops."""
+def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False,
+                       causal=True, memory=None, xcache=None):
+    """One decoder (or, ``causal=False``, encoder) layer: self-attention;
+    in a layer holding ``xattn`` then cross-attention on ``memory`` (or,
+    without it, the layer's ``xcache`` K/V); then the MLP or (a layer
+    holding ``moe``) the MoE block, whose aux loss serving drops."""
     h, new_kv = attention_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm),
                                 rt, cfg, cache=cache, pos=pos,
-                                token_cache=token_cache)
+                                token_cache=token_cache, causal=causal)
     x = x + h
+    if "xattn" in lp:
+        h, _ = attention_apply(lp["xattn"],
+                               norm_apply(lp["ln_x"], x, cfg.norm), rt, cfg,
+                               cache=xcache, memory=memory, cross=True)
+        x = x + h
     hn = norm_apply(lp["ln2"], x, cfg.norm)
     if "moe" in lp:
         m = moe_mod.moe_apply(lp["moe"], hn, rt, cfg)[0]
@@ -377,7 +429,15 @@ def _layer_cache(cache, i: int) -> dict:
     return out
 
 
-def _run_decoder(params, x, rt, cfg, *, cache, pos):
+def _xattn_cache(cache, i: int) -> Optional[dict]:
+    """Layer ``i``'s view of an audio model's cross-attention memory K/V
+    (None without a cache or cross-attention)."""
+    if cache is None or "xattn" not in cache:
+        return None
+    return {k: v[i] for k, v in cache["xattn"].items()}
+
+
+def _run_decoder(params, x, rt, cfg, *, cache, pos, memory=None):
     if cfg.family in ("ssm", "hybrid"):
         # a single token against a cache is a decode step
         decode = cache is not None and x.shape[1] == 1
@@ -385,12 +445,18 @@ def _run_decoder(params, x, rt, cfg, *, cache, pos):
             x = recurrent_layer_apply(params, x, rt, cfg, i, cache=cache,
                                       pos=pos, decode=decode)
         return x, cache
-    if cache is not None and x.shape[1] == 1 and rt.decode_token_cache:
+    # a one-token prompt with encoder memory takes the layer loop, so the
+    # memory reaches the cross-attention cache (the reference's token path
+    # would drop it)
+    if (cache is not None and x.shape[1] == 1 and rt.decode_token_cache
+            and memory is None):
         return _run_decoder_token(params, x, rt, cfg, cache=cache, pos=pos)
     for i in range(cfg.num_layers):
         layer_cache = None if cache is None else _layer_cache(cache, i)
         x, _ = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
-                                  cfg, cache=layer_cache, pos=pos)
+                                  cfg, cache=layer_cache, pos=pos,
+                                  memory=memory,
+                                  xcache=_xattn_cache(cache, i))
     return x, cache
 
 
@@ -447,7 +513,8 @@ def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
     the token's own K/V, then writes only that token's slice at ``pos``
     (the O(1)-byte decode write). Paged: slot ``b``'s token lands in block
     ``table[b, pos_b // BS]`` at offset ``pos_b % BS`` with no clamp; idle
-    slots' table rows point at the null block."""
+    slots' table rows point at the null block. An audio layer reads its
+    cross-attention K/V from the cache and writes nothing there."""
     b = x.shape[0]
     pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     pos_vec = pos_vec.expand(b) if pos_vec.dim() == 0 else pos_vec
@@ -464,7 +531,8 @@ def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
         layer_cache = _layer_cache(cache, i)
         x, tok = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
                                     cfg, cache=layer_cache, pos=pos_vec,
-                                    token_cache=True)
+                                    token_cache=True,
+                                    xcache=_xattn_cache(cache, i))
         for k, v in tok.items():  # (B, KV, 1, X) -> layer i, row, pos
             layer_cache[k][rows, :, at] = v[:, :, 0].to(layer_cache[k].dtype)
     return x, cache
@@ -497,16 +565,47 @@ def _tokens(tokens, params) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params["embed"].device)
 
 
+def _encode(params, frames, rt, cfg) -> torch.Tensor:
+    """The audio encoder: frames (B, S, F) -> memory (B, S, D) through
+    ``frontend_proj``, the non-causal encoder stack (RoPE at positions
+    0..S-1, no mask) and ``enc_ln_f``."""
+    x = dense(frames, params["frontend_proj"], rt)
+    for i in range(cfg.encoder_layers):
+        x, _ = _dense_layer_apply(layer_params(params["encoder"], i), x, rt,
+                                  cfg, cache=None, pos=0, causal=False)
+    return norm_apply(params["enc_ln_f"], x, cfg.norm)
+
+
 def forward(params: Params, tokens, rt: Runtime, cfg, *,
-            cache: Optional[Params] = None, pos=0, last_only: bool = False,
-            last_idx=None):
+            frontend_feats=None, cache: Optional[Params] = None, pos=0,
+            last_only: bool = False, last_idx=None):
     """Full-sequence forward (prefill). Returns (logits (B, T, V), or
     (B, 1, V) with ``last_only`` / ``last_idx``, and the cache). ``last_idx``
     (B,) gathers each row's true last prompt position before the head, so
-    a padded-bucket prefill pays one head row per slot."""
+    a padded-bucket prefill pays one head row per slot.
+
+    ``frontend_feats`` (B, P, F): a vlm prefixes the tokens with their
+    ``frontend_proj`` (the cache then holds the P prefix positions from
+    ``pos``, and decoding continues at ``pos + P + T``); the prefix rows
+    are stripped before ``last_only`` / ``last_idx`` and the head. An
+    audio model needs them: the encoder's memory is what every decoder
+    layer cross-attends (written into the cache's ``xattn`` leaves)."""
     tokens = _tokens(tokens, params)
     x = _embed(params, tokens)
-    x, cache = _run_decoder(params, x, rt, cfg, cache=cache, pos=pos)
+    memory, prefix = None, 0
+    if frontend_feats is not None:
+        feats = torch.as_tensor(frontend_feats, device=x.device).to(
+            torch.float32)
+    if cfg.family == "audio":
+        if frontend_feats is None:
+            raise ValueError("seamless needs encoder frames")
+        memory = _encode(params, feats, rt, cfg)
+    elif cfg.frontend and frontend_feats is not None:
+        x = torch.cat([dense(feats, params["frontend_proj"], rt), x], dim=1)
+        prefix = feats.shape[1]
+    x, cache = _run_decoder(params, x, rt, cfg, cache=cache, pos=pos,
+                            memory=memory)
+    x = x[:, prefix:]
     if last_only:
         x = x[:, -1:]
     elif last_idx is not None:

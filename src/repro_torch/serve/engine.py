@@ -91,6 +91,14 @@ non-speculative stream, sampled ones included. Deadlines, cancellation,
 preemption (the draft's rows ride the swap entry) and quarantine land at
 window boundaries.
 
+The frontend families are served as the reference serves them: requests
+carry tokens only. A vlm serves text with its longer cache (``max_len +
+frontend_len`` positions; the paged table is that wide), and ``stats()``
+prices a position by the cache's real length. An audio model is built
+like any other, and its first admission raises the model's "seamless
+needs encoder frames" (``lm.forward`` without frames), where the
+reference's does.
+
 Tensor-parallel meshes (``mesh``) land with a later slice and raise
 ``NotImplementedError``.
 """
@@ -121,9 +129,7 @@ __all__ = ["Request", "ServeEngine", "SamplingParams", "StreamEvent"]
 # In-band numeric-health sentinel (token ids are always >= 0).
 _POISONED = -1
 
-_LATER = {"mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)",
-          "families": "ROADMAP Queue 1 item 6"}
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_LATER = {"mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)"}
 _RECURRENT = ("ssm", "hybrid")
 
 
@@ -217,12 +223,6 @@ class ServeEngine:
                     f"draft vocab {draft_cfg.vocab_size} != target vocab "
                     f"{cfg.vocab_size}: acceptance compares distributions "
                     f"over the same token ids")
-        for c in (cfg, draft_cfg) if self.spec else (cfg,):
-            if c.family not in _FAMILIES:
-                raise NotImplementedError(
-                    f"family {c.family!r}: the port serves {_FAMILIES}; "
-                    f"the frontends (vlm, audio) land with "
-                    f"{_LATER['families']}")
         # Full f32 products: the port is held to the reference within f32
         # tolerances, which TF32's ~3 significant digits would break.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -278,8 +278,13 @@ class ServeEngine:
                     "pool is laid out over the rotated-int8 codes and scale "
                     "planes")
             self.block_size = int(block_size)
-            # table width: entries for every position a slot can reach
-            self._maxb = -(-self._cache_len // self.block_size)
+            # table width: entries for every position a slot can reach (a
+            # vlm's cache also holds its frontend_len prefix positions, as
+            # the reference counts them, though text-only serving never
+            # writes them)
+            n_pos = self._cache_len + (cfg.frontend_len if cfg.frontend
+                                       else 0)
+            self._maxb = -(-n_pos // self.block_size)
             if num_blocks is None:
                 # dense-equivalent capacity plus the null block
                 num_blocks = slots * self._maxb + 1

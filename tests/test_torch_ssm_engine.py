@@ -365,16 +365,32 @@ def test_stats_price_attention_planes_per_token(arch):
 
 
 def test_family_gates_name_only_the_frontends():
+    """The frontends (vlm, audio) were the last families the port refused:
+    now every family of the reference builds a model and an engine, and
+    an unknown family raises with the reference's words, in
+    ``init_params`` and in the engine."""
     import dataclasses
-    vlm = dataclasses.replace(_tcfg("smollm-135m"), family="vlm")
-    with pytest.raises(NotImplementedError, match="frontends") as err:
-        tlm.init_params(vlm, device="cpu")
-    assert "ssm" not in str(err.value).split(";")[1]
-    assert "ROADMAP Queue 1 item 6" in str(err.value)
+    from repro.configs.base import ARCH_IDS as JARCH_IDS
+    from repro.configs.base import get_config as jget_config
+    from repro.configs.base import reduced as jreduced
+
+    assert {jget_config(a).family for a in JARCH_IDS} == set(tlm._FAMILIES)
+    for arch in JARCH_IDS:
+        tcfg = _tcfg(arch)
+        eng = ServeEngine(tlm.init_params(tcfg, device="cpu"), tcfg, slots=1,
+                          max_len=8, device="cpu")
+        assert eng.cache_bytes > 0
+    bad = dataclasses.replace(_tcfg("smollm-135m"), family="retnet")
+    with pytest.raises(ValueError, match="unknown family 'retnet'") as err:
+        tlm.init_params(bad, device="cpu")
+    jbad = dataclasses.replace(jreduced(jget_config("smollm-135m")),
+                               family="retnet")
+    with pytest.raises(ValueError, match="unknown family") as jerr:
+        jlm.init_params(jax.random.PRNGKey(0), jbad)
+    assert str(err.value) == str(jerr.value)
     tp = tlm.init_params(_tcfg("smollm-135m"), device="cpu")
-    with pytest.raises(NotImplementedError, match="frontends") as err:
-        ServeEngine(tp, vlm, device="cpu")
-    assert "ROADMAP Queue 1 item 6" in str(err.value)
+    with pytest.raises(ValueError, match="unknown family 'retnet'"):
+        ServeEngine(tp, bad, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
