@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # every phase (1-14), one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
+    python3 chip_smoke.py --tp-only       # phases 1-2, then 15 (b): the mesh
+                                          # over every card (up to 4)
     python3 chip_smoke.py --profile       # also trace a short run of each path
                                           # (its cut sweeps check, untimed)
 
@@ -82,7 +84,8 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
 5. Teacher-forced parity: prefill and 4 decode steps through the kernels
    against the same forward with the plain versions on the card, run apart
    (reported) and layer by layer on one cache state (held to 1e-3); the
-   plain-version serving run must launch no kernel.
+   plain-version serving run (``AGREE_NEW`` tokens per request, its
+   greedy agreement reported) must launch no kernel.
 6. With ``--profile`` only: one shorter serving run (8 new tokens per
    request) under ``torch.profiler``, for the device's busy time, idle
    share and host operator calls (phases 7 and 8 trace their paths the
@@ -95,8 +98,9 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    and serve the same 8 requests with ``Runtime(act_quant=True,
    kv_quant=True)``: every ternary projection through the int8 kernels,
    with exact launch counts. Then phase 5's parity on this path, and the
-   greedy agreement with the plain-version run and with the float
-   (``act_quant=False``) run of the same checkpoint.
+   greedy agreement (reported) with the plain-version run and with the
+   float (``act_quant=False``) run of the same checkpoint, over their
+   first ``AGREE_NEW`` tokens per request.
 8. The paged path on phase 4's model (``ServeEngine(paged=True)``, block
    size 16). (a) Phase 4's requests on the dense-equivalent pool: exact
    launch counts, the paged attention and never the dense one, and the
@@ -147,8 +151,8 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    on 1000 seeded mixed-sampling windows at (4, 5, vocab): acceptance
    uniforms bit-equal, ``(out, n)`` equal on at least 999.
 
-11. The MoE path: olmoe-1b-7b at full width and depth (16 layers, 64
-   experts top-8), seeded on the card and quantized as drawn
+11. The MoE path: olmoe-1b-7b at full width, cut to ``MOE_LAYERS`` (4)
+   of its 16 layers (64 experts top-8), seeded on the card and quantized as drawn
    (``lm.init_quantized_params``), phase 4's requests, ``kv_quant``. (a)
    Uniform itq3_s: exact launches per decode step and prefill wave (per
    layer 4 dense projections, 3 expert-axis launches, ``fwht_kv/128``,
@@ -169,23 +173,26 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    nemotron-4-15b (LayerNorm, relu2, untied 256,000-column head,
    ``kv_quant``) and stablelm-3b (LayerNorm, partial rotary, head_dim 80
    on the fp cache), each held to phase 11's contract and parity.
-13. The recurrent families at full width and depth, seeded on the card and
-   quantized as drawn, phase 4's requests on 4 slots through the engine's
+13. The recurrent families at full width, cut in depth
+   (``RECURRENT_LAYERS``: rwkv6-3b 8 of 32, zamba2-7b 14 of 81, two
+   macroblocks and a 2-layer tail), seeded on the card and quantized as
+   drawn, phase 4's requests on 4 slots through the engine's
    chunk ladder (``prompt_chunk=32``: chunks of 32 rows run the matmul,
-   the rest the matvec): (a) rwkv6-3b (attention-free RWKV6, 32 layers,
-   untied 65,536-column head) on itq3_s; (b) zamba2-7b (81 Mamba2 layers,
-   one shared attention block before every 6th, head_dim 112 on the fp
+   the rest the matvec): (a) rwkv6-3b (attention-free RWKV6, untied
+   65,536-column head) on itq3_s; (b) zamba2-7b (Mamba2 layers, one
+   shared attention block before every 6th, head_dim 112 on the fp
    cache) on itq3_s; (c) zamba2-7b on W3A8 under the mixed policy. Each:
    exact launches per decode step and per ladder chunk (rwkv6 7 ternary
    projections per layer and the head; zamba2 3 per layer and the shared
-   attention's 4 at each of its 14 applications), one host sync per step
+   attention's 4 at each of its applications), one host sync per step
    and per admitted request, two runs' streams equal, layer-forced logits
    within 1e-3, peak memory and resident bytes, and a short traced run
    for the idle share. Phase 3 also holds the four contraction kernels at
    these widths (K 2560 to 8960, N up to 65,536) against their plain
    versions and times them (``<kernel>_ssm`` in the kernel line).
-14. The frontend families at full width and depth, seeded on the card and
-   quantized as drawn, with seeded (4, P, F) features from a generator on
+14. The frontend families at full width (phi-3-vision-4.2b cut to
+   ``PHI_LAYERS`` (8) of its 32 layers; seamless-m4t-medium whole),
+   seeded on the card and quantized as drawn, with seeded (4, P, F) features from a generator on
    the card: (a) phi-3-vision-4.2b on itq3_s (head_dim 96 on the fp
    cache), (a1) phase 4's requests through the engine, text only as the
    reference serves a vlm (a cache of 256 + 576 positions), (a2) one
@@ -203,6 +210,30 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    one block, M up to 4,096; the int8 pair at seamless's) and ``attn_q8``
    at head_dim 64 with one query head per KV head against their plain
    versions and times them (``<kernel>_frontend`` in the kernel line).
+15. Tensor-parallel serving (``serve/tp.py``). (a) On one card, every N/2
+   and N/4 shard of qwen1.5-0.5b's projections (1024 x 1024, 1024 x 2816,
+   2816 x 1024) and of olmoe-1b-7b's expert stacks (64 experts), and every
+   E/2 and E/4 shard of the stacks (and, untimed, of qwen3-moe-235b-
+   a22b's 128-expert stacks), at a decode step's and a prefill wave's
+   rows, on the float and the W3A8 pair: the launch the TP path
+   makes (``tp.shard_qmatmul``, ``cut_from``: the whole launch's cut) must
+   equal the full launch's columns bit for bit; untimed, the same shards
+   under their own rule's cut are counted where the cut differs and where
+   the bits do. ``decode_attn_q8`` / ``prefill_attn_q8`` at qwen1.5-
+   0.5b's 16 KV heads and qwen3-moe's 4 (G = 16, head_dim 128), dense and
+   paged, must give each 2- and 4-way head shard's heads bit for bit. Each kernel is timed at the whole width and at the 2- and 4-way
+   shard beside its bound and ``x @ W`` (``attn_q8`` at 16, 8 and 4 KV
+   heads beside SDPA; ``tp_shard_widths`` and ``tp_attn_heads`` in the
+   details). (b) qwen1.5-0.5b at full width and depth, seeded on the
+   card, saved and served by ``ServeEngine.from_checkpoint(mesh=...)`` in
+   ``min(cards, 4)`` spawned NCCL ranks, on the float path and on W3A8:
+   each rank's streams equal the single-device engine's (booted from the
+   same checkpoint) token for token, its teacher-forced logits bit for
+   bit, its launches equal; per rank ``tp_world``,
+   ``cache_bytes_per_device`` and ms per step are printed. On a one-card
+   machine the mesh runs at world 1 (no leaf sharded, no collective), and
+   a line says so. With 2 or more cards olmoe-1b-7b (expert parallel) and
+   smollm-135m (3 KV heads: the replicated GQA fallback) are served too.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -240,7 +271,7 @@ from repro_torch.core.quantize import pad_last_dim, to_blocks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attn_q8 import (  # noqa: E402
     attn_grid, attn_q8, attn_q8_paged, attn_q8_paged_ref, attn_q8_ref,
-    decode_attn_q8, paged_row_table,
+    decode_attn_q8, paged_row_table, prefill_attn_q8,
 )
 from repro_torch.kernels.fwht import (  # noqa: E402
     FWHT_BLOCKS, fwht, fwht_act_encode, fwht_act_encode_ref, fwht_kv_encode,
@@ -288,6 +319,9 @@ SLOTS, MAX_LEN, PROMPT_PAD, MAX_NEW = 4, 256, 64, 32
 # two prefill waves and ~14 decode steps, so the trace stays small enough
 # for the profiler to walk within the usual call time.
 PROFILE_NEW = 8
+# The free-running agreement runs of phases 5 and 7 (plain versions, and
+# W3A8 against float): 8 new tokens per request, reported, not held.
+AGREE_NEW = 8
 # The paged path: 16-key blocks (the engine's default); the short pool of
 # phase 8 (b) holds 12 usable blocks, and its requests share a 32-token
 # prefix (two full blocks).
@@ -1854,6 +1888,14 @@ def agreement(reqs, other) -> tuple[int, int]:
     return same, sum(len(r.out) for r in reqs)
 
 
+def prefix_agreement(reqs, short) -> tuple[int, int]:
+    """(equal tokens, tokens of ``short``): a shorter run's streams against
+    the first tokens of ``reqs``'."""
+    same = sum(a == b for r, p in zip(reqs, short)
+               for a, b in zip(r.out, p.out))
+    return same, sum(len(p.out) for p in short)
+
+
 def float_path_params(cfg, dev):
     """Phase 4's model: seeded random weights quantized by the port to
     itq3_s (deterministic, so phase 8 rebuilds the same planes)."""
@@ -1890,10 +1932,13 @@ def serve_phase(dev, report: dict, cfg, profile: bool = False) -> dict:
     print("phase 5: teacher-forced parity, kernels vs plain versions",
           flush=True)
     parity_phase(params, cfg, prompts, dev, report, "parity")
-    _, plain_reqs, plain_wall, plain_counts = serve("ref", count=True)
+    # the free-running plain run is reported, not held: its first
+    # AGREE_NEW tokens per request keep the script within its time
+    _, plain_reqs, plain_wall, plain_counts = serve("ref", count=True,
+                                                    max_new=AGREE_NEW)
     if plain_counts:
         raise AssertionError(f"the plain-version run launched {plain_counts}")
-    same, total = agreement(reqs, plain_reqs)
+    same, total = prefix_agreement(reqs, plain_reqs)
     report["greedy_agreement"] = same / total
     report["plain_serve_wall_s"] = plain_wall
     print(f"  free-running greedy streams: {same}/{total} tokens agree with "
@@ -1985,10 +2030,12 @@ def w3a8_phase(dev, report: dict, cfg, profile: bool = False):
                restore_s=restore_s)
     parity_phase(restored, cfg, prompts, dev, report, "w3a8_parity",
                  act_quant=True)
-    _, plain_reqs, plain_wall, _ = serve(False, act_quant=True, backend="ref")
-    _, float_reqs, float_wall, _ = serve(False, act_quant=False)
-    out["greedy_agreement_plain"] = agreement(reqs, plain_reqs)
-    out["greedy_agreement_float"] = agreement(reqs, float_reqs)
+    _, plain_reqs, plain_wall, _ = serve(False, act_quant=True, backend="ref",
+                                         max_new=AGREE_NEW)
+    _, float_reqs, float_wall, _ = serve(False, act_quant=False,
+                                         max_new=AGREE_NEW)
+    out["greedy_agreement_plain"] = prefix_agreement(reqs, plain_reqs)
+    out["greedy_agreement_float"] = prefix_agreement(reqs, float_reqs)
     out["plain_serve_wall_s"], out["float_serve_wall_s"] = plain_wall, \
         float_wall
     print(f"  greedy streams: {'/'.join(map(str, out['greedy_agreement_plain']))}"
@@ -2753,6 +2800,14 @@ ROUTE_GAP_TOL = 1e-6
 # head_dim 80 has no int8 KV codec and serves on the fp cache
 DENSE_FAMILY = (("nemotron-4-15b", True), ("stablelm-3b", False))
 DENSE_FAMILY_LAYERS = 2
+# The script's time limit stays while it grows: phases 11, 13 and 14 serve
+# their models at full width and cut depth (every layer kind kept: MoE
+# layers; rwkv6's blocks; zamba2's macroblocks, tail and shared attention;
+# phi's decoder), which cuts their host-bound steps and plain-path
+# parities in proportion.
+MOE_LAYERS = 4
+RECURRENT_LAYERS = {"rwkv6-3b": 8, "zamba2-7b": 14}
+PHI_LAYERS = 8
 
 
 def expert_stack(fmt: str, e: int, k: int, n: int, gen, dev):
@@ -3400,7 +3455,7 @@ def seeded_model(cfg, policy, dev, report: dict, key: str):
 
 
 def moe_phase(dev, report: dict) -> dict:
-    """Phase 11: olmoe-1b-7b at full width and depth (16 layers, d_model
+    """Phase 11: olmoe-1b-7b at full width, ``MOE_LAYERS`` deep (d_model
     2048, 64 experts top-8, vocab 50,304). (a) The float path: uniform
     itq3_s, ``kv_quant``, 4 slots, phase 4's 8 requests; exact launches,
     one host sync per step and wave, two runs' streams equal, layer-forced
@@ -3411,7 +3466,8 @@ def moe_phase(dev, report: dict) -> dict:
     from repro_torch.configs import mixed_precision_recipe
     from repro_torch.serve.quantized import QuantPolicy
 
-    cfg = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                              num_layers=MOE_LAYERS)
     print(f"phase 11: the MoE path, {cfg.name} ({cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, {cfg.num_experts} experts top-"
           f"{cfg.experts_per_token}, vocab {cfg.vocab_size})", flush=True)
@@ -3786,9 +3842,9 @@ def decode_window(params, cfg, prompts, dev, *, act_quant: bool):
 
 
 def recurrent_phase(dev, report: dict) -> dict:
-    """Phase 13: rwkv6-3b (32 layers, d_model 2560, untied 65,536-column
-    head) and zamba2-7b (81 Mamba2 layers, d_model 3584, one shared
-    attention block before every 6th) at full width and depth, seeded on
+    """Phase 13: rwkv6-3b (d_model 2560, untied 65,536-column head) and
+    zamba2-7b (Mamba2 layers, d_model 3584, one shared attention block
+    before every 6th) at full width, ``RECURRENT_LAYERS`` deep, seeded on
     the card and quantized as drawn. (a) rwkv6 on itq3_s; (b) zamba2 on
     itq3_s, its shared attention on the fp cache; (c) zamba2 on W3A8
     under the mixed policy (the tied table q8_0, every other projection
@@ -3797,13 +3853,14 @@ def recurrent_phase(dev, report: dict) -> dict:
     from repro_torch.configs import mixed_precision_recipe
     from repro_torch.serve.quantized import QuantPolicy, quantize_params
 
-    print("phase 13: the recurrent families at full width and depth, "
+    print("phase 13: the recurrent families at full width, cut in depth, "
           f"through the chunk ladder (prompt_chunk={RECURRENT_CHUNK})",
           flush=True)
     totals = collections.Counter()
     params = None
     for key, arch, act_quant, head in RECURRENT_CASES:
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=RECURRENT_LAYERS[arch])
         if act_quant:
             policy = QuantPolicy.from_dict(mixed_precision_recipe(cfg))
             params = quantize_params(params, policy)
@@ -4145,7 +4202,8 @@ def frontend_model_phase(params, cfg, dev, report: dict, key: str, *,
 
 
 def frontend_phase(dev, report: dict) -> dict:
-    """Phase 14: the frontend families at full width and depth, seeded on
+    """Phase 14: the frontend families at full width (phi ``PHI_LAYERS``
+    deep, seamless whole), seeded on
     the card and quantized as drawn. (a) phi-3-vision-4.2b on itq3_s
     (head_dim 96: the fp cache): (a1) phase 4's requests through the
     engine, text only, as the reference serves a vlm (the cache 256 +
@@ -4159,10 +4217,11 @@ def frontend_phase(dev, report: dict) -> dict:
     from repro_torch.configs import mixed_precision_recipe
     from repro_torch.serve.quantized import QuantPolicy
 
-    print("phase 14: the frontend families at full width and depth",
-          flush=True)
+    print("phase 14: the frontend families at full width (phi-3-vision "
+          f"cut to {PHI_LAYERS} layers)", flush=True)
     totals = collections.Counter()
-    cfg = get_config("phi-3-vision-4.2b")
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"),
+                              num_layers=PHI_LAYERS)
     params = seeded_model(cfg, "itq3_s", dev, report, "vlm")
     print("  (a1) text through the engine, as the reference serves a vlm",
           flush=True)
@@ -4200,6 +4259,501 @@ def frontend_phase(dev, report: dict) -> dict:
         del params
         torch.cuda.empty_cache()
     return dict(totals)
+
+
+# --- phase 15: tensor-parallel serving ----------------------------------------
+# (a) On one card: every N/m shard of qwen1.5-0.5b's projections and of
+# olmoe-1b-7b's expert stacks, and every E/m shard of the stacks, through the
+# launch the TP path makes (the whole launch's cut), bitwise against the full
+# launch; attn_q8 at 16 KV heads against its 8- and 4-head shards. (b) The
+# TP engine itself over NCCL, one spawned process per card.
+
+TP_WAYS = (2, 4)
+# qwen1.5-0.5b at full width (d_model 1024, 16 MHA heads of 64, d_ff 2816):
+# wq, wk, wv and wo share one shape, gate and up another
+TP_PROJ = (("qwen1.5 wq/wk/wv/wo", 1024, 1024),
+           ("qwen1.5 gate/up", 1024, 2816), ("qwen1.5 down", 2816, 1024))
+# olmoe-1b-7b's expert stacks, 64 experts each
+TP_STACKS = (("olmoe gate/up", 2048, 1024), ("olmoe down", 1024, 2048))
+# qwen3-moe-235b-a22b's stacks (128 experts), checked untimed: its TP layout
+# at full width, which no one card can serve at full depth
+TP_QWEN3_STACKS = tuple((f"qwen3-moe {name}", k, n)
+                        for name, (k, n) in QWEN3_PROJ.items())
+TP_QWEN3_M = (("decode", 4), ("prefill", 20))
+# a decode step of 4 slots and a prefill wave of 4 x 64-token buckets
+TP_M = (("decode", SLOTS), ("prefill", SLOTS * PROMPT_PAD))
+# (label, KV heads, query heads per KV head, head_dim, timed): qwen1.5-
+# 0.5b's MHA, and qwen3-moe-235b-a22b's 4 KV heads of 16 queries each
+TP_ATTN = (("qwen1.5-0.5b", 16, 1, 64, True),
+           ("qwen3-moe-235b-a22b", 4, 16, 128, False))
+# (b): (arch, act_quant) served through the mesh; with 2 or more cards also
+# olmoe-1b-7b (expert parallel) and smollm-135m (3 KV heads: the
+# replicated GQA fallback) on the float path
+TP_SERVE = (("qwen1.5-0.5b", False), ("qwen1.5-0.5b", True))
+TP_SERVE_MULTI = (("olmoe-1b-7b", False), ("smollm-135m", False))
+TP_NEW = 16  # new tokens per request in (b)
+TP_FORCED = 32  # tokens of (b)'s teacher-forced prefill
+TP_DIR = ROOT / "build" / "chip_smoke_tp"
+
+
+def _rows_of(qt, lo: int, n: int, axis: int):
+    """``qt`` with rows ``lo .. lo+n`` of axis ``axis`` of every packed
+    array (contiguous copies): an N or an E shard, its meta unchanged (a
+    placed leaf keeps its whole weight's meta)."""
+    from repro_torch.core.quantize import QTensor
+
+    return QTensor({k: v.narrow(axis, lo, n).contiguous()
+                    for k, v in qt.data.items()}, qt.meta)
+
+
+def _local_meta(qt, n: int):
+    from repro_torch.core.quantize import QTensor
+
+    return QTensor(qt.data, dataclasses.replace(qt.meta,
+                                                shape=(qt.meta.k, n)))
+
+
+def _staged(x, act: bool, small: bool):
+    """The kernel's operands as the kernel path stages them: x padded
+    (the fused matvec rotates it), rotated (the tiled kernel), or the int8
+    codes and row scales."""
+    xp = pad_last_dim(x, 256).contiguous()
+    if act:
+        xq, xs = fwht_act_encode(xp.reshape(-1, xp.shape[-1]), block=256,
+                                 rotate=True, dsign=None)
+        return xq.reshape(xp.shape), xs.reshape(*xp.shape[:-1], 1)
+    if small:
+        return (xp,)
+    return (fwht(xp.reshape(-1, xp.shape[-1]), 256).reshape(xp.shape),)
+
+
+def _kernel_call(act: bool, small: bool, ops, planes, cut):
+    kw = dict(fivelevel=False, sub_blocks=0, cut=cut)
+    if act:
+        fn = itq3_matvec_int8 if small else itq3_matmul_int8
+        return lambda: fn(*ops, *planes, **kw)
+    if small:
+        return lambda: itq3_matvec(*ops, *planes, rotate_weights=False,
+                                   rotate_x=True, **kw)
+    return lambda: itq3_matmul(*ops, *planes, rotate_weights=False, **kw)
+
+
+def _shard_checks(x, qt, full, act: bool, e: int, counts: dict,
+                  broken: list) -> None:
+    """Every N/m shard (a stack's E/m shards too) for m in TP_WAYS: the TP
+    launch (whole launch's cut) equal to ``full``'s columns bit for bit;
+    the shard under its own rule's cut counted where its cut differs and
+    where its bits do, those listed in ``broken`` with their error over
+    the largest output."""
+    from repro_torch.core.qlinear import launch_cut, qmatmul, qmatmul_experts
+    from repro_torch.serve import tp as tp_mod
+
+    m, k, n = x.shape[-2], qt.meta.k, qt.meta.n
+    kb = qt.data["plane2"].shape[-2]
+    whole = launch_cut(m, kb, act_quant=act, e=e, n=n)
+    splits = [("N", 0 if e == 1 else 1, n)] + ([("E", 0, e)] if e > 1
+                                                else [])
+    for ways in TP_WAYS:
+        for what, axis, size in splits:
+            per = size // ways
+            for r in range(ways):
+                cols = slice(r * per, (r + 1) * per)
+                sh = _rows_of(qt, r * per, per, axis)
+                if e == 1:
+                    got = tp_mod.shard_qmatmul(x, sh, mode="activations",
+                                               backend="auto", act_quant=act)
+                    own = qmatmul(x, _local_meta(sh, per), backend="auto",
+                                  act_quant=act)
+                    want, own_cut = full[:, cols], launch_cut(
+                        m, kb, act_quant=act, e=1, n=per)
+                else:
+                    xe = x if what == "N" else x[cols]
+                    got = qmatmul_experts(xe, sh, backend="auto",
+                                          act_quant=act, cut_from=(e, n))
+                    own = qmatmul_experts(xe, sh, backend="auto",
+                                          act_quant=act)
+                    want = full[..., cols] if what == "N" else full[cols]
+                    own_cut = launch_cut(m, kb, act_quant=act,
+                                         e=e if what == "N" else per,
+                                         n=per if what == "N" else n)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"TP shard {what}/{ways} #{r} (K={k}, N={n}, E={e}, "
+                        f"M={m}, act_quant={act}): differs from the full "
+                        f"launch")
+                counts["checked"] += 1
+                counts["own_cut_differs"] += tuple(own_cut) != tuple(whole)
+                if not torch.equal(own, want):
+                    counts["own_cut_broken"] += 1
+                    broken.append(dict(
+                        k=k, n=n, e=e, m=m, act_quant=act,
+                        shard=f"{what}/{ways} #{r}", whole_cut=list(whole),
+                        own_cut=list(own_cut),
+                        rel=((own - want).abs().max()
+                             / want.abs().max()).item()))
+
+
+def _time_widths(label, x, qt, act: bool, e: int, rows: list) -> None:
+    """The path's kernel alone at the whole width and at one shard of each
+    of TP_WAYS (N/m, or E/m for a stack), under the whole launch's cut,
+    beside its bound and ``x @ W`` (``bmm`` for a stack) on the
+    dequantized f32 weight (the IFWHT'd one for the fused matvec)."""
+    from repro_torch.core.qlinear import launch_cut
+
+    m, k, n = x.shape[-2], qt.meta.k, qt.meta.n
+    kb = qt.data["plane2"].shape[-2]
+    kp, small = kb * 256, m <= 16
+    cut = launch_cut(m, kb, act_quant=act, e=e, n=n)
+    ops = _staged(x, act, small)
+    name = ("itq3_matvec" if small else "itq3_matmul") + (
+        "_int8" if act else "") + ("_experts" if e > 1 else "")
+    for ways in (1,) + TP_WAYS:
+        pn, pe = (n // ways, 1) if e == 1 else (n, e // ways)
+        sh = (_rows_of(qt, 0, pn, 0) if e == 1 else _rows_of(qt, 0, pe, 0))
+        xs = ops if e == 1 else tuple(o[:pe] for o in ops)
+        run = _kernel_call(act, small, xs, _planes(sh), cut)
+        wd = dequant_blocks(*_planes(sh), rotate_weights=small and not act,
+                            fivelevel=False, sub_blocks=0)
+        xin = pad_last_dim(x if e == 1 else x[:pe], 256)
+        if e == 1:
+            wd = wd.reshape(pn, kp).T.contiguous()
+            lib = lambda xin=xin, wd=wd: xin @ wd  # noqa: E731
+        else:
+            wd = wd.reshape(pe, pn, kp).transpose(1, 2).contiguous()
+            lib = lambda xin=xin, wd=wd: torch.bmm(xin, wd)  # noqa: E731
+        rows_m = pe * m
+        xbytes = rows_m * kp * (1 if act else 4) + (rows_m * 4 if act else 0)
+        flops = 2 * rows_m * pn * kp + (9 * rows_m * kp if small and not act
+                                        else 0)
+        peak = (PEAK_INT8_OPS if act else
+                PEAK_F32_FLOPS if small else PEAK_TF32_FLOPS)
+        b, by = bound_ms(xbytes + weight_bytes(sh) + rows_m * pn * 4,
+                         flops * (1 if act or small else 2), peak)
+        width = "whole" if ways == 1 else f"{'N' if e == 1 else 'E'}/{ways}"
+        row = dict(kernel=name, shape=f"{label} M={m}", width=width,
+                   cut=list(cut), ms=device_ms(run), bound_ms=b, bound_by=by,
+                   library_ms=device_ms(lib, reps=2))
+        rows.append(row)
+        print(f"  {name:24s} {row['shape']:36s} {width:6s} kernel "
+              f"{row['ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
+              f"bound {b:.4f} ms ({by})", flush=True)
+        del wd
+
+
+def tp_contraction_shards(gen, dev, report: dict) -> None:
+    """Phase 15 (a), the four contraction kernels: qwen1.5-0.5b's three
+    projection shapes and olmoe-1b-7b's two expert stacks, M = 4 and a
+    prefill wave, the float and the W3A8 pair, each shard checked
+    (:func:`_shard_checks`) and the widths timed (:func:`_time_widths`);
+    qwen3-moe-235b-a22b's stacks checked untimed."""
+    from repro_torch.core.qlinear import qmatmul, qmatmul_experts
+
+    rows, broken = [], []
+    counts = collections.Counter()
+    cases = [(label, k, n, 1, TP_M, True) for label, k, n in TP_PROJ] + [
+        (label, k, n, OLMOE_EXPERTS, EXPERT_M, True)
+        for label, k, n in TP_STACKS] + [
+        (label, k, n, QWEN3_EXPERTS, TP_QWEN3_M, False)
+        for label, k, n in TP_QWEN3_STACKS]
+    for label, k, n, e, ms, timed in cases:
+        lead = (e,) if e > 1 else ()
+        qt = formats.quantize(torch.randn(*lead, k, n, generator=gen,
+                                          device=dev) / math.sqrt(k),
+                              "itq3_s")
+        for _, m in ms:
+            x = torch.randn(*lead, m, k, generator=gen, device=dev)
+            for act in (False, True):
+                full = (qmatmul_experts(x, qt, backend="auto", act_quant=act)
+                        if e > 1 else qmatmul(x, qt, backend="auto",
+                                              act_quant=act))
+                _shard_checks(x, qt, full, act, e, counts, broken)
+                if timed:
+                    _time_widths(f"{label} ({k}x{n}"
+                                 + (f", E={e})" if e > 1 else ")"), x, qt,
+                                 act, e, rows)
+        del qt
+        torch.cuda.empty_cache()
+    report["tp_shard_widths"] = rows
+    report["tp_shards"] = dict(counts)
+    report["tp_shards_own_cut_broken"] = broken
+    for b in broken:
+        print(f"  under its own cut {b['own_cut']} (whole {b['whole_cut']}): "
+              f"{'int8' if b['act_quant'] else 'float'} K={b['k']} "
+              f"N={b['n']} E={b['e']} M={b['m']} {b['shard']}, "
+              f"{b['rel']:.1e} of the largest output", flush=True)
+    print(f"  {counts['checked']} shard launches equal to the full launch's "
+          f"columns bit for bit under the whole launch's cut; under their "
+          f"own rule's cut {counts['own_cut_differs']} would take another "
+          f"cut and {counts['own_cut_broken']} would give other bits",
+          flush=True)
+
+
+def _head_cache(cache: dict, heads: slice) -> dict:
+    return {k: v if k == "table" else v[:, heads].contiguous()
+            for k, v in cache.items()}
+
+
+def tp_attention_shards(gen, dev, report: dict) -> None:
+    """Phase 15 (a), the attention: decode and a 64-token prefill at each
+    ``TP_ATTN`` model's KV heads (4 slots, a 256-position cache), dense and
+    paged (16-key blocks over a shuffled pool): every 2- and 4-way head
+    shard of ``decode_attn_q8`` / ``prefill_attn_q8`` (the calls the TP
+    path makes on its heads) equal to the full call's heads bit for bit;
+    at qwen1.5-0.5b's shape ``attn_q8`` is timed at 16, 8 and 4 KV heads
+    beside its bound and ``scaled_dot_product_attention``."""
+    b, t, bs = SLOTS, MAX_LEN, BLOCK_SIZE
+    maxb = t // bs
+    kv_len = torch.tensor([5, 64, 130, 191], dtype=torch.int64, device=dev)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def scales(*shape):
+        return (torch.rand(*shape, generator=gen, device=dev) * 0.05
+                + 1e-3).half()
+
+    def planes(lead, kvh, length, hd):
+        return {"k": codes(lead, kvh, length, hd),
+                "v": codes(lead, kvh, length, hd),
+                "k_scale": scales(lead, kvh, length, 1),
+                "v_scale": scales(lead, kvh, length, 1)}
+
+    checked, rows = 0, []
+    for label, kvh, g, hd, timed in TP_ATTN:
+        paged = planes(b * maxb + 1, kvh, bs, hd)
+        paged["table"] = (1 + torch.randperm(
+            b * maxb, generator=gen, device=dev)).reshape(b, maxb).to(
+            torch.int32)
+        kt = (codes(b, kvh, 1, hd), scales(b, kvh, 1, 1))
+        vt = (codes(b, kvh, 1, hd), scales(b, kvh, 1, 1))
+        calls = {
+            "decode": (torch.randn(b, kvh, g, 1, hd, generator=gen,
+                                   device=dev),
+                       lambda q, c, hs: decode_attn_q8(
+                           q, c, tuple(a[:, hs].contiguous() for a in kt),
+                           tuple(a[:, hs].contiguous() for a in vt), kv_len,
+                           backend="auto")),
+            "prefill": (torch.randn(b, kvh, g, PROMPT_PAD, hd, generator=gen,
+                                    device=dev),
+                        lambda q, c, hs: prefill_attn_q8(
+                            q, c, kv_len + PROMPT_PAD, kv_len,
+                            backend="auto"))}
+        for layout, cache in (("dense", planes(b, kvh, t, hd)),
+                              ("paged", paged)):
+            for phase, (q, call) in calls.items():
+                full = call(q, cache, slice(None))
+                for ways in TP_WAYS:
+                    per = kvh // ways
+                    for r in range(ways):
+                        hs = slice(r * per, (r + 1) * per)
+                        got = call(q[:, hs].contiguous(),
+                                   _head_cache(cache, hs), hs)
+                        if not torch.equal(got, full[:, hs]):
+                            raise AssertionError(
+                                f"attn {label} {layout} {phase}: head "
+                                f"shard {r} of {ways} differs from the "
+                                f"full call")
+                        checked += 1
+        if not timed:
+            continue
+        lens = [5, 64, 130, 191]
+        for heads in (kvh,) + tuple(kvh // w for w in TP_WAYS):
+            kl = [x for x in lens for _ in range(heads)]
+            args, kw = _attn_case(gen, dev, r=b * heads, tq=1, g=g, hd=hd,
+                                  t=t, kv_len=kl, q_offset=[0] * len(kl),
+                                  causal=False)
+            mask, keys_read, pairs = attn_extent(kl, [0] * len(kl), 1, t,
+                                                 False)
+            q = args[0]
+            nbytes = (2 * q.numel() * 4 + sum(keys_read) * 2 * (hd + 2)
+                      + 2 * len(kl) * 4 + 2 * (q.numel() // hd) * 4)
+            bnd, by = bound_ms(nbytes, pairs * g * 4 * hd)
+            row = dict(kernel="attn_q8", shape=f"{label} decode R={b * heads}"
+                       f" G={g} HD={hd} T={t}", kv_heads=heads,
+                       ms=device_ms(lambda: attn_q8(*args, **kw)),
+                       library_ms=device_ms(_attn_library(args, kw, mask,
+                                                          dev)),
+                       bound_ms=bnd, bound_by=by)
+            rows.append(row)
+            print(f"  attn_q8 {heads:2d} KV heads ({row['shape']}): kernel "
+                  f"{row['ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
+                  f"bound {bnd:.4f} ms ({by})", flush=True)
+    report["tp_attn_heads"] = rows
+    report["tp_attn_shards_checked"] = checked
+    print(f"  {checked} attention head shards (decode and prefill, dense and "
+          f"paged; qwen1.5-0.5b and qwen3-moe-235b-a22b) equal to the full "
+          f"call's heads bit for bit", flush=True)
+
+
+def tp_serve_case(arch: str, act: bool, ckpt: Path, mesh, dev) -> dict:
+    """One serving run of phase 15 (b), on one device (``mesh`` None) or
+    as one rank of the mesh: boot from ``ckpt`` (restore-to-sharding under
+    a mesh), serve phase 4's 8 requests (``TP_NEW`` new tokens, counted
+    launches), then teacher-forced logits: a ``TP_FORCED``-token prefill of
+    4 prompts and one forced decode step through the engine's params and
+    runtime."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    eng = ServeEngine.from_checkpoint(
+        str(ckpt), cfg, mesh=mesh, device=dev, slots=SLOTS, max_len=MAX_LEN,
+        prompt_pad=PROMPT_PAD, rt=Runtime(kv_quant=True, act_quant=act))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    reqs = [Request(rid=i, prompt=p, max_new=TP_NEW)
+            for i, p in enumerate(make_prompts(cfg))]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, size=(SLOTS, TP_FORCED))
+    cache = eng._new_cache(cfg, SLOTS, eng.rt)
+    pre, _ = lm.forward(eng.params, toks, eng.rt, cfg, cache=cache, pos=0,
+                        last_only=True)
+    nxt = rng.integers(0, cfg.vocab_size, size=(SLOTS, 1))
+    step, _ = lm.decode_step(eng.params, nxt, cache, TP_FORCED, eng.rt, cfg)
+    st = eng.stats()
+    out = dict(streams=[list(r.out) for r in reqs], counts=counts,
+               wall_s=wall, boot_s=boot_s,
+               ms_per_step=1e3 * st["decode_seconds"] / st["decode_steps"],
+               cache_bytes=st["cache_bytes"],
+               logits=(pre.cpu(), step.cpu()),
+               reasons=[r.finish_reason for r in reqs])
+    if mesh is not None:
+        out.update(devices=st["devices"], tp_shard_map=st["tp_shard_map"],
+                   cache_bytes_per_device=st["cache_bytes_per_device"])
+    del eng, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, world: int, store: str, cases, out_dir: str) -> None:
+    """One rank of phase 15 (b), in a process of its own on ``cuda:rank``:
+    join the NCCL group through the file store, serve every case through
+    the mesh and save the results for the parent."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    mesh = make_host_mesh(1, world, device=dev, init_method=store,
+                          rank=rank, world_size=world)
+    try:
+        res = {key: tp_serve_case(arch, act, Path(out_dir) / arch, mesh, dev)
+               for key, arch, act in cases}
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_phase(dev, report: dict, shards: bool = True) -> dict:
+    """Phase 15: tensor-parallel serving. (a) On one card, the shard
+    launches of the contraction kernels and the attention, bitwise
+    against the full launches, and their times at each width. (b) qwen1.5-
+    0.5b at full width and depth, seeded on the card, saved, then served
+    through ``ServeEngine.from_checkpoint(mesh=...)`` by ``world =
+    min(cards, 4)`` spawned NCCL ranks, on the float path and on W3A8:
+    every rank's streams equal to the single-device engine's (booted from
+    the same checkpoint) token for token, its teacher-forced logits equal
+    bit for bit and its launches equal the single-device run's; with 2 or
+    more cards also olmoe-1b-7b (expert parallel) and smollm-135m (the
+    GQA fallback). ``shards=False`` skips (a). Returns the mesh runs'
+    launches (rank 0, summed over the cases)."""
+    from repro_torch.models import lm
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+
+    if shards:
+        print("phase 15 (a): tensor-parallel shard launches at qwen1.5-"
+              "0.5b's and olmoe-1b-7b's widths, bitwise against the full "
+              "launches", flush=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(15)
+        tp_contraction_shards(gen, dev, report)
+        tp_attention_shards(gen, dev, report)
+
+    world = min(torch.cuda.device_count(), 4)
+    print(f"phase 15 (b): tp_world {world}: ServeEngine.from_checkpoint("
+          f"mesh=...) over NCCL, {world} spawned rank(s)", flush=True)
+    if world == 1:
+        print("  one card: the mesh path runs at world 1 (every leaf and "
+              "the cache replicated, no collective); not evidence of "
+              "sharding", flush=True)
+    serve = TP_SERVE + (TP_SERVE_MULTI if world > 1 else ())
+    cases = [(arch + ("_w3a8" if act else ""), arch, act)
+             for arch, act in serve]
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    for arch in dict.fromkeys(a for a, _ in serve):
+        t0 = time.perf_counter()
+        params = lm.init_quantized_params(get_config(arch), "itq3_s", seed=0,
+                                          device=dev)
+        ckpt_mod.save(str(TP_DIR / arch), 0, params)
+        del params
+        torch.cuda.empty_cache()
+        print(f"  {arch}: seeded, quantized and saved in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    base = {key: tp_serve_case(arch, act, TP_DIR / arch, None, dev)
+            for key, arch, act in cases}
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        tp_rank, args=(world, f"file://{TP_DIR / 'store'}", cases,
+                       str(TP_DIR)), nprocs=world, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(TP_DIR / f"rank{r}.pt") for r in range(world)]
+    out = {"world": world, "spawn_s": spawn_s, "cases": {}}
+    counts = collections.Counter()
+    for key, arch, act in cases:
+        want = base[key]
+        if set(want["reasons"]) != {"length"}:
+            raise AssertionError(f"{key}: single-device finish reasons "
+                                 f"{want['reasons']}")
+        # the path's kernels, each launched in the counted run
+        path = {f"itq3_{form}{'_int8' if act else ''}"
+                for form in ("matvec", "matmul")} | {"attn_q8"}
+        if get_config(arch).family == "moe":
+            path |= {f"itq3_{form}_experts" for form in ("matvec",
+                                                           "matmul")}
+        missing = sorted(k for k in path if not want["counts"].get(k))
+        if missing:
+            raise AssertionError(f"{key}: {missing} launched no time")
+        row = dict(single_ms_per_step=want["ms_per_step"],
+                   cache_bytes=want["cache_bytes"], ranks=[])
+        for r, res in enumerate(ranks):
+            got = res[key]
+            if got["streams"] != want["streams"]:
+                raise AssertionError(f"{key} rank {r}: streams differ from "
+                                     f"the single-device engine's")
+            if not all(torch.equal(a, b) for a, b in zip(got["logits"],
+                                                         want["logits"])):
+                raise AssertionError(f"{key} rank {r}: teacher-forced "
+                                     f"logits differ from one device's")
+            if got["counts"] != want["counts"]:
+                raise AssertionError(f"{key} rank {r}: launches "
+                                     f"{got['counts']} != the single "
+                                     f"device's {want['counts']}")
+            row["ranks"].append({k: got[k] for k in (
+                "ms_per_step", "cache_bytes_per_device", "devices",
+                "tp_shard_map", "boot_s", "wall_s")})
+            print(f"  {key} rank {r}: tp_world {got['devices']}, "
+                  f"cache_bytes_per_device {got['cache_bytes_per_device']} "
+                  f"of {got['cache_bytes']}, {got['ms_per_step']:.3f} ms/step "
+                  f"(one device {want['ms_per_step']:.3f}), booted in "
+                  f"{got['boot_s']:.1f} s", flush=True)
+        counts.update(ranks[0][key]["counts"])
+        out["cases"][key] = row
+        print(f"  {key}: {world} rank(s) equal to the single-device engine: "
+              f"{sum(map(len, want['streams']))} tokens, teacher-forced "
+              f"logits bit for bit, launches {want['counts']}", flush=True)
+    report["tp"] = out
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    return dict(counts)
 
 
 def profile_phase(run, report: dict, key: str = "profile",
@@ -4252,6 +4806,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one short serving run of each path "
                          "with torch.profiler")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build the kernels, then run phase 15 (b) alone: "
+                         "tensor-parallel serving over every card (up to "
+                         "4) against the single-device engine")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4277,6 +4835,22 @@ def main(argv=None) -> int:
         for line in v["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k}: {line.strip()}")
+
+    if args.tp_only:
+        tp_phase(dev, report, shards=False)
+        DETAILS.parent.mkdir(parents=True, exist_ok=True)
+        DETAILS.write_text(json.dumps(report, indent=1, default=str))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    # the wall of each phase (and of phase 3's parts), printed at the end
+    laps = {"start": time.perf_counter()}
+
+    def lap(name: str) -> None:
+        laps[name] = time.perf_counter()
 
     print("phase 3: kernels vs plain versions at smollm-135m main-path "
           "shapes (ms = median device time of one call)", flush=True)
@@ -4307,6 +4881,7 @@ def main(argv=None) -> int:
     check_int8_edges(gen, dev, report)
     int8_tile_sweep(gen, dev, int8w, report, timed=not args.profile)
     int8_ptxas_report(report)
+    lap("3 smollm")
     print("phase 3 (MoE and dense family): the expert axis at olmoe's "
           "shapes, head_dim 128 attention, the dense family's widths",
           flush=True)
@@ -4315,15 +4890,18 @@ def main(argv=None) -> int:
     check_expert_edges(gen, dev, report)
     check_attn_hd128(led, gen, dev, report)
     check_dense_family_widths(gen, dev, report)
+    lap("3 moe+dense")
     print("phase 3 (recurrent families): the contraction kernels at "
           "rwkv6-3b's and zamba2-7b's widths, M = 4 and a 32-row ladder "
           "chunk", flush=True)
     check_ssm_widths(led, gen, dev, report)
+    lap("3 recurrent")
     print("phase 3 (frontend families): the contraction kernels at "
           "phi-3-vision-4.2b's and seamless-m4t-medium's widths (K = 160 "
           "padded, M up to 4096), attn_q8 at head_dim 64 with G = 1",
           flush=True)
     check_frontend_widths(led, gen, dev, report)
+    lap("3 frontend")
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the
@@ -4335,7 +4913,9 @@ def main(argv=None) -> int:
         cfg = get_config("smollm-135m")
         counts, dense_reqs = serve_phase(dev, report, cfg,
                                          profile=args.profile)
+        lap("4-6")
         w3a8, w3a8_reqs = w3a8_phase(dev, report, cfg, profile=args.profile)
+        lap("7")
         # the FWHT forms count their launches per block size: the line
         # takes the sum
         for form in ("fwht", "fwht_act", "fwht_kv"):
@@ -4347,27 +4927,43 @@ def main(argv=None) -> int:
         paged = paged_phase(dev, report, cfg, dense_reqs,
                             profile=args.profile)
         counts["attn_q8_paged"] = paged["attn_q8_paged"]
+        lap("8")
         sampled_phase(dev, report, cfg, w3a8_reqs)
         chaos_phase(dev, report, cfg)
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        lap("9")
         report["spec_launches"] = spec_phase(dev, report, cfg, dense_reqs)
+        lap("10")
         # the MoE path (phase 11) launches the expert forms and the head_dim
         # 128 attention; phase 12 the rest of the dense family
         moe = moe_phase(dev, report)
         counts.update({k: v for k, v in moe.items() if k.endswith("_experts")})
         counts["attn_q8_hd128"] = moe["attn_q8"]
+        lap("11")
         dense_family_phase(dev, report)
+        lap("12")
         # phase 13 launches the contraction kernels at the recurrent widths
         recurrent = recurrent_phase(dev, report)
         counts.update({f"{k}_ssm": recurrent.get(k, 0) for k in (
             "itq3_matvec", "itq3_matmul", "itq3_matvec_int8",
             "itq3_matmul_int8")})
+        lap("13")
         # phase 14 launches them (and seamless's attention) at the
         # frontend widths
         frontend = frontend_phase(dev, report)
         counts.update({f"{k}_frontend": frontend.get(k, 0) for k in (
             "itq3_matvec", "itq3_matmul", "itq3_matvec_int8",
             "itq3_matmul_int8", "attn_q8")})
+        lap("14")
+        # phase 15: tensor-parallel serving (its launches are held equal to
+        # the single-device runs' inside the phase)
+        report["tp_launches"] = tp_phase(dev, report)
+        lap("15")
+    names = list(laps)
+    report["phase_s"] = {b: laps[b] - laps[a] for a, b in zip(names,
+                                                               names[1:])}
+    print("phase walls (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in report["phase_s"].items()), flush=True)
 
     # kernel -> (source, the TPU kernel it replaces)
     kernel_table = {

@@ -115,18 +115,45 @@ def _step_dir(ckpt_dir: str, step: Optional[int]) -> tuple[str, int]:
 
 
 def restore_tree(ckpt_dir: str, *, step: Optional[int] = None,
-                 device="cuda") -> tuple[dict, int]:
+                 device="cuda", shardings=None) -> tuple[dict, int]:
     """Template-free restore: rebuild the nested-dict tree from
     ``meta.json``, QTensor leaves from their packed arrays and stored
-    QMeta, every array on ``device``. Returns ``(tree, step)``."""
+    QMeta, every array on ``device``. Returns ``(tree, step)``.
+
+    ``shardings``, when given, is a callable ``(dotted_key, leaf) ->
+    placement`` consulted per leaf as it loads (restore-to-sharding, the
+    callback of :func:`repro_torch.serve.tp.restore_shardings`). ``leaf``
+    is the leaf over memory-mapped arrays (a QTensor of them, or one), so
+    the callback sees shapes without a read. A placement is a callable
+    taking a whole array and returning this rank's slice as a tensor on
+    its device; for a QTensor leaf, a dict of them keyed like its
+    ``data``. Only the rows a placement takes are read off disk. None
+    loads the leaf whole onto ``device``."""
     d, step = _step_dir(ckpt_dir, step)
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     qmetas = meta.get("qtensors", {})
 
-    def load(key: str) -> torch.Tensor:
-        arr = np.load(os.path.join(d, key + ".npy"))
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    def mapped(key: str) -> np.ndarray:
+        path = os.path.join(d, key + ".npy")
+        try:
+            return np.load(path, mmap_mode="r")
+        except ValueError:  # an empty array has nothing to map
+            return np.load(path)
+
+    def load(arr: np.ndarray) -> torch.Tensor:
+        # a copy: the mapped file stays read-only and unshared
+        return torch.from_numpy(np.array(arr, order="C")).to(device)
+
+    def place(key: str, leaf):
+        shard = (None if shardings is None
+                 else shardings(key.replace(_SEP, "."), leaf))
+        if isinstance(leaf, QTensor):
+            per = shard if isinstance(shard, dict) else {
+                k: shard for k in leaf.data}
+            return QTensor({k: load(v) if per[k] is None else per[k](v)
+                            for k, v in leaf.data.items()}, leaf.meta)
+        return load(leaf) if shard is None else shard(leaf)
 
     tree: dict[str, Any] = {}
 
@@ -138,22 +165,27 @@ def restore_tree(ckpt_dir: str, *, step: Optional[int] = None,
         node[parts[-1]] = value
 
     for key, rec in qmetas.items():
-        insert(key, QTensor({k: load(key + _QMARK + k) for k in rec["keys"]},
-                            QMeta.from_dict(rec["meta"])))
+        insert(key, place(key, QTensor(
+            {k: mapped(key + _QMARK + k) for k in rec["keys"]},
+            QMeta.from_dict(rec["meta"]))))
     owned = {k + _QMARK + dk for k, rec in qmetas.items()
              for dk in rec["keys"]}
     for key in meta["leaves"]:
         if key not in owned:
-            insert(key, load(key))
+            insert(key, place(key, mapped(key)))
     return tree, step
 
 
 def restore_params(ckpt_dir: str, *, step: Optional[int] = None,
-                   device="cuda") -> tuple[dict, int]:
+                   device="cuda", shardings=None) -> tuple[dict, int]:
     """Template-free restore of a servable params tree: a bare params
     checkpoint as it is, a train-state checkpoint unwrapped to its
-    ``params`` member. The serve launcher's way to boot from disk."""
-    tree, step = restore_tree(ckpt_dir, step=step, device=device)
+    ``params`` member. The serve launcher's way to boot from disk.
+    ``shardings``: the per-leaf placement callable of :func:`restore_tree`
+    (dotted keys keep a train state's leading ``params.``; the callable of
+    ``serve/tp.py`` strips it)."""
+    tree, step = restore_tree(ckpt_dir, step=step, device=device,
+                              shardings=shardings)
     if "params" in tree:
         tree = tree["params"]
     return tree, step

@@ -35,6 +35,15 @@ modes, backends and ``act_quant``: on the kernel path one FWHT (or one
 expert-axis launch of the matvec (M <= 16 rows per expert, as the
 reference decides per expert) or of the tiled kernel. It never loops
 over experts on the card; the plain paths take the experts one by one.
+
+**cut_from** — a tensor-parallel shard (``serve/tp.py``) holds N/m columns
+of a weight, or E/m experts of a stack, and its launch would take the cut
+its own ``(E, N)`` gives: a different K split, so its columns would add
+their K runs in another order than the unsharded launch's. ``cut_from=(E,
+N)`` names the unsharded launch; the kernel path then works the cut out
+with the kernel's own rule (:func:`launch_cut`) at those E and N and
+passes it to the shard's launch, so every column has the bits it has on
+one device.
 """
 from __future__ import annotations
 
@@ -46,11 +55,11 @@ from repro_torch.kernels import fwht as fwht_kernels
 from repro_torch.kernels.fwht import fwht_act_encode
 from repro_torch.kernels.itq3 import (
     MATVEC_MAX_M, itq3_matmul, itq3_matmul_int8, itq3_matvec,
-    itq3_matvec_int8,
+    itq3_matvec_int8, matmul_tiles, matvec_int8_tiles, matvec_tiles,
 )
 
 __all__ = ["qmatmul", "qmatmul_kernel", "qmatmul_experts", "resolve_mode",
-           "QLINEAR_MODES", "QMATMUL_BACKENDS"]
+           "launch_cut", "QLINEAR_MODES", "QMATMUL_BACKENDS"]
 
 QLINEAR_MODES = ("dequant", "weights", "activations", "auto")
 QMATMUL_BACKENDS = ("auto", "ref", "cuda")
@@ -80,9 +89,21 @@ def _checked(x, qt, mode, backend):
     return fmt_mod.get_format(m.fmt)
 
 
+def launch_cut(rows: int, kb: int, *, act_quant: bool, e: int, n: int):
+    """The cut the kernel path's launch takes for ``rows`` rows (per
+    expert) of ``kb`` blocks against ``e`` experts of ``n`` columns: the
+    matvec's rule for at most ``MATVEC_MAX_M`` rows, the tiled kernels'
+    above (the float and int8 matvecs have rules of their own)."""
+    if rows > MATVEC_MAX_M:
+        return matmul_tiles(rows, n, kb, e)
+    return (matvec_int8_tiles if act_quant else matvec_tiles)(rows, n, kb, e)
+
+
 def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
-            backend: str = "auto", act_quant: bool = False) -> torch.Tensor:
-    """``x (..., K) @ W_hat (K, N) -> (..., N)`` in f32."""
+            backend: str = "auto", act_quant: bool = False,
+            cut_from=None) -> torch.Tensor:
+    """``x (..., K) @ W_hat (K, N) -> (..., N)`` in f32. ``cut_from``: the
+    (E, N) of the unsharded launch whose cut a shard takes."""
     m = qt.meta
     spec = _checked(x, qt, mode, backend)
     mode = resolve_mode(x, m, mode) if spec.supports_fused else "dequant"
@@ -92,12 +113,12 @@ def qmatmul(x: torch.Tensor, qt: QTensor, *, mode: str = "activations",
         if act:
             return spec.contract_int8(x, qt)
         return spec.contract(x, qt, mode=mode)
-    return qmatmul_kernel(x, qt, mode=mode, act_quant=act)
+    return qmatmul_kernel(x, qt, mode=mode, act_quant=act, cut_from=cut_from)
 
 
 def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
                    mode: str = "activations",
-                   act_quant: bool = False) -> torch.Tensor:
+                   act_quant: bool = False, cut_from=None) -> torch.Tensor:
     """Kernel-path ``x @ W_hat``:
 
     * ``act_quant``: rotate and int8-encode the rows in one launch (its
@@ -109,12 +130,13 @@ def qmatmul_kernel(x: torch.Tensor, qt: QTensor, *,
       tiled kernel."""
     lead = x.shape[:-1]
     x3 = x.reshape(1, -1, x.shape[-1])
-    return _contract(x3, qt, mode, act_quant, stacked=False).reshape(
-        *lead, qt.meta.n)
+    out = _contract(x3, qt, mode, act_quant, stacked=False,
+                    cut_from=cut_from)
+    return out.reshape(*lead, out.shape[-1])
 
 
 def _contract(x3: torch.Tensor, qt: QTensor, mode: str, act_quant: bool, *,
-              stacked: bool) -> torch.Tensor:
+              stacked: bool, cut_from=None) -> torch.Tensor:
     """The kernel path on ``x3 (E, rows, K)``: one matrix (E = 1, the
     wrappers given 2-D operands) or an expert stack (``stacked``, one
     expert-axis launch). Returns ``(E, rows, N)``, or ``(rows, N)`` for
@@ -137,13 +159,17 @@ def _contract(x3: torch.Tensor, qt: QTensor, mode: str, act_quant: bool, *,
     def operand(t):  # the wrappers' operand: (E, rows, ...) for a stack
         return t.reshape(e, rows, -1) if stacked else t
 
+    cut = None
+    if cut_from is not None:
+        cut = launch_cut(rows, d["plane2"].shape[-2], act_quant=act_quant,
+                         e=cut_from[0], n=cut_from[1])
     if act_quant:
         xq, xs = fwht_act_encode(x2.contiguous(), block=m.block,
                                  rotate=m.rotate, dsign=dsign)
         fn = itq3_matvec_int8 if small else itq3_matmul_int8
         return fn(operand(xq), operand(xs), d["plane2"], d["plane1"],
                   d["scales"], d["zps"], fivelevel=m.fivelevel,
-                  sub_blocks=m.sub_blocks)
+                  sub_blocks=m.sub_blocks, cut=cut)
     xp = pad_last_dim(x2, m.block)
     rotate_weights = rotate_x = False
     if m.rotate:
@@ -163,18 +189,19 @@ def _contract(x3: torch.Tensor, qt: QTensor, mode: str, act_quant: bool, *,
     xp = operand(xp).contiguous()
     planes = (d["plane2"], d["plane1"], d["scales"], d["zps"])
     kw = dict(rotate_weights=rotate_weights, fivelevel=m.fivelevel,
-              sub_blocks=m.sub_blocks)
+              sub_blocks=m.sub_blocks, cut=cut)
     return (itq3_matvec(xp, *planes, rotate_x=rotate_x, **kw) if small
             else itq3_matmul(xp, *planes, **kw))
 
 
 def qmatmul_experts(x: torch.Tensor, qt: QTensor, *,
                     mode: str = "activations", backend: str = "auto",
-                    act_quant: bool = False) -> torch.Tensor:
+                    act_quant: bool = False, cut_from=None) -> torch.Tensor:
     """Expert-batched ``x (E, M, K) @ W_hat_e (K, N) -> (E, M, N)`` in f32
     for a QTensor stacked ``(E, K, N)``. ``mode="auto"`` and the
     matvec/matmul choice look at one expert's M rows, as the reference's
-    vmapped ``qmatmul`` does."""
+    vmapped ``qmatmul`` does. ``cut_from``: the (E, N) of the unsharded
+    stack whose cut an expert-parallel shard takes."""
     m = qt.meta
     spec = _checked(x, qt, mode, backend)
     e = x.shape[0]
@@ -192,4 +219,4 @@ def qmatmul_experts(x: torch.Tensor, qt: QTensor, *,
             return (spec.contract_int8(x[i], qe) if act
                     else spec.contract(x[i], qe, mode=mode))
         return torch.stack([one(i) for i in range(e)])
-    return _contract(x, qt, mode, act, stacked=True)
+    return _contract(x, qt, mode, act, stacked=True, cut_from=cut_from)

@@ -346,13 +346,15 @@ def matvec_tiles(m: int, n: int, kb: int, e: int = 1) -> tuple[int, int]:
 
 def itq3_matvec(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
                 fivelevel: bool = False, sub_blocks: int = 0,
-                rotate_x: bool = False):
+                rotate_x: bool = False, cut=None):
     """Decode-shaped ``x (M <= 16, KB*256) @ W_hat -> (M, N)`` f32, cut by
     :func:`matvec_tiles`; or an expert stack, ``x (E, M, KB*256)`` against
     ``(E, ...)`` planes -> ``(E, M, N)``, in one launch. With ``rotate_x``
     x is taken unrotated (for quip3 already scaled by its sign diagonal)
     and its 256-point FWHT runs in the kernel; it excludes
-    ``rotate_weights``."""
+    ``rotate_weights``. ``cut`` (features, splits) overrides the rule's:
+    a tensor-parallel shard takes the cut of the unsharded launch, so its
+    columns add their K runs in the same order (``serve/tp.py``)."""
     if not 1 <= x.shape[-2] <= MATVEC_MAX_M:
         raise ValueError(f"matvec kernel is for 1 <= M <= {MATVEC_MAX_M}, "
                          f"got {x.shape[-2]}")
@@ -370,34 +372,38 @@ def itq3_matvec(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
     def extra(e, m, n, kb):
         if e > MAX_GRID_Y:
             raise ValueError(f"itq3_matvec: {e} experts > {MAX_GRID_Y}")
-        cut = matvec_tiles(m, n, kb, e)
-        window = matvec_window(m, kb, *cut)
+        c = tuple(cut) if cut is not None else matvec_tiles(m, n, kb, e)
+        window = matvec_window(m, kb, *c)
         if window < 1:
-            raise ValueError(f"itq3_matvec: cut {cut} leaves no room for x "
+            raise ValueError(f"itq3_matvec: cut {c} leaves no room for x "
                              f"(M={m}, KB={kb})")
-        return (*cut, window, int(rotate_x))
+        return (*c, window, int(rotate_x))
     return _launch("itq3_matvec", x, plane2, plane1, scales, zps,
                    rotate_weights, fivelevel, sub_blocks, extra)
 
 
 def itq3_matmul(x, plane2, plane1, scales, zps, *, rotate_weights: bool,
-                fivelevel: bool = False, sub_blocks: int = 0):
+                fivelevel: bool = False, sub_blocks: int = 0, cut=None):
     """Tiled ``x (M, KB*256) @ W_hat -> (M, N)`` f32 for any M >= 1 (the
     serving path sends it M > 16), cut by :func:`matmul_tiles`; or an
-    expert stack, ``x (E, M, KB*256)`` -> ``(E, M, N)``, in one launch."""
+    expert stack, ``x (E, M, KB*256)`` -> ``(E, M, N)``, in one launch.
+    ``cut`` (bm, splits) overrides the rule's, as :func:`itq3_matvec`'s
+    does."""
     if x.device.type == "cpu":
         _check("itq3_matmul", x, plane2, plane1, scales, zps, sub_blocks)
         return itq3_matmul_ref(x, plane2, plane1, scales, zps,
                                rotate_weights=rotate_weights,
                                fivelevel=fivelevel, sub_blocks=sub_blocks)
     return _launch("itq3_matmul", x, plane2, plane1, scales, zps,
-                   rotate_weights, fivelevel, sub_blocks, _matmul_cut)
+                   rotate_weights, fivelevel, sub_blocks,
+                   functools.partial(_matmul_cut, cut=cut))
 
 
-def _matmul_cut(e, m, n, kb):
-    """The tiled kernels' cut of an ``e``-expert launch, checked against
-    the grid's y limit."""
-    bm, splits = matmul_tiles(m, n, kb, e)
+def _matmul_cut(e, m, n, kb, cut=None):
+    """The tiled kernels' cut of an ``e``-expert launch (``cut`` when
+    given, else :func:`matmul_tiles`'s), checked against the grid's y
+    limit."""
+    bm, splits = tuple(cut) if cut is not None else matmul_tiles(m, n, kb, e)
     if e * -(-m // bm) > MAX_GRID_Y:
         raise ValueError(f"{e} experts x {-(-m // bm)} row tiles > "
                          f"{MAX_GRID_Y}")
@@ -541,12 +547,13 @@ def _launch_int8(name, xq, xscale, plane2, plane1, scales, zps, fivelevel,
 
 
 def itq3_matvec_int8(xq, xscale, plane2, plane1, scales, zps, *,
-                     fivelevel: bool = False, sub_blocks: int = 0):
+                     fivelevel: bool = False, sub_blocks: int = 0, cut=None):
     """Decode-shaped W3A8 ``xq (M <= 16, KB*256) int8 -> (M, N)`` f32, cut
     by :func:`matvec_int8_tiles`; or an expert stack (``xq (E, M, K)``,
     ``xscale (E, M, 1)``) -> ``(E, M, N)`` in one launch. The operands are
     checked before the device, so what the kernel cannot take is refused
-    on any device."""
+    on any device. ``cut`` (features, splits) overrides the rule's, as
+    :func:`itq3_matvec`'s does."""
     if not 1 <= xq.shape[-2] <= MATVEC_MAX_M:
         raise ValueError(f"matvec kernel is for 1 <= M <= {MATVEC_MAX_M}, "
                          f"got {xq.shape[-2]}")
@@ -559,7 +566,7 @@ def itq3_matvec_int8(xq, xscale, plane2, plane1, scales, zps, *,
         return itq3_matmul_int8_ref(xq, xscale, plane2, plane1, scales, zps,
                                     fivelevel=fivelevel,
                                     sub_blocks=sub_blocks)
-    cut = matvec_int8_tiles(m, n, kb, e)
+    cut = tuple(cut) if cut is not None else matvec_int8_tiles(m, n, kb, e)
     if _matvec_int8_smem(m, kb, *cut) > MATVEC_INT8_SMEM:
         raise ValueError(f"{name}: M*K = {m * kb * 256} codes exceed the "
                          f"block's shared memory")
@@ -568,10 +575,12 @@ def itq3_matvec_int8(xq, xscale, plane2, plane1, scales, zps, *,
 
 
 def itq3_matmul_int8(xq, xscale, plane2, plane1, scales, zps, *,
-                     fivelevel: bool = False, sub_blocks: int = 0):
+                     fivelevel: bool = False, sub_blocks: int = 0, cut=None):
     """Tiled W3A8 ``xq (M, KB*256) int8 -> (M, N)`` f32 for any M >= 1
     (the serving path sends it M > 16), cut by :func:`matmul_tiles`; or an
-    expert stack (``xq (E, M, K)``) -> ``(E, M, N)`` in one launch."""
+    expert stack (``xq (E, M, K)``) -> ``(E, M, N)`` in one launch.
+    ``cut`` (bm, splits) overrides the rule's, as :func:`itq3_matvec`'s
+    does."""
     name = "itq3_matmul_int8"
     e, m, n, kb = _check_int8(name, xq, xscale, plane2, plane1, scales, zps,
                               sub_blocks)
@@ -581,4 +590,4 @@ def itq3_matmul_int8(xq, xscale, plane2, plane1, scales, zps, *,
                                     sub_blocks=sub_blocks)
     return _launch_int8(name, xq, xscale, plane2, plane1, scales, zps,
                         fivelevel, sub_blocks, (m, n, kb),
-                        _matmul_cut(e, m, n, kb))
+                        _matmul_cut(e, m, n, kb, cut))

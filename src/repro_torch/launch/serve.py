@@ -51,6 +51,14 @@ token ids equal the non-speculative run's:
 
     ... --kv-quant --draft-depth 2 --num-draft-tokens 4
 
+Tensor-parallel serving over a ``DATA,MODEL`` mesh on ``torch.distributed``
+(one process per rank under torchrun; the packed planes column-sharded,
+MoE stacks expert-parallel, the KV cache head-sharded; ``--load-quantized``
+then restores each leaf straight into its shard; only rank 0 prints):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --kv-quant \
+        --mesh 1,2
+
 On a CUDA device every quantized projection, activation rotation, int8
 contraction and q8-cache attention runs on the hand-written kernels in
 ``csrc/``, and the quantizer's ``itq3_s`` blocks go through the
@@ -62,10 +70,13 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.checkpoint import ckpt as ckpt_mod
 from repro_torch.configs import (
@@ -172,8 +183,25 @@ def main(argv=None) -> None:
                     help="speculative window size K: draft proposes K "
                          "tokens per slot per step, one batched target "
                          "pass verifies all K+1 positions")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="tensor-parallel serving over a data,model mesh "
+                         "of torch.distributed ranks (run under torchrun "
+                         "--nproc-per-node MODEL; DATA must be 1): packed "
+                         "ITQ3_S planes column-sharded and the KV cache "
+                         "head-sharded over the model axis")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_host_mesh
+        d, m = (int(x) for x in args.mesh.split(","))
+        mesh = make_host_mesh(d, m, device=None if args.device == "cuda"
+                              else torch.device(args.device))
+        if mesh.rank:  # only rank 0 prints
+            sys.stdout = open(os.devnull, "w")
+        print(f"serving mesh: {mesh.shape} ({mesh.size} ranks, "
+              f"{mesh.device.type})")
+    device = mesh.device if mesh is not None else args.device
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -197,24 +225,25 @@ def main(argv=None) -> None:
         slots=args.slots, max_len=args.max_len,
         rt=Runtime(quant_mode=args.quant_mode, kv_quant=args.kv_quant,
                    act_quant=args.act_quant),
-        device=args.device, sample_on_host=args.sample_on_host,
+        device=device, sample_on_host=args.sample_on_host,
         scheduler=args.scheduler, max_queue=args.max_queue,
         shed_policy=args.shed_policy,
         watchdog_timeout_s=args.watchdog_timeout_s, faults=faults,
         paged=args.paged, num_blocks=args.num_blocks,
-        block_size=args.block_size, num_draft_tokens=args.num_draft_tokens)
+        block_size=args.block_size, num_draft_tokens=args.num_draft_tokens,
+        mesh=mesh)
     if args.load_quantized:
         t0 = time.perf_counter()
         eng = ServeEngine.from_checkpoint(args.load_quantized, cfg,
                                           draft_depth=args.draft_depth,
-                                          **engine_kw)
+                                          **engine_kw)  # mesh: sharded
         step = ckpt_mod.latest_step(args.load_quantized)
         print(f"loaded quantized step-{step} tree from {args.load_quantized} "
               f"in {time.perf_counter() - t0:.1f}s "
               f"({quantized_bytes(eng.params) / 1e6:.1f}MB) with "
               f"ServeEngine.from_checkpoint")
     else:
-        params = lm.init_params(cfg, seed=0, device=args.device)
+        params = lm.init_params(cfg, seed=0, device=device)
         fp_bytes = sum(leaf.numel() * 2 for leaf in _leaves(params))
         t0 = time.perf_counter()
         if args.policy:
@@ -228,7 +257,7 @@ def main(argv=None) -> None:
         print(f"quantized in {time.perf_counter() - t0:.1f}s: "
               f"{qb / 1e6:.1f}MB vs bf16 {fp_bytes / 1e6:.1f}MB "
               f"({fp_bytes / max(qb, 1):.2f}x smaller)")
-        if args.save_quantized:
+        if args.save_quantized and (mesh is None or mesh.rank == 0):
             path = ckpt_mod.save(args.save_quantized, 0, params)
             print(f"saved quantized tree to {path}")
         eng = ServeEngine(params, cfg, **engine_kw,
@@ -271,13 +300,13 @@ def main(argv=None) -> None:
         done = reqs
     else:
         done = eng.run(reqs)
-    if args.device != "cpu":
+    if eng.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     st = eng.stats()
     total = sum(len(r.out) for r in done)
     print(f"served {len(done)} requests / {total} tokens in {dt:.2f}s on "
-          f"{args.device} ({st['syncs_per_token']:.2f} host syncs/token, "
+          f"{device} ({st['syncs_per_token']:.2f} host syncs/token, "
           f"scheduler={st['scheduler']}, "
           f"cache {st['cache_bytes'] / 1e6:.1f} MB, "
           f"{st['cache_bytes_per_token']:.0f} B/token)")
@@ -299,8 +328,14 @@ def main(argv=None) -> None:
               f"finish reasons {dict(reasons)}")
         if faults is not None:
             print(f"fault log: {faults.log}")
+    if mesh is not None:
+        print(f"tensor-parallel: {st['devices']} ranks, "
+              f"{st['cache_bytes_per_device'] / 1e6:.2f} MB of cache per "
+              f"rank")
     for r in done[:3]:
         print(f"  rid={r.rid} -> {r.out[:10]}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 def _draft_kw(params, cfg, depth: int) -> dict:

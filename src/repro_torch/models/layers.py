@@ -17,6 +17,12 @@ Compute is float32 throughout, as the reference serving runtime is.
 The MLP serves the reference's three activations (swiglu, gelu in its
 tanh form, relu2) and norms both kinds (rmsnorm, layernorm with a bias);
 the MoE block is ``models/moe.py``.
+
+Under tensor-parallel serving (``Runtime.rules``, set by the engine from
+its mesh; ``serve/tp.py``) :func:`dense` runs a placed QTensor column-
+parallel, and :func:`attention_apply` attends this rank's KV heads against
+its head-sharded cache, then gathers the heads: every rank leaves each
+block holding the whole activations.
 """
 from __future__ import annotations
 
@@ -53,11 +59,19 @@ class Runtime:
     act_quant: bool = False
     capacity_factor: float = 1.25  # MoE expert capacity factor
     rwkv_mode: str = "chunked"  # RWKV6 prefill: chunked | scan (stepwise)
+    # tensor-parallel serving (serve/tp.py): the serving Rules, whose mesh
+    # is this rank's view of the process group; None on one device
+    rules: Any = None
 
 
 def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:
-    """``x @ w (+ bias)`` with QTensor dispatch (the quantization seam)."""
-    if isinstance(w, QTensor):
+    """``x @ w (+ bias)`` with QTensor dispatch (the quantization seam);
+    under ``rt.rules`` a QTensor runs column-parallel."""
+    if isinstance(w, QTensor) and rt.rules is not None:
+        from repro_torch.serve import tp as tp_mod  # layers <-> serve
+        y = tp_mod.tp_qmatmul(x, w, rt.rules, mode=rt.quant_mode,
+                              backend=rt.backend, act_quant=rt.act_quant)
+    elif isinstance(w, QTensor):
         y = qmatmul(x, w, mode=rt.quant_mode, backend=rt.backend,
                     act_quant=rt.act_quant)
     else:
@@ -241,6 +255,12 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
 
     quant_cache = cache is not None and "k_scale" in cache
     out_cache = None
+    tp_mod, heads = _tp_heads(rt, kvh, cache)
+    if heads is not None:
+        # the cache holds this rank's KV heads alone: K/V are encoded and
+        # written for them only; the outputs' heads are gathered below
+        k, v = k[:, heads].contiguous(), v[:, heads].contiguous()
+    ql = q if heads is None else q[:, heads].contiguous()
     if cache is None:
         out = _sdpa(q, k, v, causal=causal, q_offset=pos_vec, kv_len=None)
     elif t == 1 and token_cache:
@@ -248,35 +268,66 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
             # the token goes through the codec here, so its self term sees
             # exactly the values every later step reads back from the cache
             (kq, ks), (vq, vs) = kv_encode_pair(k, v, backend=rt.backend)
-            out = decode_attn_q8(q, cache, (kq, ks), (vq, vs), pos_vec,
-                                 backend=rt.backend)
+            out = _decode_q8(tp_mod, q, cache, (kq, ks), (vq, vs), pos_vec,
+                             rt)
             out_cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
-            out = _sdpa_decode_token(q, cache["k"], cache["v"], k, v,
-                                     kv_len=pos_vec)
+            out = _gathered(tp_mod, _sdpa_decode_token(
+                ql, cache["k"], cache["v"], k, v, kv_len=pos_vec), heads, rt)
             out_cache = {"k": k, "v": v}
     elif quant_cache:
         (kq, ks), (vq, vs) = kv_encode_pair(k, v, backend=rt.backend)
         if t == 1:
             # single-token decode without the token write-back: attend the
             # pre-write cache plus the encoded self term, then write
-            out = decode_attn_q8(q, cache, (kq, ks), (vq, vs), pos_vec,
-                                 backend=rt.backend)
+            out = _decode_q8(tp_mod, q, cache, (kq, ks), (vq, vs), pos_vec,
+                             rt)
             _write_span(cache, {"k": kq, "v": vq, "k_scale": ks,
                                 "v_scale": vs}, pos_vec, t)
         else:
             _write_span(cache, {"k": kq, "v": vq, "k_scale": ks,
                                 "v_scale": vs}, pos_vec, t)
-            out = prefill_attn_q8(q, cache, pos_vec + t, pos_vec,
-                                  backend=rt.backend)
+            if tp_mod is not None:
+                out = tp_mod.tp_prefill_attn_q8(q, cache, pos_vec + t,
+                                                pos_vec, rt.rules,
+                                                backend=rt.backend)
+            else:
+                out = prefill_attn_q8(q, cache, pos_vec + t, pos_vec,
+                                      backend=rt.backend)
         out_cache = cache
     else:
         _write_span(cache, {"k": k, "v": v}, pos_vec, t)
-        out = _sdpa(q, cache["k"], cache["v"], causal=t > 1,
-                    q_offset=pos_vec, kv_len=pos_vec + t)
+        out = _gathered(tp_mod, _sdpa(ql, cache["k"], cache["v"],
+                                      causal=t > 1, q_offset=pos_vec,
+                                      kv_len=pos_vec + t), heads, rt)
         out_cache = cache
     out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
     return dense(out, p["wo"], rt), out_cache
+
+
+def _tp_heads(rt: Runtime, kvh: int, cache):
+    """(the tp module, this rank's KV heads) against a head-sharded
+    cache; (tp, None) under a replicated one; (None, None) without a
+    mesh."""
+    if rt.rules is None:
+        return None, None
+    from repro_torch.serve import tp as tp_mod  # layers <-> serve
+    if cache is None:
+        return tp_mod, None
+    return tp_mod, tp_mod.head_slice(kvh, rt.rules)
+
+
+def _gathered(tp_mod, out: torch.Tensor, heads, rt: Runtime):
+    """``out`` (B, KV/m, ...) of this rank's heads -> every head."""
+    return out if heads is None else tp_mod.gather_heads(out, rt.rules)
+
+
+def _decode_q8(tp_mod, q, cache, k_tok, v_tok, kv_len, rt: Runtime):
+    """Decode attention on the q8 cache, head-sharded under a mesh."""
+    if tp_mod is not None:
+        return tp_mod.tp_decode_attn_q8(q, cache, k_tok, v_tok, kv_len,
+                                        rt.rules, backend=rt.backend)
+    return decode_attn_q8(q, cache, k_tok, v_tok, kv_len, backend=rt.backend)
 
 
 def _cross_attention(p: Params, q: torch.Tensor, rt: Runtime, cfg, *,
@@ -288,6 +339,9 @@ def _cross_attention(p: Params, q: torch.Tensor, rt: Runtime, cfg, *,
     hd = cfg.resolved_head_dim
     q = q.reshape(b, t, h, hd).transpose(1, 2).reshape(b, kvh, h // kvh, t,
                                                        hd)
+    tp_mod, heads = _tp_heads(rt, kvh, cache)
+    if heads is not None:
+        q = q[:, heads]
     if memory is not None:
         s = memory.shape[1]
         if cache is not None and cache["k"].shape[2] != s:
@@ -296,6 +350,8 @@ def _cross_attention(p: Params, q: torch.Tensor, rt: Runtime, cfg, *,
                 f"of {cache['k'].shape[2]} (the config's frontend_len)")
         k = dense(memory, p["wk"], rt).reshape(b, s, kvh, hd).transpose(1, 2)
         v = dense(memory, p["wv"], rt).reshape(b, s, kvh, hd).transpose(1, 2)
+        if heads is not None:
+            k, v = k[:, heads], v[:, heads]
         if cache is not None:
             cache["k"].copy_(k)
             cache["v"].copy_(v)
@@ -303,6 +359,7 @@ def _cross_attention(p: Params, q: torch.Tensor, rt: Runtime, cfg, *,
         if cache is None:
             raise ValueError("cross-attention decode needs cached memory K/V")
         k, v = (cache[n].to(torch.float32) for n in ("k", "v"))
-    out = _sdpa(q, k, v, causal=False, q_offset=None, kv_len=None)
+    out = _gathered(tp_mod, _sdpa(q, k, v, causal=False, q_offset=None,
+                                  kv_len=None), heads, rt)
     out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
     return dense(out, p["wo"], rt), cache

@@ -538,17 +538,32 @@ def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
     return x, cache
 
 
-def _embed(params, tokens):
+def _tp(rt):
+    """``serve/tp.py`` under tensor-parallel serving, else None."""
+    if rt is None or rt.rules is None:
+        return None
+    from repro_torch.serve import tp as tp_mod  # lm <-> serve
+    return tp_mod
+
+
+def _embed(params, tokens, rt=None, cfg=None):
+    """The token rows of the embedding table. Under tensor-parallel
+    serving a float table holds this rank's D columns: each rank gathers
+    its columns of the rows, then one all-gather along D."""
     table = params["embed"]
+    tokens = tokens.to(torch.int64)
+    tp_mod = _tp(rt)
     if isinstance(table, QTensor):
         # a policy quantized the tied table: stored transposed (D, V),
         # blocked along D, so the tied head contracts it directly; the
         # gather reconstructs the table first, O(D*V) work per call, the
         # price of keeping only the packed table resident
-        emb = formats.dequantize(table).T
-    else:
-        emb = table.to(torch.float32)
-    return emb[tokens.to(torch.int64)]
+        if tp_mod is not None:
+            table = tp_mod.full_table(table, cfg, rt.rules)
+        return formats.dequantize(table).T[tokens]
+    if tp_mod is not None:
+        return tp_mod.embed_rows(table, tokens, cfg, rt.rules)
+    return table.to(torch.float32)[tokens]
 
 
 def _head(params, x, rt, cfg):
@@ -557,6 +572,12 @@ def _head(params, x, rt, cfg):
     if w is None:
         w = params["embed"]
         if not isinstance(w, QTensor):  # a QTensor table is stored (D, V)
+            tp_mod = _tp(rt)
+            if tp_mod is not None:
+                # a D-sharded table gathered whole: the tied head's product
+                # then runs on every rank as on one device (a contraction
+                # over sharded D would need a float reduction)
+                w = tp_mod.full_table(w, cfg, rt.rules)
             w = w.T  # tied head: a plain f32 product
     return dense(x, w, rt)
 
@@ -591,7 +612,7 @@ def forward(params: Params, tokens, rt: Runtime, cfg, *,
     audio model needs them: the encoder's memory is what every decoder
     layer cross-attends (written into the cache's ``xattn`` leaves)."""
     tokens = _tokens(tokens, params)
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, rt, cfg)
     memory, prefix = None, 0
     if frontend_feats is not None:
         feats = torch.as_tensor(frontend_feats, device=x.device).to(
@@ -630,7 +651,7 @@ def score_tokens(params: Params, tokens, cache: Params, pos, rt: Runtime,
     ``kv_quant`` the span runs one ``prefill_attn_q8`` per layer. Returns
     (logits (B, T, V), cache)."""
     tokens = _tokens(tokens, params)
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, rt, cfg)
     x, cache = _run_decoder(params, x, rt, cfg, cache=cache, pos=pos)
     return _head(params, x, rt, cfg), cache
 
@@ -642,7 +663,7 @@ def advance_cache(params: Params, tokens, cache: Params, pos, rt: Runtime,
     window leaves no hole) and its admission prefill. Returns the
     cache."""
     tokens = _tokens(tokens, params)
-    _, cache = _run_decoder(params, _embed(params, tokens), rt, cfg,
+    _, cache = _run_decoder(params, _embed(params, tokens, rt, cfg), rt, cfg,
                             cache=cache, pos=pos)
     return cache
 

@@ -1,6 +1,6 @@
 """Mixture-of-Experts block (port of ``repro/models/moe.py``: the top-k
-router, per-row sort dispatch into capacity buffers, the expert FFN and
-the combine; not the expert-parallel shard-map combine).
+router, per-row sort dispatch into capacity buffers, the expert FFN, the
+combine, and its expert-parallel form).
 
 Per batch row, the T*k routed assignments are stably sorted by expert id;
 an assignment's rank within its expert is its sorted position less the
@@ -22,6 +22,19 @@ reference's does.
 Every shape is static (the capacity follows from T alone): no host sync,
 no boolean-mask indexing. ``top-k`` is a stable descending sort, so a tie
 takes the lower expert id first, as ``lax.top_k`` does.
+
+**Expert parallelism** (tensor-parallel serving, ``serve/tp.py``): with
+the expert stacks' planes placed E/m per rank, the router and the
+dispatch run whole and identically on every rank, and each rank runs the
+expert-batched kernels on its own E/m experts' buffers only, under the
+cut of the whole stack's launch (``cut_from``). The combine stays exact:
+each rank fills the (B, T, k, D) rows of the assignments its experts own
+(zeros elsewhere), one all-gather brings them together, and every rank
+SELECTS each assignment's row from the rank that owns it, never adding;
+then the ascending-order sum above runs as on one device. The reference
+instead combines inside a ``shard_map`` with a ``psum`` at (T, D) width:
+a cross-device float reduction, whose order would break bit-identity with
+the single-device engine. The gather here is (T·k, D) wide per row.
 """
 from __future__ import annotations
 
@@ -85,19 +98,58 @@ def dispatch(idx: torch.Tensor, cap: int) -> Dispatch:
                     torch.clamp(rank, max=cap - 1))
 
 
-def _edense(x: torch.Tensor, w, rt: Runtime) -> torch.Tensor:
+def _edense(x: torch.Tensor, w, rt: Runtime, cut_from=None) -> torch.Tensor:
     """Per-expert dense: x (E, M, D) @ w (E, D, F) -> (E, M, F)."""
     if isinstance(w, QTensor):
-        return qmatmul_experts(x, w, mode=rt.quant_mode, backend=rt.backend,
-                               act_quant=rt.act_quant)
+        return qmatmul_experts(
+            x, w, mode=rt.quant_mode, backend=rt.backend,
+            act_quant=rt.act_quant,
+            cut_from=None if cut_from is None else (cut_from, w.meta.n))
     return torch.bmm(x.to(torch.float32), w.to(torch.float32))
 
 
-def _expert_ffn(p: Params, x: torch.Tensor, rt: Runtime,
-                activation: str) -> torch.Tensor:
-    gate = _edense(x, p["gate"], rt) if activation == "swiglu" else None
-    return _edense(activate(activation, _edense(x, p["up"], rt), gate),
-                   p["down"], rt)
+def _experts_held(w) -> int:
+    """Experts whose weights this rank holds for a stack (E/m for a
+    stack placed expert-parallel)."""
+    if isinstance(w, QTensor):
+        return next(v for k, v in w.data.items() if k != "dsign").shape[0]
+    return w.shape[0]
+
+
+def _expert_slice(w, lo: int, n: int):
+    """Experts ``lo .. lo+n`` of a whole stack (views), or the stack
+    itself when it holds just those."""
+    if _experts_held(w) == n:
+        return w
+    if isinstance(w, QTensor):
+        return QTensor({k: v if k == "dsign" and v.dim() == 1
+                        else v[lo:lo + n] for k, v in w.data.items()},
+                       w.meta)
+    return w[lo:lo + n]
+
+
+def _expert_ffn(p: Params, x: torch.Tensor, rt: Runtime, activation: str,
+                lo: int = 0, e_full=None) -> torch.Tensor:
+    """The FFN over the experts of ``x`` (E', M, D); ``lo``: the first of
+    them (a rank's shard), ``e_full`` the whole stack's E when it is one."""
+    e = x.shape[0]
+    ws = {k: _expert_slice(p[k], lo, e) for k in ("gate", "up", "down")
+          if k in p}
+    gate = (_edense(x, ws["gate"], rt, e_full) if activation == "swiglu"
+            else None)
+    return _edense(activate(activation, _edense(x, ws["up"], rt, e_full),
+                            gate), ws["down"], rt, e_full)
+
+
+def _expert_shard(p: Params, rt: Runtime, e: int):
+    """(first expert, experts) of this rank's expert-parallel shard, or
+    None when every rank holds the whole stacks."""
+    if rt.rules is None:
+        return None
+    held = min(_experts_held(p[k]) for k in ("gate", "up", "down") if k in p)
+    if held == e:
+        return None
+    return rt.rules.mesh.rank * held, held
 
 
 def moe_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg):
@@ -123,8 +175,15 @@ def moe_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg):
     buf = x.new_zeros((trash + 1, d))
     buf[torch.where(dsp.keep, slot, trash).reshape(-1)] = x[
         rows, dsp.order // k].reshape(-1, d)
-    out_buf = _expert_ffn(p, buf[:trash].view(e, b * cap, d), rt,
-                          cfg.activation).reshape(trash, d)
+    shard = _expert_shard(p, rt, e)
+    if shard is None:
+        out_buf = _expert_ffn(p, buf[:trash].view(e, b * cap, d), rt,
+                              cfg.activation).reshape(trash, d)
+    else:
+        lo, held = shard
+        out_loc = _expert_ffn(p, buf[:trash].view(e, b * cap, d)[lo:lo + held],
+                              rt, cfg.activation, lo, e_full=e)
+        out_loc = out_loc.reshape(held * b * cap, d)
 
     # back to each token's k assignments, in ascending expert id
     gat = torch.gather(gates.reshape(b, t * k), 1, dsp.order)
@@ -134,8 +193,33 @@ def moe_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg):
     asc = torch.sort(idx, dim=-1).indices  # a token's experts are distinct
     slot_tok = torch.gather(slot_tok.view(b, t, k), 2, asc)
     w_tok = torch.gather(w_tok.view(b, t, k), 2, asc)
-    vals = out_buf[slot_tok] * w_tok[..., None]  # (B, T, k, D)
+    if shard is None:
+        rows_tok = out_buf[slot_tok]  # (B, T, k, D)
+    else:
+        rows_tok = _ep_select(out_loc, slot_tok, shard[1] * b * cap, rt)
+    vals = rows_tok * w_tok[..., None]
     out = torch.zeros((b, t, d), dtype=torch.float32, device=x.device)
     for j in range(k):
         out = out + vals[:, :, j]
     return out, aux
+
+
+def _ep_select(out_loc: torch.Tensor, slot_tok: torch.Tensor, per: int,
+               rt: Runtime) -> torch.Tensor:
+    """The expert-parallel combine's exchange: ``out_loc`` (per, D) holds
+    this rank's experts' buffer rows (``per`` of them, the rank's block of
+    the whole (E*B*cap, D) buffer). Each rank fills the (B, T, k, D) rows
+    of the assignments it owns, zeros elsewhere; one all-gather; every
+    rank selects each assignment's row from its owner's block: the rows
+    of the single-device buffer, bit for bit."""
+    from repro_torch.serve import tp as tp_mod  # moe <-> serve
+
+    mesh = rt.rules.mesh
+    local = slot_tok - mesh.rank * per
+    mine = (local >= 0) & (local < per)
+    rows = torch.where(mine[..., None], out_loc[torch.clamp(local, 0,
+                                                            per - 1)], 0.0)
+    every = tp_mod.all_gather(rows[None], 0, mesh)  # (m, B, T, k, D)
+    owner = (slot_tok // per)[None, ..., None].expand(
+        1, *rows.shape)
+    return torch.gather(every, 0, owner)[0]

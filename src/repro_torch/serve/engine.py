@@ -99,8 +99,20 @@ like any other, and its first admission raises the model's "seamless
 needs encoder frames" (``lm.forward`` without frames), where the
 reference's does.
 
-Tensor-parallel meshes (``mesh``) land with a later slice and raise
-``NotImplementedError``.
+Tensor-parallel serving (``mesh``, ``serve/tp.py``; one process per rank
+on ``torch.distributed``, every rank running this engine on the same
+requests): the params are placed column-sharded (and the MoE stacks
+expert-parallel), the caches head-sharded from their allocation (the
+per-wave prefill sub-cache and the draft's too), and ``rt`` carries the
+serving rules, so each projection and attention runs the card's kernels
+on this rank's shard and gathers the result. Logits come out whole and
+identical on every rank, so every rank samples the same tokens and keeps
+the same slot state. The engine's clock is rank 0's
+(:class:`~repro_torch.serve.tp.LockstepClock`): it is read once per tick
+and broadcast, so deadlines, the watchdog, queue shedding and faults are
+decided on the same time, in the same order, on every rank; with no mesh
+the engine reads its clock as before. ``from_checkpoint(mesh=...)``
+restores each leaf straight into this rank's shard.
 """
 from __future__ import annotations
 
@@ -129,7 +141,6 @@ __all__ = ["Request", "ServeEngine", "SamplingParams", "StreamEvent"]
 # In-band numeric-health sentinel (token ids are always >= 0).
 _POISONED = -1
 
-_LATER = {"mesh": "the tensor-parallel slice (ROADMAP Queue 1 item 7)"}
 _RECURRENT = ("ssm", "hybrid")
 
 
@@ -193,9 +204,9 @@ class ServeEngine:
                  paged: bool = False, num_blocks: Optional[int] = None,
                  block_size: int = 16, draft_params=None, draft_cfg=None,
                  draft_rt: Optional[Runtime] = None,
-                 num_draft_tokens: int = 4, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: lands with {_LATER['mesh']}")
+                 num_draft_tokens: int = 4, mesh=None,
+                 tp_shard_map: Optional[bool] = None,
+                 params_placed: bool = False):
         # --- speculative decoding (serve/spec.py), refused as the
         # reference refuses it ---
         self.spec = draft_params is not None
@@ -227,13 +238,36 @@ class ServeEngine:
         # tolerances, which TF32's ~3 significant digits would break.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.rt = rt or Runtime()
+        self.mesh = mesh
+        if mesh is not None:
+            # tensor-parallel serving (serve/tp.py): the serving rules in
+            # the Runtime, this rank's shards of the params (unless a
+            # restore-to-sharding already placed them) on the mesh device
+            from repro_torch.launch.mesh import check_serving_mesh
+            from repro_torch.serve import tp as tp_mod
+            check_serving_mesh(mesh)
+            if tp_shard_map is False:
+                raise ValueError(
+                    "tp_shard_map=False is the reference's GSPMD form, "
+                    "which PyTorch has no counterpart of: the port runs "
+                    "the kernels on explicit shards")
+            device = mesh.device
+            rules = tp_mod.serve_rules(mesh, cfg)
+            self.rt = dataclasses.replace(self.rt, rules=rules)
+            if not params_placed:
+                params = tp_mod.shard_params(params, cfg, rules)
+            if self.spec:
+                draft_params, draft_rt = tp_mod.place_draft(
+                    draft_params, draft_cfg, mesh,
+                    draft_rt or dataclasses.replace(self.rt, rules=None),
+                    placed=params_placed)
         self.device = torch.device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.params = params
         self.cfg = cfg
-        self.rt = rt or Runtime()
         self._spec_k = int(num_draft_tokens) if self.spec else 0
         self.draft_cfg = draft_cfg
         self.draft_params = draft_params if self.spec else None
@@ -258,6 +292,8 @@ class ServeEngine:
         if clock is None and faults is not None:
             clock = getattr(faults, "clock", None)  # deterministic test time
         self._clock = clock or time.perf_counter
+        if mesh is not None:
+            self._clock = tp_mod.LockstepClock(self._clock, mesh)
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if shed_policy not in ("reject", "shed_lowest"):
@@ -292,19 +328,16 @@ class ServeEngine:
             self.pool = paged_mod.BlockPool(self.num_blocks, self.block_size)
             self._table = np.zeros((slots, self._maxb), np.int32)
             self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
-            self.cache = paged_mod.init_paged_cache(
-                cfg, self.num_blocks, self.block_size, device=self.device)
+            self.cache = self._placed(lambda dev: paged_mod.init_paged_cache(
+                cfg, self.num_blocks, self.block_size, device=dev), cfg,
+                self.rt)
         else:
             self.block_size = self.num_blocks = self.pool = None
-            self.cache = lm.init_cache(cfg, slots, self._cache_len,
-                                       kv_quant=self.rt.kv_quant,
-                                       device=self.device)
+            self.cache = self._new_cache(cfg, slots, self.rt)
         # the draft's own cache: always dense (the draft is small), with the
         # same horizon, so a fully accepted window's last proposal is cached
-        self.draft_cache = (lm.init_cache(
-            draft_cfg, slots, self._cache_len,
-            kv_quant=self.draft_rt.kv_quant, device=self.device)
-            if self.spec else None)
+        self.draft_cache = (self._new_cache(draft_cfg, slots, self.draft_rt)
+                            if self.spec else None)
         # rid -> swap entry of a request preempted mid-flight
         self._swapped: dict[int, dict] = {}
         self.pos = np.zeros(slots, dtype=np.int32)  # next write index per slot
@@ -351,6 +384,22 @@ class ServeEngine:
             if set_cost is not None:
                 set_cost(self._admission_cost)
 
+    def _placed(self, build, cfg, rt: Runtime) -> dict:
+        """A zeroed cache from ``build(device)``: on this engine's device,
+        or, under a mesh, only this rank's slices of it (built whole on
+        the ``meta`` device first, so nothing whole is allocated)."""
+        if rt.rules is None:
+            return build(self.device)
+        from repro_torch.serve import tp as tp_mod
+        return tp_mod.init_cache(build("meta"), cfg, rt.rules)
+
+    def _new_cache(self, cfg, batch: int, rt: Runtime) -> dict:
+        """A zeroed dense cache of ``batch`` slots over the engine's
+        horizon, for ``cfg`` under ``rt``."""
+        return self._placed(lambda dev: lm.init_cache(
+            cfg, batch, self._cache_len, kv_quant=rt.kv_quant, device=dev),
+            cfg, rt)
+
     @property
     def temperature(self) -> float:
         """The engine-default temperature; setting it changes the default
@@ -372,17 +421,30 @@ class ServeEngine:
         Algorithm 1. With ``draft_depth`` > 0 the engine speculates, its
         draft the ``draft_depth``-layer prefix of the restored tree
         (:func:`serve.spec.draft_from_params`; the launcher's
-        ``--draft-depth``)."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: lands with {_LATER['mesh']}")
+        ``--draft-depth``).
+
+        With ``mesh``, each leaf goes into this rank's serving shard AS IT
+        LOADS (restore-to-sharding, :func:`serve.tp.restore_shardings`):
+        each packed plane's local rows are read off a memory-mapped file
+        and sent to ``mesh.device``, so the whole plane set is never one
+        tensor anywhere."""
         from repro_torch.checkpoint import ckpt as ckpt_mod
 
+        shardings = None
+        if mesh is not None:
+            from repro_torch.launch.mesh import check_serving_mesh
+            from repro_torch.serve import tp as tp_mod
+            check_serving_mesh(mesh)
+            shardings = tp_mod.restore_shardings(cfg, mesh)
+            device = mesh.device
+            kw["params_placed"] = True
         params, _ = ckpt_mod.restore_params(ckpt_dir, step=step,
-                                            device=device)
+                                            device=device,
+                                            shardings=shardings)
         if draft_depth:
             kw["draft_params"], kw["draft_cfg"] = spec_mod.draft_from_params(
                 params, cfg, draft_depth)
-        return cls(params, cfg, device=device, **kw)
+        return cls(params, cfg, device=device, mesh=mesh, **kw)
 
     # --- request lifecycle ------------------------------------------------
     def _spec_k_for(self, req: Request) -> int:
@@ -596,6 +658,15 @@ class ServeEngine:
         return requests
 
     def _tick(self) -> list[StreamEvent]:
+        if self.mesh is None:
+            return self._tick_body()
+        self._clock.begin_tick()  # rank 0's time, one broadcast per tick
+        try:
+            return self._tick_body()
+        finally:
+            self._clock.end_tick()
+
+    def _tick_body(self) -> list[StreamEvent]:
         events = self._pending_events
         self._pending_events = []
         events += self._expire_live()
@@ -791,17 +862,15 @@ class ServeEngine:
                                           "table": table},
                                    pos=0, last_idx=last_idx)
         else:
-            sub = lm.init_cache(self.cfg, len(group), self._cache_len,
-                                kv_quant=self.rt.kv_quant, device=self.device)
+            sub = self._new_cache(self.cfg, len(group), self.rt)
             logits, sub = lm.forward(self.params, toks, self.rt, self.cfg,
                                      cache=sub, pos=0, last_idx=last_idx)
             _copy_slots(self.cache, sub, free)
         if self.spec:
             # the draft takes the same padded bucket; its pad writes sit
             # behind the kv_len mask like the target's
-            dsub = lm.init_cache(self.draft_cfg, len(group), self._cache_len,
-                                 kv_quant=self.draft_rt.kv_quant,
-                                 device=self.device)
+            dsub = self._new_cache(self.draft_cfg, len(group),
+                                   self.draft_rt)
             _copy_slots(self.draft_cache, lm.advance_cache(
                 self.draft_params, toks, dsub, 0, self.draft_rt,
                 self.draft_cfg), free)
@@ -1195,8 +1264,23 @@ class ServeEngine:
     @property
     def cache_bytes(self) -> int:
         """Bytes of every cache leaf: the attention planes and the
-        recurrent state."""
-        return _tree_bytes(self.cache)
+        recurrent state (under a mesh, of the whole cache: every rank's
+        heads)."""
+        return self._whole_bytes(self.cache, self.cfg, self.rt)
+
+    def _whole_bytes(self, tree: dict, cfg, rt: Runtime) -> int:
+        """Bytes of ``tree`` (a cache of ``cfg`` under ``rt``) as one
+        device would hold it: a head-sharded cache's attention planes
+        count every rank's heads."""
+        n = _tree_bytes(tree)
+        if rt.rules is None:
+            return n
+        from repro_torch.serve import tp as tp_mod
+        if tp_mod.head_slice(cfg.num_kv_heads, rt.rules) is None:
+            return n
+        planes = sum(_tree_bytes(tree[k]) for k in ("attn", "xattn")
+                     if k in tree)
+        return n + planes * (rt.rules.mesh.size - 1)
 
     def stats(self) -> dict:
         """Counters for tests and ``chip_smoke.py``. Times are host wall
@@ -1211,7 +1295,8 @@ class ServeEngine:
         request's ladder (recurrent families, whose ``prefill_chunks``
         counts the ladder's calls)."""
         attn = self.cache.get("attn", {})
-        attn_bytes = _tree_bytes(attn)
+        attn_bytes = (self._whole_bytes({"attn": attn}, self.cfg, self.rt)
+                      if attn else 0)
         if self.paged:
             n_tokens_cap = self.num_blocks * self.block_size
         else:
@@ -1268,7 +1353,8 @@ class ServeEngine:
                                  if self.draft_proposed else float("nan")),
                 tokens_per_step=(self.tokens_decoded / self.decode_steps
                                  if self.decode_steps else float("nan")),
-                draft_cache_bytes=_tree_bytes(self.draft_cache),
+                draft_cache_bytes=self._whole_bytes(
+                    self.draft_cache, self.draft_cfg, self.draft_rt),
             )
         if self.paged:
             out.update(
@@ -1281,6 +1367,12 @@ class ServeEngine:
                 pool_exhausted=self.pool_exhausted,
                 prefix_hits=self.pool.prefix_hits,
             )
+        if self.mesh is not None:
+            from repro_torch.serve import tp as tp_mod
+            out["devices"] = self.mesh.size
+            out["cache_bytes_per_device"] = tp_mod.cache_bytes_per_device(
+                self.cache)
+            out["tp_shard_map"] = True  # the one form: explicit shards
         return out
 
 

@@ -8,6 +8,8 @@ poisoned slot, cancellation, malformed requests and the later-slice
 options refusing loudly (the paged cache and preemption are in
 ``test_torch_paged.py``).
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,8 +116,10 @@ def test_malformed_request_and_later_slices_refuse():
     # config is refused as the reference refuses it
     with pytest.raises(ValueError, match="draft_cfg"):
         _port_engine(draft_params={"x": 1})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _port_engine(mesh=1)
+    # tensor-parallel meshes are served since their slice: a multi-way
+    # data axis is refused in the reference's words
+    with pytest.raises(ValueError, match="trivial 'data'"):
+        _port_engine(mesh=SimpleNamespace(shape={"data": 2, "model": 1}))
 
 
 def test_cli_serves_a_port_quantized_model_on_cpu(capsys):

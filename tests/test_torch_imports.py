@@ -38,6 +38,30 @@ def test_port_modules_and_chip_smoke_import_without_jax():
     assert int(out.stdout.split()[-1]) >= 20  # every module was imported
 
 
+TP_MODULES = ("repro_torch.serve.tp", "repro_torch.sharding.rules",
+              "repro_torch.launch.mesh")
+
+
+@pytest.mark.parametrize("module", TP_MODULES)
+def test_tensor_parallel_modules_import_without_jax(module):
+    """The tensor-parallel slice's modules import with JAX unavailable,
+    load nothing of ``repro`` and join no process group at import."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.path[:0] = [{str(ROOT / "src")!r}]
+        importlib.import_module({module!r})
+        import torch.distributed as dist
+        assert not dist.is_initialized()
+        loaded = [m for m in sys.modules
+                  if m == "repro" or m.startswith("repro.")]
+        assert not loaded, loaded
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_reference_package_import(path):
     text = path.read_text()
@@ -55,11 +79,13 @@ def test_reference_import_pattern():
 def test_every_port_module_is_checked():
     """The import guards above cover the modules of every slice (the
     W3A8 path, the quantizer kernel, the checkpoints, the paged cache,
-    speculative decoding and the recurrent families included)."""
+    speculative decoding, the recurrent families and tensor-parallel
+    serving included)."""
     names = {p.relative_to(PORT).with_suffix("").as_posix() for p in SOURCES
              if PORT in p.parents}
     assert {"core/act_quant", "kernels/quantize", "kernels/itq3",
             "checkpoint/ckpt", "serve/quantized", "launch/serve",
             "serve/paged", "core/prng", "serve/faults", "ft/monitor",
             "serve/spec", "models/ssm", "configs/rwkv6_3b",
-            "configs/zamba2_7b"} <= names
+            "configs/zamba2_7b", "serve/tp", "sharding/rules",
+            "launch/mesh"} <= names

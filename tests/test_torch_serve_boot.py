@@ -10,6 +10,7 @@ the same token ids on two runs, and ``--stream`` one event per token.
 """
 import functools
 import re
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -117,8 +118,10 @@ def test_from_checkpoint_step_options_and_refusals(tmp_path):
                                        rt=TRuntime(kv_quant=True))
     assert spec.spec and spec.draft_cfg.num_layers == 1
     assert spec.draft_params["embed"] is spec.params["embed"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServeEngine.from_checkpoint(path, cfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="trivial 'data'"):
+        ServeEngine.from_checkpoint(
+            path, cfg, device="cpu",
+            mesh=SimpleNamespace(shape={"data": 2, "model": 1}))
     with pytest.raises(ValueError, match="draft_cfg"):
         ServeEngine.from_checkpoint(path, cfg, device="cpu",
                                     draft_params={})
