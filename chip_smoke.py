@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py                 # every phase (1-14), one card
+    python3 chip_smoke.py                 # every phase (1-16), one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --tp-only       # phases 1-2, then 15 (b): the mesh
                                           # over every card (up to 4)
+    python3 chip_smoke.py --train-only    # phases 1-2, then 16: training
     python3 chip_smoke.py --profile       # also trace a short run of each path
                                           # (its cut sweeps check, untimed)
 
@@ -234,6 +235,33 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    machine the mesh runs at world 1 (no leaf sharded, no collective), and
    a line says so. With 2 or more cards olmoe-1b-7b (expert parallel) and
    smollm-135m (3 KV heads: the replicated GQA fallback) are served too.
+16. Training on one card (``train/loop.py``), then serving its result:
+   smollm-135m at full width and depth, the reference launcher's batch
+   of 8 x 256 tokens. (a) 30 steps (warmup 5, lr 3e-3, remat "dots") in
+   bf16 autocast and in f32 with TF32 off, from one seeded state: the loss
+   finite and falling (the mean of the last 5 steps below the first 5's);
+   ms/step (the median after the first), tokens/s and peak memory; the
+   steps launch no kernel of ``csrc/`` (the reference's training forward
+   reaches no ``pallas_call``); two more f32 steps under
+   ``torch.profiler`` for the idle share and aten calls per step. (b) One
+   f32 step under remat "dots", "none" and none: loss and gnorm equal
+   (their bits printed), each one's
+   peak memory; 4 micro-batches against the whole batch at the peak lr:
+   loss within 1e-4, gradients within 5e-5 of each leaf's largest and
+   params within 1e-4, a param parting further only at a noise-floor
+   gradient (AdamW's first step is about lr * sign(g); counted). (c) One
+   f32 step at ``reduced()`` size on the card and on the CPU from one
+   state: gradients as (b), loss and gnorm within 1e-5 relative, params
+   within 1e-5 as (b). (d) The trained f32 state through ``save_async``
+   and ``wait_pending``, restored into a fresh template (every leaf
+   equal), then the serve launcher's ``--ckpt-dir`` boot
+   (``launch/serve.py:restore_trained``), ``itq3_s`` through the
+   ``quantize_blocks`` kernel, and phase 4's requests with ``kv_quant``:
+   launches exactly phase 4's contract, a second run's streams and
+   launches equal, and phase 5's teacher-forced parity on the trained
+   weights (layer-forced 1e-3; K codes parting at rounding ties
+   reported); the held-out loss of the initial, trained and quantized
+   weights is reported.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -300,6 +328,8 @@ PEAK_INT8_OPS = 1979e12
 # TF32 products per f32 product in activations mode (x split into hi and
 # lo halves), three in weights mode, and its bound counts them so.
 PEAK_TF32_FLOPS = 494.7e12
+# The dense bf16 tensor-core rate: phase 16's bf16 autocast training step.
+PEAK_BF16_FLOPS = 989e12
 # Kernel vs plain version: both f32, summed in a different order (warp
 # shuffles, tiles, online softmax against one matmul / plain softmax), so
 # they agree to a few ulps of the largest magnitude, well inside 1e-4.
@@ -4756,6 +4786,401 @@ def tp_phase(dev, report: dict, shards: bool = True) -> dict:
     return dict(counts)
 
 
+# --- phase 16: training on one card, then serving the trained weights ------
+
+# (a) the reference launcher's default batch (8 x 256 tokens); warmup 5 and
+# lr 3e-3, so 30 steps move the loss of the full-width model
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30
+TRAIN_KW = dict(lr_peak=3e-3, warmup=5, total_steps=TRAIN_STEPS)
+# (b) and (c): gradients within TRAIN_GRAD_TOL of each leaf's largest
+# element (f32 sums in two orders), then the params. AdamW's first steps
+# move a param by about lr * sign(g), so an element whose gradient sits at
+# the noise floor of its sum can take the other sign and part by up to
+# 2 lr: an element outside the param tolerance passes only where its
+# reference gradient is under FLIP_FLOOR of its leaf's largest, at most
+# FLIP_SHARE of a leaf's elements, each counted and printed.
+TRAIN_GRAD_TOL, FLIP_FLOOR, FLIP_SHARE = 5e-5, 1e-4, 1e-3
+CPU_BATCH, CPU_SEQ = 4, 64  # (c) at reduced() size
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+
+
+def train_steps(cfg, state, *, steps: int, compute_dtype,
+                batch=(TRAIN_BATCH, TRAIN_SEQ), remat: bool = True,
+                remat_policy: str = "dots", num_micro: int = 1):
+    """``steps`` train steps of ``cfg`` from ``state`` over the corpus's
+    first batches (the reference launcher's corpus, seed 17). Returns
+    (state, per-step metrics as floats, per-step host ms ending in the
+    metrics' transfer, peak device memory: None off the card)."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.models.layers import Runtime
+    from repro_torch.train import loop
+
+    step = loop.make_train_step(cfg, Runtime(capacity_factor=2.0),
+                                remat=remat, remat_policy=remat_policy,
+                                num_micro=num_micro,
+                                compute_dtype=compute_dtype, **TRAIN_KW)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=17)
+    cuda = state.step.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    metrics, ms = [], []
+    for s in range(steps):
+        b = corpus.batch(s, *batch)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        m = {k: float(v) for k, v in m.items()}  # waits for the step
+        ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    return state, metrics, ms, peak
+
+
+def xent_grads(cfg, params, batch: dict):
+    """The f32 train loss's gradients (``forward_xent`` + 0.01 aux, no
+    remat) of ``params`` on ``batch``."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.train.grad import value_and_grad
+
+    def loss(p, b):
+        xent, aux = lm.forward_xent(p, b["tokens"], b["labels"],
+                                    Runtime(capacity_factor=2.0), cfg)
+        return xent + 0.01 * aux, aux
+    dev = params["embed"].device
+    return value_and_grad(loss, params, {k: torch.as_tensor(v, device=dev)
+                                         for k, v in batch.items()})[1]
+
+
+def hold_grads(label: str, want, got) -> float:
+    """Each leaf of ``got`` within TRAIN_GRAD_TOL of ``want``'s largest
+    element; returns the worst share."""
+    from repro_torch.train.tree import tree_leaves
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(want), tree_leaves(got))):
+        a, b = a.double().cpu(), b.double().cpu()
+        err = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        worst = max(worst, err)
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"{label}: gradient leaf {i} parts by "
+                                 f"{err:.2e} of its largest")
+    return worst
+
+
+def hold_params(label: str, want, got, ref_grads, tol: float) -> dict:
+    """Params within ``tol``, or parted at a noise-floor gradient (see
+    FLIP_FLOOR). Returns the largest difference and the flips."""
+    from repro_torch.train.tree import tree_leaves
+
+    worst, flips = 0.0, 0
+    for i, (a, b, g) in enumerate(zip(tree_leaves(want), tree_leaves(got),
+                                      tree_leaves(ref_grads))):
+        d = (a.double().cpu() - b.double().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        apart = d > tol
+        if not bool(apart.any()):
+            continue
+        g = g.abs().cpu()
+        floor = g < FLIP_FLOOR * g.max()
+        if bool((apart & ~floor).any()) or float(apart.double().mean()) > (
+                FLIP_SHARE):
+            raise AssertionError(f"{label}: param leaf {i} parts by "
+                                 f"{float(d.max()):.2e} beyond the flips "
+                                 f"of noise-floor gradients")
+        flips += int(apart.sum())
+    return {"max_abs": worst, "flips": flips}
+
+
+def train_work(cfg, b: int, t: int) -> tuple[float, float]:
+    """(operations, bytes) of one train step of a dense model on B x T
+    tokens. Operations: the forward's matmuls (the layers' projections
+    and the tied head) and its attention products (every T x T score, as
+    the plain attention computes them), three times (the forward and the
+    backward pass), plus what remat "dots" recomputes: the attention's
+    products and the head (checkpointed per chunk). Bytes: the f32 params
+    read by the forward and the backward pass, the gradients written, and
+    AdamW's reads of params, gradients and both moments and its three
+    writes; activations are not counted."""
+    d, f, v, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
+    qd, kvd = cfg.num_heads * cfg.resolved_head_dim, (
+        cfg.num_kv_heads * cfg.resolved_head_dim)
+    layer = 2 * d * qd + 2 * d * kvd + 3 * d * f
+    attn = n * 4 * b * t * t * qd
+    head = 2 * b * t * d * v
+    ops = 3 * (2 * b * t * n * layer + head + attn) + attn + head
+    params = n * (layer + 2 * d) + v * d + d
+    return ops, 10 * 4 * params
+
+
+TRAIN_PROFILE_STEPS = 2
+
+
+def train_profile(cfg, state) -> dict:
+    """TRAIN_PROFILE_STEPS f32 steps (remat "dots") under
+    ``torch.profiler``: the device's busy time (the self device time of
+    every kernel and copy, one stream), the idle share of the host wall,
+    aten calls per step and the five costliest device kernels. Tracing
+    slows the host, so the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, ms, _ = train_steps(cfg, state, steps=TRAIN_PROFILE_STEPS,
+                                  compute_dtype=torch.float32)
+    events = prof.key_averages()
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e6
+    wall = sum(ms) / 1e3
+    ops = sum(e.count for e in events if e.device_type == DeviceType.CPU
+              and e.key.startswith("aten::"))
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
+                aten_calls_per_step=ops / TRAIN_PROFILE_STEPS,
+                top_kernels_ms_per_step=[
+                    (e.key[:60], e.self_device_time_total / 1e3
+                     / TRAIN_PROFILE_STEPS) for e in top])
+
+
+def _bits(x: float) -> str:
+    return float(x).hex()
+
+
+def _gib(nbytes) -> str:
+    """Peak memory for a line: "not measured" off the card."""
+    return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
+
+
+def train_phase(dev, report: dict) -> dict:
+    """Phase 16: smollm-135m at full width and depth trained on the card,
+    then served from its checkpoint. (a) TRAIN_STEPS steps in bf16
+    autocast and in f32 (TF32 off) from one seeded state: the loss finite
+    and falling (the mean of the last 5 below the first 5's); ms/step,
+    tokens/s, peak memory; no kernel of ``csrc/`` launched; a traced
+    window of f32 steps (``train_profile``). (b) One f32
+    step under remat "dots", "none" and none at all: equal loss and gnorm
+    (their bits printed), each one's peak memory; accumulation over 4
+    micro-batches against the whole batch at the peak lr: loss within
+    1e-4, gradients and params held as (c). (c) One f32 step at
+    ``reduced()`` size on the card and on the CPU from one state:
+    gradients, then loss and gnorm 1e-5 relative and params 1e-5. (d) The
+    trained f32 state through ``save_async`` and ``wait_pending``,
+    restored into a fresh template (every leaf equal), then the serve
+    launcher's ``--ckpt-dir`` boot (``restore_trained``), ``itq3_s``
+    through ``quantize_blocks``, and phase 4's requests with ``kv_quant``:
+    launches exactly phase 4's contract, two runs' streams equal, and
+    phase 5's layer-forced parity on the trained weights (1e-3; K codes
+    parting at rounding ties reported). Returns (d)'s counted launches."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.configs import reduced
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.quantized import quantize_params
+    from repro_torch.train import loop
+    from repro_torch.train.grad import accumulate_grads
+
+    out: dict = {}
+    cfg = get_config("smollm-135m")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 16 (a): train {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}) {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, remat dots, bf16 autocast "
+          f"and f32", flush=True)
+    ops, nbytes = train_work(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bounds = {"f32": bound_ms(nbytes, ops), "bf16": bound_ms(
+        nbytes, ops, PEAK_BF16_FLOPS)}
+    out["work"] = dict(ops=ops, bytes=nbytes, bound_ms=bounds)
+    print(f"  {ops / 1e12:.3f} TFLOP and {nbytes / 1e9:.2f} GB a step: "
+          f"bound {bounds['f32'][0]:.2f} ms in f32 ({bounds['f32'][1]}), "
+          f"{bounds['bf16'][0]:.2f} ms at the bf16 rate "
+          f"({bounds['bf16'][1]})", flush=True)
+    init = loop.init_train_state(cfg, seed=0, device=dev)
+    _build.reset_launches()
+    runs = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        state, m, ms, peak = train_steps(cfg, init, steps=TRAIN_STEPS,
+                                         compute_dtype=dtype)
+        losses = [r["loss"] for r in m]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: non-finite loss {losses}")
+        first5, last5 = statistics.mean(losses[:5]), statistics.mean(
+            losses[-5:])
+        if not last5 < first5:
+            raise AssertionError(f"{name}: the loss did not fall: first 5 "
+                                 f"{first5:.4f}, last 5 {last5:.4f}")
+        med = statistics.median(ms[1:])
+        runs[name] = state
+        out[f"train_{name}"] = dict(
+            ms_per_step=med, first_step_ms=ms[0],
+            tokens_per_s=tokens / med * 1e3, bound_ms=bounds[name][0],
+            peak_mem_bytes=peak, loss_first=losses[0], loss_last=losses[-1],
+            loss_first5=first5, loss_last5=last5, gnorm_last=m[-1]["gnorm"],
+            ms_all=ms, losses=losses)
+        print(f"  {name}: {med:.1f} ms/step (median after the first; first "
+              f"{ms[0]:.0f} ms; bound {bounds[name][0]:.2f}), "
+              f"{tokens / med * 1e3:.0f} tokens/s, peak "
+              f"memory {_gib(peak)}, loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (means of 5: {first5:.4f} -> {last5:.4f})",
+              flush=True)
+    if _build.launches:
+        raise AssertionError(f"training launched {dict(_build.launches)}")
+    prof = out["train_profile"] = train_profile(cfg, init)
+    print(f"  traced {TRAIN_PROFILE_STEPS} f32 steps: device busy "
+          f"{prof['device_busy_s']:.3f} s of {prof['wall_s']:.3f} s wall "
+          f"(idle share {prof['idle_share']:.3f}), "
+          f"{prof['aten_calls_per_step']:.0f} aten calls per step; top "
+          f"kernels (ms/step): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in prof["top_kernels_ms_per_step"]),
+          flush=True)
+
+    print("phase 16 (b): one f32 step under each remat; accumulation over 4 "
+          "micro-batches against one batch", flush=True)
+    rem = {}
+    for name, kw in (("dots", dict(remat_policy="dots")),
+                     ("none", dict(remat_policy="none")),
+                     ("off", dict(remat=False))):
+        _, m, ms, peak = train_steps(cfg, init, steps=1,
+                                     compute_dtype=torch.float32, **kw)
+        rem[name] = dict(loss=m[0]["loss"], gnorm=m[0]["gnorm"],
+                         loss_bits=_bits(m[0]["loss"]),
+                         gnorm_bits=_bits(m[0]["gnorm"]),
+                         peak_mem_bytes=peak, ms=ms[0])
+        print(f"  remat {name}: loss {rem[name]['loss_bits']} gnorm "
+              f"{rem[name]['gnorm_bits']}, peak memory {_gib(peak)}, "
+              f"{ms[0]:.0f} ms", flush=True)
+    for k in ("loss_bits", "gnorm_bits"):
+        if len({r[k] for r in rem.values()}) != 1:
+            raise AssertionError(f"remat variants part on {k}: {rem}")
+    out["remat"] = rem
+    # accumulation at the peak lr (a step at step 0 has lr 0)
+    warm = dataclasses.replace(init, step=torch.full_like(
+        init.step, TRAIN_KW["warmup"]))
+    batch = SyntheticCorpus(cfg.vocab_size, seed=17).batch(
+        0, TRAIN_BATCH, TRAIN_SEQ)
+    one, m1, _, _ = train_steps(cfg, warm, steps=1,
+                                compute_dtype=torch.float32)
+    four, m4, _, _ = train_steps(cfg, warm, steps=1, num_micro=4,
+                                 compute_dtype=torch.float32)
+    g1 = xent_grads(cfg, init.params, batch)
+    dev_batch = {k: torch.as_tensor(v, device=dev).reshape(
+        4, TRAIN_BATCH // 4, TRAIN_SEQ) for k, v in batch.items()}
+
+    def loss_fn(p, b):
+        xent, aux = lm.forward_xent(p, b["tokens"], b["labels"],
+                                    Runtime(capacity_factor=2.0), cfg)
+        return xent + 0.01 * aux, aux
+    _, g4, _ = accumulate_grads(loss_fn, init.params, dev_batch, num_micro=4)
+    acc = dict(loss_1=m1[0]["loss"], loss_4=m4[0]["loss"],
+               grad_worst=hold_grads("accumulation", g1, g4),
+               **hold_params("accumulation", one.params, four.params, g1,
+                             1e-4))
+    if not abs(acc["loss_1"] - acc["loss_4"]) <= 1e-4:
+        raise AssertionError(f"accumulation: loss {acc}")
+    out["accumulation"] = acc
+    print(f"  num_micro 4 vs 1 at lr {TRAIN_KW['lr_peak']}: loss "
+          f"{acc['loss_4']:.6f} vs {acc['loss_1']:.6f}, gradients within "
+          f"{acc['grad_worst']:.2e} of each leaf's largest, params "
+          f"{acc['max_abs']:.2e} apart ({acc['flips']} noise-floor flips)",
+          flush=True)
+    del one, four, g1, g4
+
+    print("phase 16 (c): one f32 step at reduced() size, card against CPU",
+          flush=True)
+    rcfg = reduced(cfg)
+    rbatch = SyntheticCorpus(rcfg.vocab_size, seed=17).batch(
+        0, CPU_BATCH, CPU_SEQ)
+    side = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        s = loop.init_train_state(rcfg, seed=0, device=d)
+        g = xent_grads(rcfg, s.params, rbatch)
+        s = dataclasses.replace(s, step=torch.full_like(
+            s.step, TRAIN_KW["warmup"]))
+        s, m, _, _ = train_steps(rcfg, s, steps=1, compute_dtype=torch.float32,
+                                 batch=(CPU_BATCH, CPU_SEQ))
+        side[name] = (g, s, m[0])
+    (gc, sc, dev_m), (gh, sh, cpu_m) = side["card"], side["cpu"]
+    cmp = dict(grad_worst=hold_grads("card vs cpu", gh, gc),
+               **hold_params("card vs cpu", sh.params, sc.params, gh, 1e-5),
+               loss=(dev_m["loss"], cpu_m["loss"]),
+               gnorm=(dev_m["gnorm"], cpu_m["gnorm"]))
+    for k in ("loss", "gnorm"):
+        a, b = cmp[k]
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"card vs cpu: {k} {a} vs {b}")
+    out["card_vs_cpu"] = cmp
+    print(f"  loss {dev_m['loss']:.7f} vs {cpu_m['loss']:.7f}, gnorm "
+          f"{dev_m['gnorm']:.7f} vs {cpu_m['gnorm']:.7f}, gradients within "
+          f"{cmp['grad_worst']:.2e} of each leaf's largest, params "
+          f"{cmp['max_abs']:.2e} apart ({cmp['flips']} noise-floor flips)",
+          flush=True)
+
+    print("phase 16 (d): save_async the trained f32 state, restore it, boot "
+          "the serve launcher's --ckpt-dir path on it", flush=True)
+    trained = runs["f32"]
+    del runs
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    step = int(trained.step)
+    t0 = time.perf_counter()
+    ckpt_mod.save_async(str(TRAIN_DIR), step, trained)
+    snap_s = time.perf_counter() - t0
+    ckpt_mod.wait_pending()
+    save_s = time.perf_counter() - t0
+    back, got_step = ckpt_mod.restore(str(TRAIN_DIR), loop.init_train_state(
+        cfg, seed=1, device=dev))
+    steps_equal = all(a.dtype == torch.int32 and int(a) == int(b) for a, b in
+                      ((back.step, trained.step),
+                       (back.opt.step, trained.opt.step)))
+    if got_step != step or not steps_equal or not tree_bytes_equal(
+            {"p": back.params, "m": back.opt.mu, "n": back.opt.nu},
+            {"p": trained.params, "m": trained.opt.mu,
+             "n": trained.opt.nu}):
+        raise AssertionError("the restored train state differs from the "
+                             "saved one")
+    del back
+    t0 = time.perf_counter()
+    params, _ = serve_mod.restore_trained(str(TRAIN_DIR), cfg, dev)
+    _build.reset_launches()
+    q = quantize_params(params, "itq3_s")
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    quant_launches = dict(_build.launches)
+    if not quant_launches.get("quantize_blocks"):
+        raise AssertionError(f"quantizing launched {quant_launches}")
+    out["ckpt"] = dict(step=step, snapshot_s=snap_s, save_s=save_s,
+                       boot_s=boot_s, quantize_launches=quant_launches)
+    print(f"  step {step}: save_async returned in {snap_s:.1f} s, written "
+          f"in {save_s:.1f} s; restored equal leaf for leaf; --ckpt-dir "
+          f"boot and itq3_s in {boot_s:.1f} s ({quant_launches})",
+          flush=True)
+    prompts = make_prompts(cfg)
+    eng, reqs, wall, counts = serve_run(q, cfg, prompts, dev, count=True)
+    out["serve"] = check_serving("trained float path", eng, reqs, wall,
+                                 counts, cfg, matvec="itq3_matvec",
+                                 matmul="itq3_matmul")
+    _, again, _, counts2 = serve_run(q, cfg, prompts, dev, count=True)
+    if [r.out for r in again] != [r.out for r in reqs] or counts2 != counts:
+        raise AssertionError("two runs on the trained weights differ")
+    print("  a second run: streams and launches equal", flush=True)
+    parity_phase(q, cfg, prompts, dev, out, "parity")
+    # reported only: what training and quantizing did to a held-out loss
+    ev = next(SyntheticCorpus(cfg.vocab_size, seed=17).eval_batches(
+        1, TRAIN_BATCH, TRAIN_SEQ))
+    with torch.no_grad():
+        out["eval_xent"] = {name: float(lm.forward_xent(
+            p, ev["tokens"], ev["labels"], Runtime(), cfg)[0])
+            for name, p in (("init", init.params), ("trained", params),
+                            ("trained_itq3_s", q))}
+    print(f"  held-out xent: init {out['eval_xent']['init']:.4f}, trained "
+          f"{out['eval_xent']['trained']:.4f}, trained itq3_s "
+          f"{out['eval_xent']['trained_itq3_s']:.4f}", flush=True)
+    report["train"] = out
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return counts
+
+
 def profile_phase(run, report: dict, key: str = "profile",
                   table: Path = TABLE, steps: int | None = None) -> None:
     """With ``--profile``: one shorter kernel-path serving run (``run()``,
@@ -4810,6 +5235,10 @@ def main(argv=None) -> int:
                     help="build the kernels, then run phase 15 (b) alone: "
                          "tensor-parallel serving over every card (up to "
                          "4) against the single-device engine")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build the kernels, then run phase 16 alone: "
+                         "training on one card, then serving the trained "
+                         "weights")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4836,8 +5265,14 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k}: {line.strip()}")
 
-    if args.tp_only:
-        tp_phase(dev, report, shards=False)
+    if args.tp_only or args.train_only:
+        if args.tp_only:
+            tp_phase(dev, report, shards=False)
+        else:
+            t0 = time.perf_counter()
+            report["train_launches"] = train_phase(dev, report)
+            print(f"phase walls (s): 16 {time.perf_counter() - t0:.1f}",
+                  flush=True)
         DETAILS.parent.mkdir(parents=True, exist_ok=True)
         DETAILS.write_text(json.dumps(report, indent=1, default=str))
         print(smi)
@@ -4959,6 +5394,10 @@ def main(argv=None) -> int:
         # the single-device runs' inside the phase)
         report["tp_launches"] = tp_phase(dev, report)
         lap("15")
+        # phase 16: training, then the trained weights served on the float
+        # path (its launches are held to phase 4's contract in the phase)
+        report["train_launches"] = train_phase(dev, report)
+        lap("16")
     names = list(laps)
     report["phase_s"] = {b: laps[b] - laps[a] for a, b in zip(names,
                                                                names[1:])}

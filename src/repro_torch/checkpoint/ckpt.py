@@ -1,5 +1,6 @@
 """Checkpoints in the reference's on-disk layout (port of
-``repro/checkpoint/ckpt.py``: save, template-free restore).
+``repro/checkpoint/ckpt.py``: save, async save, template and template-free
+restore).
 
 Layout per checkpoint, byte for byte the reference's:
 
@@ -12,19 +13,27 @@ Layout per checkpoint, byte for byte the reference's:
 A save writes into ``step_N.tmp`` and renames it only after every leaf and
 the marker are written, so a crashed save is never taken for a checkpoint
 (restore reads only directories holding ``_COMMITTED``). Leaves are walked
-in sorted key order, as JAX flattens a dict, and a QTensor's arrays in
-sorted key order, so a tree saved here and the same tree saved by the
-reference give the same files; either side restores the other's. A
-QTensor's :class:`~repro_torch.core.quantize.QMeta` travels in
-``meta.json``, so :func:`restore_tree` rebuilds a servable quantized tree
-from a bare directory with no template: quantize -> save -> serve never
-runs Algorithm 1 twice.
+as JAX flattens a tree: a dict in sorted key order, a dataclass
+(``TrainState``, ``OptState``) in field order, a QTensor's arrays in sorted
+key order; so a tree saved here and the same tree saved by the reference
+give the same files, and either side restores the other's. A QTensor's
+:class:`~repro_torch.core.quantize.QMeta` travels in ``meta.json``, so
+:func:`restore_tree` rebuilds a servable quantized tree from a bare
+directory with no template: quantize -> save -> serve never runs
+Algorithm 1 twice, and :func:`restore` rebuilds a saved QTensor even where
+its template holds the fp weight.
+
+:func:`save_async` (the training loop's) blocks only for the copy to host
+memory and writes on a daemon thread; :func:`wait_pending` joins every
+write still running.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -32,41 +41,79 @@ import torch
 
 from repro_torch.core.quantize import QMeta, QTensor
 
-__all__ = ["save", "latest_step", "restore_tree", "restore_params"]
+__all__ = ["save", "save_async", "wait_pending", "latest_step", "restore",
+           "restore_tree", "restore_params"]
 
 _SEP = "__"
 _QMARK = _SEP + "Q" + _SEP  # <leafpath>__Q__<datakey>.npy
+_pending: list[threading.Thread] = []
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):  # a host snapshot (save_async)
+        return t
     if t.dtype == torch.bfloat16:
         raise TypeError("bf16 leaves have no numpy dtype here; save them as "
                         "f32 or fp16")
     return t.detach().cpu().numpy()
 
 
+def _children(tree) -> Optional[list]:
+    """``[(key, child)]`` of an inner node in JAX's flatten order (a dict
+    sorted, a dataclass by field), None for a leaf or a QTensor."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if (dataclasses.is_dataclass(tree) and not isinstance(tree, type)
+            and not isinstance(tree, QTensor)):
+        return [(f.name, getattr(tree, f.name))
+                for f in dataclasses.fields(tree)]
+    return None
+
+
+def _path(prefix: str, key: str) -> str:
+    return f"{prefix}{_SEP}{key}" if prefix else key
+
+
 def _flatten(tree, prefix: str = "", flat=None, qmetas=None):
-    """Path-flatten ``tree`` in sorted key order; QTensor leaves expand to
+    """Path-flatten ``tree`` in JAX's order; QTensor leaves expand to
     their packed arrays plus a JSON-able meta record."""
     flat = {} if flat is None else flat
     qmetas = {} if qmetas is None else qmetas
+    children = _children(tree)
     if isinstance(tree, QTensor):
         keys = sorted(tree.data)
         qmetas[prefix] = {"meta": tree.meta.to_dict(), "keys": keys}
         for dkey in keys:
             flat[prefix + _QMARK + dkey] = _to_numpy(tree.data[dkey])
-    elif isinstance(tree, dict):
-        for k in sorted(tree):
-            _flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k),
-                     flat, qmetas)
+    elif children is not None:
+        for k, child in children:
+            _flatten(child, _path(prefix, k), flat, qmetas)
     else:
         flat[prefix] = _to_numpy(torch.as_tensor(tree))
     return flat, qmetas
 
 
+def _to_host(tree):
+    """A copy of ``tree`` with every tensor a host numpy array of its own
+    (dicts, dataclasses and QTensors rebuilt around them)."""
+    if isinstance(tree, QTensor):
+        return QTensor({k: _to_host(v) for k, v in tree.data.items()},
+                       tree.meta)
+    children = _children(tree)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in children}
+    if children is not None:
+        return dataclasses.replace(tree, **{k: _to_host(v)
+                                            for k, v in children})
+    if isinstance(tree, torch.Tensor):
+        return _to_numpy(tree.detach().to("cpu", copy=True))
+    return np.array(tree)
+
+
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
-    """Write ``tree`` (nested dicts of tensors and QTensors) as checkpoint
-    ``step``; keeps the ``keep`` newest committed steps. Returns its path."""
+    """Write ``tree`` (nested dicts and dataclasses of tensors, numpy
+    arrays and QTensors) as checkpoint ``step``; keeps the ``keep`` newest
+    committed steps. Returns its path."""
     flat, qmetas = _flatten(tree)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -85,6 +132,25 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     os.rename(tmp, final)
     _gc(ckpt_dir, keep)
     return final
+
+
+def save_async(ckpt_dir: str, step: int, tree, *,
+               keep: int = 3) -> threading.Thread:
+    """Snapshot ``tree`` to host memory (the one blocking part: the
+    device-to-host copies), then :func:`save` it on a daemon thread.
+    Returns the thread; :func:`wait_pending` joins it."""
+    host = _to_host(tree)
+    th = threading.Thread(target=save, args=(ckpt_dir, step, host),
+                          kwargs={"keep": keep}, daemon=True)
+    th.start()
+    _pending.append(th)
+    return th
+
+
+def wait_pending() -> None:
+    """Join every :func:`save_async` write still running."""
+    while _pending:
+        _pending.pop().join()
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
@@ -112,6 +178,44 @@ def _step_dir(ckpt_dir: str, step: Optional[int]) -> tuple[str, int]:
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
     return os.path.join(ckpt_dir, f"step_{step:08d}"), step
+
+
+def _load_qtensor(d: str, key: str, rec: dict, device) -> QTensor:
+    return QTensor({k: torch.from_numpy(np.load(
+        os.path.join(d, key + _QMARK + k + ".npy"))).to(device)
+        for k in rec["keys"]}, QMeta.from_dict(rec["meta"]))
+
+
+def restore(ckpt_dir: str, template, *, step: Optional[int] = None,
+            device=None):
+    """Rebuild a ``template``-shaped tree (dicts, dataclasses, tensors,
+    QTensors) from checkpoint ``step`` (default: the latest). A leaf takes
+    its template's dtype and goes to ``device`` (default: the template
+    leaf's). A leaf saved as a QTensor is rebuilt as a QTensor (its QMeta
+    from ``meta.json``) whether the template holds one or the fp weight.
+    Returns ``(tree, step)``."""
+    d, step = _step_dir(ckpt_dir, step)
+    with open(os.path.join(d, "meta.json")) as f:
+        qmetas = json.load(f).get("qtensors", {})
+
+    def build(node, key: str):
+        dev = device
+        if key in qmetas:
+            if dev is None:
+                dev = (next(iter(node.data.values())).device
+                       if isinstance(node, QTensor) else node.device)
+            return _load_qtensor(d, key, qmetas[key], dev)
+        children = _children(node)
+        if isinstance(node, dict):
+            return {k: build(c, _path(key, k)) for k, c in children}
+        if children is not None:
+            return dataclasses.replace(node, **{
+                k: build(c, _path(key, k)) for k, c in children})
+        arr = torch.from_numpy(np.load(os.path.join(d, key + ".npy")))
+        return arr.to(device=node.device if dev is None else dev,
+                      dtype=node.dtype)
+
+    return build(template, ""), step
 
 
 def restore_tree(ckpt_dir: str, *, step: Optional[int] = None,

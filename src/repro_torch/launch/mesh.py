@@ -12,7 +12,7 @@ and the process group. NCCL joins ranks on CUDA devices (rank r on
 
 Serving runs every rank on the ``model`` axis; a ``data`` axis larger than
 1 is refused in the reference's words (the slot batch is not
-data-sharded).
+data-sharded). Training runs on one device (:func:`local_mesh`).
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1,2
 """
@@ -26,7 +26,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_host_mesh", "check_serving_mesh"]
+__all__ = ["Mesh", "make_host_mesh", "check_serving_mesh", "local_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +44,13 @@ class Mesh:
     @property
     def backend(self) -> str:
         return dist.get_backend(self.group) if self.size > 1 else "none"
+
+
+def local_mesh(device) -> Mesh:
+    """The one-device mesh (data 1, model 1) of a single process on
+    ``device``, joining no process group: the training launcher's."""
+    return Mesh(shape={"data": 1, "model": 1}, rank=0, size=1,
+                device=torch.device(device))
 
 
 def check_serving_mesh(mesh) -> None:

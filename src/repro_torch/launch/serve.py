@@ -6,6 +6,13 @@ engine.
     python -m repro_torch.launch.serve --reduced --kv-quant --device cpu
     python -m repro_torch.launch.serve --arch smollm-135m --kv-quant   # GPU
 
+Trained weights (``--ckpt-dir``: the latest checkpoint of a training run,
+``python -m repro_torch.launch.train --ckpt-dir DIR``, of either package)
+are restored into a ``TrainState`` template, then quantized and served as
+the seeded ones are:
+
+    ... --ckpt-dir /tmp/ckpt --kv-quant
+
 The recurrent families (``--arch rwkv6-3b``, ``--arch zamba2-7b``) admit
 each prompt through the engine's chunk ladder; ``--kv-quant`` changes
 nothing on the attention-free rwkv6-3b, and full-width zamba2-7b (head_dim
@@ -91,6 +98,7 @@ from repro_torch.serve.quantized import (
 )
 from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.scheduler import SCHEDULERS
+from repro_torch.train import loop as train_loop
 
 
 def _load_policy(spec: str, cfg) -> QuantPolicy:
@@ -98,6 +106,16 @@ def _load_policy(spec: str, cfg) -> QuantPolicy:
         return QuantPolicy.from_dict(mixed_precision_recipe(cfg))
     with open(spec) as f:
         return QuantPolicy.from_dict(json.load(f))
+
+
+def restore_trained(ckpt_dir: str, cfg, device):
+    """The fp weights of the latest training checkpoint under
+    ``ckpt_dir``, restored into a template from ``init_train_state`` (each
+    leaf cast to its dtype), as the reference's ``--ckpt-dir``. Returns
+    ``(params, step)``."""
+    state = train_loop.init_train_state(cfg, seed=0, device=device)
+    state, step = ckpt_mod.restore(ckpt_dir, state)
+    return state.params, step
 
 
 def main(argv=None) -> None:
@@ -114,6 +132,13 @@ def main(argv=None) -> None:
                     help="serve a previously saved quantized checkpoint")
     ap.add_argument("--quant-mode", default="activations",
                     choices=["activations", "weights", "dequant", "auto"])
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "ref", "cuda"],
+                    help="quantized matmuls and q8-cache attention: the "
+                         "kernels on CUDA tensors (auto), the plain "
+                         "versions (ref), or the kernels only (cuda)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore fp train-state weights before quantizing")
     ap.add_argument("--kv-quant", action="store_true",
                     help="rotated-int8 KV cache (8.25 bits/element)")
     ap.add_argument("--paged", action="store_true",
@@ -189,8 +214,17 @@ def main(argv=None) -> None:
                          "--nproc-per-node MODEL; DATA must be 1): packed "
                          "ITQ3_S planes column-sharded and the KV cache "
                          "head-sharded over the model axis")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tp-shard-map", action="store_true",
+                    help="accepted for the reference's command lines: "
+                         "tensor-parallel serving here always runs its "
+                         "shards explicitly (serve/tp.py)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu; nothing falls back")
     args = ap.parse_args(argv)
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        ap.error("no CUDA device: the launcher serves on the GPU unless "
+                 "--device cpu is passed")
     mesh = None
     if args.mesh:
         from repro_torch.launch.mesh import make_host_mesh
@@ -223,8 +257,8 @@ def main(argv=None) -> None:
               f"(seed {args.chaos_seed}, deterministic clock)")
     engine_kw = dict(
         slots=args.slots, max_len=args.max_len,
-        rt=Runtime(quant_mode=args.quant_mode, kv_quant=args.kv_quant,
-                   act_quant=args.act_quant),
+        rt=Runtime(quant_mode=args.quant_mode, backend=args.backend,
+                   kv_quant=args.kv_quant, act_quant=args.act_quant),
         device=device, sample_on_host=args.sample_on_host,
         scheduler=args.scheduler, max_queue=args.max_queue,
         shed_policy=args.shed_policy,
@@ -243,7 +277,11 @@ def main(argv=None) -> None:
               f"({quantized_bytes(eng.params) / 1e6:.1f}MB) with "
               f"ServeEngine.from_checkpoint")
     else:
-        params = lm.init_params(cfg, seed=0, device=device)
+        if args.ckpt_dir:
+            params, step = restore_trained(args.ckpt_dir, cfg, device)
+            print(f"restored step-{step} weights from {args.ckpt_dir}")
+        else:
+            params = lm.init_params(cfg, seed=0, device=device)
         fp_bytes = sum(leaf.numel() * 2 for leaf in _leaves(params))
         t0 = time.perf_counter()
         if args.policy:

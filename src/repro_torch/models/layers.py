@@ -13,7 +13,9 @@ slots' (B, MAXB) block ``"table"`` beside them in the layer's cache dict.
 Where XLA wrote a functional cache update into a donated buffer, the port
 writes in place into the preallocated cache tensors (``index_put_`` over
 per-row positions, so no host sync is needed to place a ragged batch).
-Compute is float32 throughout, as the reference serving runtime is.
+Compute is float32 throughout, as the reference serving runtime is; a
+training step on the card runs its loss under bf16 autocast instead
+(``train/loop.py``), which leaves this code as it is.
 The MLP serves the reference's three activations (swiglu, gelu in its
 tanh form, relu2) and norms both kinds (rmsnorm, layernorm with a bias);
 the MoE block is ``models/moe.py``.
@@ -47,7 +49,8 @@ NEG_INF = -1e30
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """Execution-time knobs threaded through every apply function (the
-    subset of the reference's ``Runtime`` this slice serves)."""
+    subset of the reference's ``Runtime`` the port serves and trains
+    with)."""
 
     quant_mode: str = "activations"  # qmatmul mode for QTensor weights
     backend: str = "auto"  # auto | ref | cuda (qmatmul and q8 attention)
@@ -58,6 +61,10 @@ class Runtime:
     # (core/act_quant.py). QMeta.act_quant opts single weights out.
     act_quant: bool = False
     capacity_factor: float = 1.25  # MoE expert capacity factor
+    # training (models/lm.py:_maybe_remat): recompute each layer in the
+    # backward pass; "dots" keeps its plain matmul outputs, "none" nothing
+    remat: bool = False
+    remat_policy: str = "none"  # none | dots
     rwkv_mode: str = "chunked"  # RWKV6 prefill: chunked | scan (stepwise)
     # tensor-parallel serving (serve/tp.py): the serving Rules, whose mesh
     # is this rank's view of the process group; None on one device

@@ -34,10 +34,12 @@ leaves; the table has no layer axis and joins each layer's cache view.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as ckpt_util
 
 from repro_torch.core import formats, prng
 from repro_torch.core.fwht import is_pow2
@@ -51,9 +53,9 @@ from repro_torch.models.layers import (
 Params = dict[str, Any]
 
 __all__ = ["init_params", "init_quantized_params", "init_cache", "forward",
-           "decode_step", "score_tokens", "advance_cache", "finite_rows",
-           "top_mask", "sample_tokens", "layer_params", "hybrid_dims",
-           "hybrid_layer", "recurrent_layer_apply"]
+           "forward_xent", "decode_step", "score_tokens", "advance_cache",
+           "finite_rows", "top_mask", "sample_tokens", "layer_params",
+           "hybrid_dims", "hybrid_layer", "recurrent_layer_apply"]
 
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -402,7 +404,9 @@ def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False,
     """One decoder (or, ``causal=False``, encoder) layer: self-attention;
     in a layer holding ``xattn`` then cross-attention on ``memory`` (or,
     without it, the layer's ``xcache`` K/V); then the MLP or (a layer
-    holding ``moe``) the MoE block, whose aux loss serving drops."""
+    holding ``moe``) the MoE block. Returns ``(x, cache info, aux)``:
+    the MoE block's load-balancing loss (which serving drops), None for
+    an MLP layer."""
     h, new_kv = attention_apply(lp["attn"], norm_apply(lp["ln1"], x, cfg.norm),
                                 rt, cfg, cache=cache, pos=pos,
                                 token_cache=token_cache, causal=causal)
@@ -413,11 +417,12 @@ def _dense_layer_apply(lp, x, rt, cfg, *, cache, pos, token_cache=False,
                                cache=xcache, memory=memory, cross=True)
         x = x + h
     hn = norm_apply(lp["ln2"], x, cfg.norm)
+    aux = None
     if "moe" in lp:
-        m = moe_mod.moe_apply(lp["moe"], hn, rt, cfg)[0]
+        m, aux = moe_mod.moe_apply(lp["moe"], hn, rt, cfg)
     else:
         m = mlp_apply(lp["mlp"], hn, rt, cfg.activation)
-    return x + m, new_kv
+    return x + m, new_kv, aux
 
 
 def _layer_cache(cache, i: int) -> dict:
@@ -453,10 +458,9 @@ def _run_decoder(params, x, rt, cfg, *, cache, pos, memory=None):
         return _run_decoder_token(params, x, rt, cfg, cache=cache, pos=pos)
     for i in range(cfg.num_layers):
         layer_cache = None if cache is None else _layer_cache(cache, i)
-        x, _ = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
-                                  cfg, cache=layer_cache, pos=pos,
-                                  memory=memory,
-                                  xcache=_xattn_cache(cache, i))
+        x = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
+                               cfg, cache=layer_cache, pos=pos,
+                               memory=memory, xcache=_xattn_cache(cache, i))[0]
     return x, cache
 
 
@@ -529,10 +533,10 @@ def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
         at = torch.clamp(pos_vec, 0, attn["k"].shape[3] - 1)
     for i in range(cfg.num_layers):
         layer_cache = _layer_cache(cache, i)
-        x, tok = _dense_layer_apply(layer_params(params["layers"], i), x, rt,
-                                    cfg, cache=layer_cache, pos=pos_vec,
-                                    token_cache=True,
-                                    xcache=_xattn_cache(cache, i))
+        x, tok, _ = _dense_layer_apply(layer_params(params["layers"], i), x,
+                                       rt, cfg, cache=layer_cache,
+                                       pos=pos_vec, token_cache=True,
+                                       xcache=_xattn_cache(cache, i))
         for k, v in tok.items():  # (B, KV, 1, X) -> layer i, row, pos
             layer_cache[k][rows, :, at] = v[:, :, 0].to(layer_cache[k].dtype)
     return x, cache
@@ -566,8 +570,8 @@ def _embed(params, tokens, rt=None, cfg=None):
     return table.to(torch.float32)[tokens]
 
 
-def _head(params, x, rt, cfg):
-    x = norm_apply(params["ln_f"], x, cfg.norm)
+def _head_weight(params, rt, cfg):
+    """The (D, V) head weight: ``lm_head``, or the tied table."""
     w = params.get("lm_head")
     if w is None:
         w = params["embed"]
@@ -579,7 +583,12 @@ def _head(params, x, rt, cfg):
                 # over sharded D would need a float reduction)
                 w = tp_mod.full_table(w, cfg, rt.rules)
             w = w.T  # tied head: a plain f32 product
-    return dense(x, w, rt)
+    return w
+
+
+def _head(params, x, rt, cfg):
+    x = norm_apply(params["ln_f"], x, cfg.norm)
+    return dense(x, _head_weight(params, rt, cfg), rt)
 
 
 def _tokens(tokens, params) -> torch.Tensor:
@@ -591,10 +600,30 @@ def _encode(params, frames, rt, cfg) -> torch.Tensor:
     ``frontend_proj``, the non-causal encoder stack (RoPE at positions
     0..S-1, no mask) and ``enc_ln_f``."""
     x = dense(frames, params["frontend_proj"], rt)
+    layer = _maybe_remat(lambda xc, i: _dense_layer_apply(
+        layer_params(params["encoder"], i), xc, rt, cfg, cache=None, pos=0,
+        causal=False)[0], rt)
     for i in range(cfg.encoder_layers):
-        x, _ = _dense_layer_apply(layer_params(params["encoder"], i), x, rt,
-                                  cfg, cache=None, pos=0, causal=False)
+        x = layer(x, i)
     return norm_apply(params["enc_ln_f"], x, cfg.norm)
+
+
+def _with_frontend(params, x, rt, cfg, frontend_feats):
+    """``(x, memory, prefix)``: an audio model's encoder memory (it needs
+    the frames), or a vlm's projected prefix rows put before the token
+    rows (``prefix`` of them, stripped before the head)."""
+    memory, prefix = None, 0
+    if frontend_feats is not None:
+        feats = torch.as_tensor(frontend_feats, device=x.device).to(
+            torch.float32)
+    if cfg.family == "audio":
+        if frontend_feats is None:
+            raise ValueError("seamless needs encoder frames")
+        memory = _encode(params, feats, rt, cfg)
+    elif cfg.frontend and frontend_feats is not None:
+        x = torch.cat([dense(feats, params["frontend_proj"], rt), x], dim=1)
+        prefix = feats.shape[1]
+    return x, memory, prefix
 
 
 def forward(params: Params, tokens, rt: Runtime, cfg, *,
@@ -612,18 +641,8 @@ def forward(params: Params, tokens, rt: Runtime, cfg, *,
     audio model needs them: the encoder's memory is what every decoder
     layer cross-attends (written into the cache's ``xattn`` leaves)."""
     tokens = _tokens(tokens, params)
-    x = _embed(params, tokens, rt, cfg)
-    memory, prefix = None, 0
-    if frontend_feats is not None:
-        feats = torch.as_tensor(frontend_feats, device=x.device).to(
-            torch.float32)
-    if cfg.family == "audio":
-        if frontend_feats is None:
-            raise ValueError("seamless needs encoder frames")
-        memory = _encode(params, feats, rt, cfg)
-    elif cfg.frontend and frontend_feats is not None:
-        x = torch.cat([dense(feats, params["frontend_proj"], rt), x], dim=1)
-        prefix = feats.shape[1]
+    x, memory, prefix = _with_frontend(
+        params, _embed(params, tokens, rt, cfg), rt, cfg, frontend_feats)
     x, cache = _run_decoder(params, x, rt, cfg, cache=cache, pos=pos,
                             memory=memory)
     x = x[:, prefix:]
@@ -633,6 +652,118 @@ def forward(params: Params, tokens, rt: Runtime, cfg, *,
         idx = torch.as_tensor(last_idx, dtype=torch.int64, device=x.device)
         x = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
     return _head(params, x, rt, cfg), cache
+
+
+# The plain matmuls of a layer (``x @ W`` reshaped to 2-D, the router),
+# the ops whose outputs the "dots" policy keeps: the counterpart of
+# ``checkpoint_dots_with_no_batch_dims``. Batched products (attention's
+# einsums, the experts' ``bmm``) are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt_util.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt_util.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(body, rt):
+    """Per-layer rematerialization (training): with ``rt.remat`` the
+    backward pass re-runs ``body`` instead of keeping its internals
+    (``torch.utils.checkpoint``, non-reentrant); ``remat_policy="dots"``
+    keeps its plain matmul outputs, ``"none"`` only its inputs. Without
+    ``rt.remat``, ``body`` itself."""
+    if not rt.remat:
+        return body
+    if rt.remat_policy == "dots":
+        context_fn = functools.partial(
+            ckpt_util.create_selective_checkpoint_contexts, _dots_policy)
+    elif rt.remat_policy == "none":
+        context_fn = ckpt_util.noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {rt.remat_policy!r}")
+
+    def run(*args):
+        return ckpt_util.checkpoint(body, *args, use_reentrant=False,
+                                    context_fn=context_fn)
+    return run
+
+
+def _train_stack(params, x, rt, cfg, memory=None):
+    """The layer stack of a training forward (no cache), each unit under
+    :func:`_maybe_remat` where the reference's scan bodies are: a layer,
+    or a hybrid's macroblock (its shared attention and ``attn_every``
+    Mamba2 layers; the tail runs outside, as the reference's). Returns
+    ``(x, aux)``: the MoE aux loss averaged over the layers, 0 for the
+    other families."""
+    zero = torch.zeros((), device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        every, n_units = ((1, cfg.num_layers) if cfg.family == "ssm"
+                          else hybrid_dims(cfg)[:2])
+
+        def layer(xc, i):
+            return recurrent_layer_apply(params, xc, rt, cfg, i, cache=None,
+                                         pos=0, decode=False)
+
+        def block(xc, u):
+            for i in range(u * every, (u + 1) * every):
+                xc = layer(xc, i)
+            return xc
+        unit = _maybe_remat(block, rt)
+        for u in range(n_units):
+            x = unit(x, u)
+        for i in range(n_units * every, cfg.num_layers):
+            x = layer(x, i)
+        return x, zero
+
+    def dense_layer(xc, i):
+        out, _, aux = _dense_layer_apply(layer_params(params["layers"], i),
+                                         xc, rt, cfg, cache=None, pos=0,
+                                         memory=memory)
+        return out, aux
+    unit = _maybe_remat(dense_layer, rt)
+    auxs = []
+    for i in range(cfg.num_layers):
+        x, aux = unit(x, i)
+        auxs.append(aux)
+    if auxs[0] is None:
+        return x, zero
+    return x, torch.mean(torch.stack(auxs))
+
+
+def _xent_chunk(x, labels, w, rt):
+    """Summed token cross-entropy of one chunk of positions: the head's
+    f32 logits (B, C, V) and their logsumexp; labels < 0 count 0."""
+    logits = dense(x, w, rt).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp_min(labels, 0)[..., None])[
+        ..., 0]
+    return torch.sum((lse - ll) * (labels >= 0).to(torch.float32))
+
+
+def forward_xent(params: Params, tokens, labels, rt: Runtime, cfg, *,
+                 frontend_feats=None, chunk: int = 512):
+    """Full forward and mean token cross-entropy without the (B, T, V)
+    logits: the head and its logsumexp run per ``chunk`` positions under a
+    checkpoint, so the backward pass holds one (B, chunk, V) slice at a
+    time. Labels < 0 are masked; the sum is divided by ``B * T``. The
+    frontends as :func:`forward` takes them (a vlm's prefix rows carry no
+    label). The layer stack remats per ``rt.remat``. Returns ``(mean
+    xent, MoE aux)``, 0-d f32 tensors."""
+    tokens = _tokens(tokens, params)
+    labels = torch.as_tensor(labels, device=tokens.device).to(torch.int64)
+    x, memory, prefix = _with_frontend(
+        params, _embed(params, tokens, rt, cfg), rt, cfg, frontend_feats)
+    x, aux = _train_stack(params, x, rt, cfg, memory)
+    x = norm_apply(params["ln_f"], x[:, prefix:], cfg.norm)
+    w = _head_weight(params, rt, cfg)
+    b, t, _ = x.shape
+    chunk = max(1, min(chunk, t))
+    tot = torch.zeros((), device=x.device)
+    for c0 in range(0, t, chunk):
+        tot = tot + ckpt_util.checkpoint(
+            _xent_chunk, x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], w,
+            rt, use_reentrant=False)
+    return tot / (b * t), aux
 
 
 def decode_step(params: Params, tokens, cache: Params, pos, rt: Runtime,

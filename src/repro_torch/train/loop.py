@@ -1,0 +1,95 @@
+"""The training step (port of ``repro/train/loop.py``): loss, per-layer
+remat, micro-batch accumulation and AdamW.
+
+``make_train_step(cfg, rt, ...)`` returns ``train_step(state, batch) ->
+(state, metrics)``. The loss is ``lm.forward_xent`` (the head and its
+logsumexp per chunk of positions, never the whole (B, T, V) logits) plus
+``aux_weight`` times the MoE load-balancing loss. Params and optimizer
+moments stay f32. With ``compute_dtype=torch.bfloat16`` the loss runs
+under ``torch.autocast`` on the batch's device, the counterpart of the
+reference's bf16 compute off the CPU; autocast casts at the matmuls and
+leaves the serving code as it is. ``train_step`` returns a new state and
+never modifies the one it was given. No step reaches a hand-written
+kernel: the params are full precision and the reference's training
+forward reaches no ``pallas_call``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.models.layers import Runtime
+from repro_torch.train import optim
+from repro_torch.train.grad import accumulate_grads, value_and_grad
+
+__all__ = ["TrainState", "make_train_step", "init_train_state",
+           "softmax_xent"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: optim.OptState
+    step: torch.Tensor  # int32, shape ()
+
+
+def init_train_state(cfg, *, seed: int = 0, device="cuda") -> TrainState:
+    """The port's seeded params (``lm.init_params``), zero moments and
+    step 0."""
+    params = lm.init_params(cfg, seed=seed, device=device)
+    return TrainState(params=params, opt=optim.adamw_init(params),
+                      step=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of (..., V) logits, in f32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(lse - ll)
+
+
+def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10_000,
+                    num_micro: int = 1, aux_weight: float = 0.01,
+                    remat: bool = True, remat_policy: Optional[str] = "dots",
+                    compute_dtype: torch.dtype = torch.float32):
+    """Build the train step of one architecture. A batch is ``{"tokens",
+    "labels"}`` ((B, T) ints, numpy or tensors) and, for a frontend
+    model, ``"frontend"`` (B, P, F); ``num_micro`` splits B into that many
+    micro-batches whose gradients are averaged. Metrics (0-d tensors):
+    ``loss`` (with the aux term), ``gnorm`` (before the clip), ``lr`` and
+    ``moe_aux``."""
+    rt = dataclasses.replace(rt, remat=remat,
+                             remat_policy=remat_policy or "none")
+
+    def loss_fn(params, batch):
+        dev = batch["tokens"].device
+        with torch.autocast(dev.type, dtype=compute_dtype,
+                            enabled=compute_dtype != torch.float32):
+            loss, aux = lm.forward_xent(params, batch["tokens"],
+                                        batch["labels"], rt, cfg,
+                                        frontend_feats=batch.get("frontend"))
+        return loss + aux_weight * aux, aux
+
+    def train_step(state: TrainState, batch):
+        dev = state.step.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        lr = optim.cosine_lr(state.step, peak=lr_peak, warmup=warmup,
+                             total=total_steps)
+        if num_micro > 1:
+            mb = {k: v.reshape(num_micro, v.shape[0] // num_micro,
+                               *v.shape[1:]) for k, v in batch.items()}
+            loss, grads, aux = accumulate_grads(loss_fn, state.params, mb,
+                                                num_micro=num_micro)
+        else:
+            (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
+        new_params, new_opt, gnorm = optim.adamw_update(
+            grads, state.opt, state.params, lr)
+        metrics = {"loss": loss, "gnorm": gnorm, "lr": lr, "moe_aux": aux}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
+
+    return train_step

@@ -40,12 +40,17 @@ def test_port_modules_and_chip_smoke_import_without_jax():
 
 TP_MODULES = ("repro_torch.serve.tp", "repro_torch.sharding.rules",
               "repro_torch.launch.mesh")
+# the training slice: its modules join no process group either
+TRAIN_MODULES = ("repro_torch.data.pipeline", "repro_torch.train.tree",
+                 "repro_torch.train.optim", "repro_torch.train.grad",
+                 "repro_torch.train.loop", "repro_torch.launch.train")
 
 
-@pytest.mark.parametrize("module", TP_MODULES)
+@pytest.mark.parametrize("module", TP_MODULES + TRAIN_MODULES)
 def test_tensor_parallel_modules_import_without_jax(module):
-    """The tensor-parallel slice's modules import with JAX unavailable,
-    load nothing of ``repro`` and join no process group at import."""
+    """The tensor-parallel and training slices' modules import with JAX
+    unavailable, load nothing of ``repro`` and join no process group at
+    import."""
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
@@ -79,8 +84,8 @@ def test_reference_import_pattern():
 def test_every_port_module_is_checked():
     """The import guards above cover the modules of every slice (the
     W3A8 path, the quantizer kernel, the checkpoints, the paged cache,
-    speculative decoding, the recurrent families and tensor-parallel
-    serving included)."""
+    speculative decoding, the recurrent families, tensor-parallel serving
+    and training included)."""
     names = {p.relative_to(PORT).with_suffix("").as_posix() for p in SOURCES
              if PORT in p.parents}
     assert {"core/act_quant", "kernels/quantize", "kernels/itq3",
@@ -88,4 +93,5 @@ def test_every_port_module_is_checked():
             "serve/paged", "core/prng", "serve/faults", "ft/monitor",
             "serve/spec", "models/ssm", "configs/rwkv6_3b",
             "configs/zamba2_7b", "serve/tp", "sharding/rules",
-            "launch/mesh"} <= names
+            "launch/mesh", "data/pipeline", "train/tree", "train/optim",
+            "train/grad", "train/loop", "launch/train"} <= names
