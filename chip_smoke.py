@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py                 # every phase (1-16), one card
+    python3 chip_smoke.py                 # every phase (1-17), one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --tp-only       # phases 1-2, then 15 (b): the mesh
                                           # over every card (up to 4)
     python3 chip_smoke.py --train-only    # phases 1-2, then 16: training
+    python3 chip_smoke.py --train-mesh-only  # phases 1-2, then 17: training
+                                          # on a mesh of every card (up to 4)
     python3 chip_smoke.py --profile       # also trace a short run of each path
                                           # (its cut sweeps check, untimed)
 
@@ -262,6 +264,32 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    weights (layer-forced 1e-3; K codes parting at rounding ties
    reported); the held-out loss of the initial, trained and quantized
    weights is reported.
+17. Training on a mesh of ranks (``train/sharded.py``), then serving its
+   result: phase 16's model and batches in f32 (TF32 off) on ``world =
+   min(cards, 4)`` spawned NCCL ranks. (a) Three steps from the seeded
+   state on a ``(data=world, model=1)`` mesh, and with four cards also on
+   ``(2, 2)``: every rank's loss and gnorm bit-equal to each other's and
+   within 1e-5 relative of one device's (rank 0's own run, the
+   yardstick); each step's gradients, reduced to the FSDP specs and
+   gathered, within 5e-5 of each leaf's largest; the params within 5e-5,
+   a param parting further only at a noise-floor gradient of some step
+   (counted); per rank ms/step (the median after the first), peak
+   memory, the bytes of its param and moment shards against one
+   device's, the mesh's tokens/s and the bytes each collective moves a
+   step. (b) ``compressed_pod_allreduce`` over a pod axis of ``world``
+   ranks on seeded per-pod gradients, 6 steps: every pod's mean and
+   residuals bit-equal to the numpy model of ``tests/test_train.py`` run
+   here, the time-averaged mean within the last scale of the truth (at
+   world 1 its inputs come back). (c) The first mesh's state saved at step
+   3 (rank 0 writes the whole leaves) and restored onto one device, equal
+   leaf for leaf to the gathered state; with four cards also onto
+   ``plan_remesh(2, model=1)``'s mesh in two fresh ranks, whose next two
+   steps' metrics are held to the uninterrupted one-device run as (a).
+   (a)-(c) launch nothing of ``csrc/``. (d) The checkpoint through the
+   serve launcher's ``--ckpt-dir`` boot on one card as phase 16 (d):
+   ``quantize_blocks``, phase 4's contract, two runs equal, layer-forced
+   logits within 1e-3. On a one-card machine the mesh runs at world 1 and
+   a line says it is not evidence of sharding.
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -4870,19 +4898,23 @@ def hold_grads(label: str, want, got) -> float:
 
 def hold_params(label: str, want, got, ref_grads, tol: float) -> dict:
     """Params within ``tol``, or parted at a noise-floor gradient (see
-    FLIP_FLOOR). Returns the largest difference and the flips."""
+    FLIP_FLOOR) of ``ref_grads`` (a tree, or a list of them: one per step,
+    the floor at any of them). Returns the largest difference and the
+    flips."""
     from repro_torch.train.tree import tree_leaves
 
+    steps = ref_grads if isinstance(ref_grads, list) else [ref_grads]
     worst, flips = 0.0, 0
-    for i, (a, b, g) in enumerate(zip(tree_leaves(want), tree_leaves(got),
-                                      tree_leaves(ref_grads))):
+    for i, (a, b) in enumerate(zip(tree_leaves(want), tree_leaves(got))):
         d = (a.double().cpu() - b.double().cpu()).abs()
         worst = max(worst, float(d.max()))
         apart = d > tol
         if not bool(apart.any()):
             continue
-        g = g.abs().cpu()
-        floor = g < FLIP_FLOOR * g.max()
+        floor = torch.zeros_like(apart)
+        for tree in steps:
+            g = tree_leaves(tree)[i].abs().cpu()
+            floor |= g < FLIP_FLOOR * g.max()
         if bool((apart & ~floor).any()) or float(apart.double().mean()) > (
                 FLIP_SHARE):
             raise AssertionError(f"{label}: param leaf {i} parts by "
@@ -4952,6 +4984,41 @@ def _gib(nbytes) -> str:
     return "not measured" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
 
 
+def serve_trained(ckpt_dir: Path, cfg, dev, out: dict):
+    """A trained checkpoint through the serve launcher's ``--ckpt-dir``
+    boot (``launch/serve.py:restore_trained``), ``itq3_s`` through the
+    ``quantize_blocks`` kernel, then phase 4's requests with ``kv_quant``:
+    launches exactly phase 4's contract, a second run's streams and
+    launches equal, and phase 5's layer-forced parity. Returns (the fp
+    params, the quantized params, the counted run's launches)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve.quantized import quantize_params
+
+    t0 = time.perf_counter()
+    params, _ = serve_mod.restore_trained(str(ckpt_dir), cfg, dev)
+    _build.reset_launches()
+    q = quantize_params(params, "itq3_s")
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    quant_launches = dict(_build.launches)
+    if not quant_launches.get("quantize_blocks"):
+        raise AssertionError(f"quantizing launched {quant_launches}")
+    out["boot"] = dict(boot_s=boot_s, quantize_launches=quant_launches)
+    print(f"  --ckpt-dir boot and itq3_s in {boot_s:.1f} s "
+          f"({quant_launches})", flush=True)
+    prompts = make_prompts(cfg)
+    eng, reqs, wall, counts = serve_run(q, cfg, prompts, dev, count=True)
+    out["serve"] = check_serving("trained float path", eng, reqs, wall,
+                                 counts, cfg, matvec="itq3_matvec",
+                                 matmul="itq3_matmul")
+    _, again, _, counts2 = serve_run(q, cfg, prompts, dev, count=True)
+    if [r.out for r in again] != [r.out for r in reqs] or counts2 != counts:
+        raise AssertionError("two runs on the trained weights differ")
+    print("  a second run: streams and launches equal", flush=True)
+    parity_phase(q, cfg, prompts, dev, out, "parity")
+    return params, q, counts
+
+
 def train_phase(dev, report: dict) -> dict:
     """Phase 16: smollm-135m at full width and depth trained on the card,
     then served from its checkpoint. (a) TRAIN_STEPS steps in bf16
@@ -4975,10 +5042,8 @@ def train_phase(dev, report: dict) -> dict:
     from repro_torch.checkpoint import ckpt as ckpt_mod
     from repro_torch.configs import reduced
     from repro_torch.data.pipeline import SyntheticCorpus
-    from repro_torch.launch import serve as serve_mod
     from repro_torch.models import lm
     from repro_torch.models.layers import Runtime
-    from repro_torch.serve.quantized import quantize_params
     from repro_torch.train import loop
     from repro_torch.train.grad import accumulate_grads
 
@@ -5140,31 +5205,10 @@ def train_phase(dev, report: dict) -> dict:
         raise AssertionError("the restored train state differs from the "
                              "saved one")
     del back
-    t0 = time.perf_counter()
-    params, _ = serve_mod.restore_trained(str(TRAIN_DIR), cfg, dev)
-    _build.reset_launches()
-    q = quantize_params(params, "itq3_s")
-    torch.cuda.synchronize()
-    boot_s = time.perf_counter() - t0
-    quant_launches = dict(_build.launches)
-    if not quant_launches.get("quantize_blocks"):
-        raise AssertionError(f"quantizing launched {quant_launches}")
-    out["ckpt"] = dict(step=step, snapshot_s=snap_s, save_s=save_s,
-                       boot_s=boot_s, quantize_launches=quant_launches)
+    out["ckpt"] = dict(step=step, snapshot_s=snap_s, save_s=save_s)
     print(f"  step {step}: save_async returned in {snap_s:.1f} s, written "
-          f"in {save_s:.1f} s; restored equal leaf for leaf; --ckpt-dir "
-          f"boot and itq3_s in {boot_s:.1f} s ({quant_launches})",
-          flush=True)
-    prompts = make_prompts(cfg)
-    eng, reqs, wall, counts = serve_run(q, cfg, prompts, dev, count=True)
-    out["serve"] = check_serving("trained float path", eng, reqs, wall,
-                                 counts, cfg, matvec="itq3_matvec",
-                                 matmul="itq3_matmul")
-    _, again, _, counts2 = serve_run(q, cfg, prompts, dev, count=True)
-    if [r.out for r in again] != [r.out for r in reqs] or counts2 != counts:
-        raise AssertionError("two runs on the trained weights differ")
-    print("  a second run: streams and launches equal", flush=True)
-    parity_phase(q, cfg, prompts, dev, out, "parity")
+          f"in {save_s:.1f} s; restored equal leaf for leaf", flush=True)
+    params, q, counts = serve_trained(TRAIN_DIR, cfg, dev, out)
     # reported only: what training and quantizing did to a held-out loss
     ev = next(SyntheticCorpus(cfg.vocab_size, seed=17).eval_batches(
         1, TRAIN_BATCH, TRAIN_SEQ))
@@ -5178,6 +5222,499 @@ def train_phase(dev, report: dict) -> dict:
           f"{out['eval_xent']['trained_itq3_s']:.4f}", flush=True)
     report["train"] = out
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return counts
+
+
+# --- phase 17: training on a mesh of ranks ---------------------------------
+
+# (a) three f32 steps of phase 16's model and batches from the seeded state
+# on every mesh; (c) two more after an elastic resume. Params held as
+# tests/test_torch_train_mesh.py holds three steps: MESH_PARAM_TOL, and
+# the flip rule of FLIP_FLOOR / FLIP_SHARE.
+MESH_STEPS, MESH_RESUME_STEPS = 3, 2
+MESH_PARAM_TOL, MESH_REL_TOL = 5e-5, 1e-5
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+# (b) the pod exchange: seeded per-pod gradients, the reference test's
+# 64-element leaf and a projection of smollm's width, POD_STEPS steps
+POD_LEAVES = {"v": (64,), "gate": (576, 1536)}
+POD_STEPS = 6
+
+
+def mesh_shapes(world: int) -> list:
+    """(a)'s meshes: every rank on ``data``; with four, also (2, 2)."""
+    return [{"data": world, "model": 1}] + (
+        [{"data": 2, "model": 2}] if world == 4 else [])
+
+
+def mesh_step_grads(cfg, state, batch, mesh, specs):
+    """The f32 train loss's gradients at ``state`` (no remat), whole: on a
+    mesh this rank's rows, the params gathered, the gradients reduced to
+    the specs and gathered again (every rank calls it)."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import sharded
+    from repro_torch.train.grad import value_and_grad
+
+    rt = sharded.batch_runtime(Runtime(capacity_factor=2.0), mesh)
+    params = state.params
+    if mesh is not None:
+        batch = sharded.split_batch(batch, mesh, make_rules(mesh, cfg))
+        params = sharded.gather_params(params, specs.params, mesh)
+
+    def loss(p, b):
+        xent, aux = lm.forward_xent(p, b["tokens"], b["labels"], rt, cfg)
+        return xent + 0.01 * aux, aux
+    dev = state.step.device
+    _, grads = value_and_grad(loss, params, {
+        k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    del params
+    if mesh is None:
+        return grads
+    grads = sharded.reduce_grads(grads, specs.params, mesh)
+    return sharded.gather_params(grads, specs.params, mesh)
+
+
+def mesh_train(cfg, dev, mesh, *, steps: int, start: int = 0, state=None,
+               on_grads=None):
+    """``steps`` f32 steps (remat "dots", TF32 off) of ``cfg`` on ``mesh``
+    (None: one device) from the seeded state (or ``state``, this rank's
+    slices), over phase 16's batches ``start ..``. Before each step
+    ``on_grads(s, whole grads)`` sees the step's gradients (computed apart,
+    untimed). Returns (state, specs, per-step metrics as floats, host ms
+    per step ending in the metrics' transfer, the steps' peak memory)."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch.mesh import barrier
+    from repro_torch.models.layers import Runtime
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import loop
+
+    specs = None
+    if mesh is not None:
+        specs = loop.state_specs(cfg, make_rules(mesh, cfg))
+    if state is None:
+        state = loop.init_train_state(cfg, seed=0, device=dev, mesh=mesh,
+                                      specs=specs)
+    step = loop.make_train_step(cfg, Runtime(capacity_factor=2.0),
+                                compute_dtype=torch.float32, mesh=mesh,
+                                specs=specs, **TRAIN_KW)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=17)
+    metrics, ms, peak = [], [], 0
+    for s in range(start, start + steps):
+        b = corpus.batch(s, TRAIN_BATCH, TRAIN_SEQ)
+        if on_grads is not None:
+            on_grads(s, mesh_step_grads(cfg, state, b, mesh, specs))
+        torch.cuda.synchronize()
+        if mesh is not None:  # every rank starts the timed step together
+            barrier(mesh)
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        m = {k: float(v) for k, v in m.items()}  # waits for the step
+        ms.append(1e3 * (time.perf_counter() - t0))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        metrics.append(m)
+    return state, specs, metrics, ms, peak
+
+
+def state_bytes(state) -> int:
+    """Bytes of a train state's params and both moments (this rank's)."""
+    from repro_torch.train.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for tree in (
+        state.params, state.opt.mu, state.opt.nu) for t in tree_leaves(tree))
+
+
+def collective_bytes(specs, cfg, shape: dict) -> dict:
+    """Bytes one mesh step moves through each collective on a rank, from
+    the specs and the f32 leaf sizes: ``all_gather`` the whole leaves a
+    gather builds; ``reduce_scatter`` the inputs of the reduce-scatters
+    (a leaf's model slice, where it has a data dim); ``all_reduce`` those
+    of the all-reduces (the leaves with no data dim, when data > 1)."""
+    from repro_torch.models import lm
+    from repro_torch.train.tree import tree_leaves
+
+    leaves = tree_leaves(lm.init_params(cfg, seed=0, device="meta"))
+    out = dict(all_gather=0, reduce_scatter=0, all_reduce=0)
+    for leaf, spec in zip(leaves, tree_leaves(specs.params)):
+        whole = leaf.numel() * 4
+        if any(ax is not None for ax in spec):
+            out["all_gather"] += whole
+        part = whole // shape["model"] if "model" in spec else whole
+        if "data" in spec:
+            out["reduce_scatter"] += part
+        elif shape["data"] > 1:
+            out["all_reduce"] += part
+    return out
+
+
+def collective_ms(state, specs, mesh) -> dict:
+    """Host ms of a step's param gathers alone and of its gradient
+    reduction alone (on the gathered params as gradients), each started
+    by every rank together and ended by a synchronize."""
+    from repro_torch.launch.mesh import barrier
+    from repro_torch.train import sharded
+
+    def timed(fn):
+        barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+    whole, ag = timed(lambda: sharded.gather_params(state.params,
+                                                    specs.params, mesh))
+    _, red = timed(lambda: sharded.reduce_grads(whole, specs.params, mesh))
+    return dict(all_gather=ag, reduce=red)
+
+
+def pod_grads(world: int, pod: int) -> dict:
+    """Pod ``pod``'s seeded partial gradient tree (f32 numpy)."""
+    rng = np.random.default_rng(17)
+    trees = [{k: rng.normal(size=shape).astype(np.float32)
+              for k, shape in POD_LEAVES.items()} for _ in range(world)]
+    return trees[pod]
+
+
+def pod_model(world: int) -> list:
+    """``tests/test_train.py``'s numpy model of the exchange, in f32, on
+    ``world`` pods: per step (the mean, each pod's residuals, the
+    scales)."""
+    pods = [pod_grads(world, p) for p in range(world)]
+    errs = [{k: np.zeros_like(v) for k, v in g.items()} for g in pods]
+    out = []
+    for _ in range(POD_STEPS):
+        mean, new, scales = {}, [{} for _ in pods], {}
+        for k in POD_LEAVES:
+            xs = [g[k] + e[k] for g, e in zip(pods, errs)]
+            amax = max(np.abs(x).max() for x in xs)
+            scale = np.float32(max(amax, np.float32(1e-12))) / np.float32(127)
+            qs = [np.clip(np.round(x / scale), -127, 127) for x in xs]
+            for p, (x, q) in enumerate(zip(xs, qs)):
+                new[p][k] = x - q * scale
+            mean[k] = sum(qs) * scale / np.float32(world)
+            scales[k] = scale
+        errs = new
+        out.append((mean, errs, scales))
+    return out
+
+
+def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase 17 (a)-(c) on ``cuda:rank``. Rank 0 first runs
+    the single-device yardstick (MESH_STEPS + MESH_RESUME_STEPS steps) and
+    keeps its gradients; then every rank joins the NCCL group and trains
+    on each mesh of ``mesh_shapes``, rank 0 holding each step's whole
+    gradients, then the params, to the yardstick's; the first mesh's state
+    is saved (c), gathered, and rank 0 restores it onto its one device;
+    last the pod exchange (b). Each rank saves its results."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop, sharded
+    from repro_torch.train.grad import (compressed_pod_allreduce,
+                                        zeros_error_buf)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    cfg = get_config("smollm-135m")
+    res: dict = {"meshes": []}
+    _build.reset_launches()
+    if rank == 0:  # the yardstick: one device, then (c)'s two steps on
+        yard_grads = {}
+        one, _, m1, ms1, _ = mesh_train(
+            cfg, dev, None, steps=MESH_STEPS,
+            on_grads=yard_grads.__setitem__)
+        yard_params = one.params
+        _, _, m2, _, _ = mesh_train(cfg, dev, None, steps=MESH_RESUME_STEPS,
+                                    start=MESH_STEPS, state=one)
+        res["one_device"] = dict(metrics=m1 + m2, ms=ms1,
+                                 state_bytes=state_bytes(one))
+        del one
+    try:
+        for i, shape in enumerate(mesh_shapes(world)):
+            mesh = make_mesh(shape, device=dev, init_method=store, rank=rank,
+                             world_size=world)
+            held = {"grad_worst": 0.0}
+
+            def on_grads(s, g):
+                if rank == 0:
+                    held["grad_worst"] = max(held["grad_worst"], hold_grads(
+                        f"mesh {shape} step {s}", yard_grads[s], g))
+            state, specs, m, ms, peak = mesh_train(
+                cfg, dev, mesh, steps=MESH_STEPS, on_grads=on_grads)
+            row = dict(shape=shape, metrics=m, ms=ms, peak_mem_bytes=peak,
+                       state_bytes=state_bytes(state),
+                       collective_bytes=collective_bytes(specs, cfg, shape),
+                       collective_ms=collective_ms(state, specs, mesh))
+            whole = sharded.gather_params(state.params, specs.params, mesh)
+            if rank == 0:
+                row.update(grad_worst=held["grad_worst"], **hold_params(
+                    f"mesh {shape}", yard_params, whole,
+                    list(yard_grads.values()), MESH_PARAM_TOL))
+            del whole
+            if i == 0:  # (c) the save, then a restore onto one device
+                places = sharded.placements(specs, mesh)
+                t0 = time.perf_counter()
+                ckpt_mod.save(str(MESH_DIR / "ckpt"), MESH_STEPS, state,
+                              shardings=places)
+                res["save_s"] = time.perf_counter() - t0
+                gathered = sharded.map_state(lambda t, p: p.gather(t), state,
+                                             places)
+                if rank == 0:
+                    back, got = ckpt_mod.restore(
+                        str(MESH_DIR / "ckpt"), loop.init_train_state(
+                            cfg, seed=1, device=dev))
+                    res["restore_equal"] = (
+                        got == int(back.step) == int(back.opt.step)
+                        == MESH_STEPS and all(tree_bytes_equal(a, b) for a, b
+                                              in ((back.params,
+                                                   gathered.params),
+                                                  (back.opt.mu,
+                                                   gathered.opt.mu),
+                                                  (back.opt.nu,
+                                                   gathered.opt.nu))))
+                    del back
+                del gathered
+            res["meshes"].append(row)
+            del state
+            torch.cuda.empty_cache()
+        # (b) the pod exchange over every rank
+        mesh = make_mesh({"pod": world, "data": 1, "model": 1}, device=dev,
+                         init_method=store, rank=rank, world_size=world)
+        g = {k: torch.from_numpy(v)[None].to(dev)
+             for k, v in pod_grads(world, rank).items()}
+        e = zeros_error_buf(g)
+        pod, pod_ms = [], []
+        for _ in range(POD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            red, new_e = compressed_pod_allreduce(g, e, mesh)
+            torch.cuda.synchronize()
+            pod_ms.append(1e3 * (time.perf_counter() - t0))
+            if world == 1 and (red is not g or new_e is not e):
+                raise AssertionError("one pod: the exchange must return its "
+                                     "inputs")
+            pod.append(({k: v.cpu() for k, v in red.items()},
+                        {k: v.cpu() for k, v in new_e.items()}))
+            e = new_e
+        res.update(pod=pod, pod_ms=pod_ms, launches=dict(_build.launches))
+        torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def remesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase 17 (c)'s elastic resume: the mesh ``plan_remesh(
+    world, model=1)`` gives, restored from the saved checkpoint through
+    its placements, then MESH_RESUME_STEPS more steps."""
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.ft.monitor import plan_remesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import loop, sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    cfg = get_config("smollm-135m")
+    plan = plan_remesh(world, model=1)
+    try:
+        mesh = make_mesh({"data": plan.data, "model": plan.model},
+                         device=dev, init_method=store, rank=rank,
+                         world_size=world)
+        specs = loop.state_specs(cfg, make_rules(mesh, cfg))
+        template = loop.init_train_state(cfg, seed=1, device=dev, mesh=mesh,
+                                         specs=specs)
+        state, start = ckpt_mod.restore(str(MESH_DIR / "ckpt"), template,
+                                        shardings=sharded.placements(specs,
+                                                                     mesh))
+        _, _, m, ms, _ = mesh_train(cfg, dev, mesh, steps=MESH_RESUME_STEPS,
+                                    start=start, state=state)
+        torch.save(dict(shape=dict(mesh.shape), start=start, metrics=m,
+                        ms=ms), Path(out_dir) / f"remesh{rank}.pt")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _metrics_close(label: str, got: dict, want: dict) -> None:
+    for k in ("loss", "gnorm", "moe_aux"):
+        if not abs(got[k] - want[k]) <= MESH_REL_TOL * max(abs(want[k]),
+                                                            1e-30):
+            raise AssertionError(f"{label}: {k} {got[k]!r} vs one device's "
+                                 f"{want[k]!r}")
+    if got["lr"] != want["lr"]:
+        raise AssertionError(f"{label}: lr {got['lr']} vs {want['lr']}")
+
+
+def mesh_phase(dev, report: dict) -> dict:
+    """Phase 17: smollm-135m at full width and depth trained on a mesh of
+    ``world = min(cards, 4)`` spawned NCCL ranks, f32 (TF32 off), phase
+    16's batches. (a) MESH_STEPS steps from the seeded state on a
+    ``(data=world, model=1)`` mesh (and (2, 2) with four cards): every
+    rank's metrics bit-equal to each other's and within 1e-5 relative of
+    one device's, each step's gradients within 5e-5 of each leaf's largest,
+    the params within MESH_PARAM_TOL under the flip rule; per rank ms/step,
+    tokens/s, peak memory, the state's bytes against one device's and the
+    bytes each collective moves. (b) ``compressed_pod_allreduce`` over a
+    pod axis of ``world`` ranks: equal on every pod, equal to the numpy
+    model of ``tests/test_train.py`` step by step, the time-averaged mean
+    within a scale of the truth (at world 1: its inputs back). (c) The
+    first mesh's state saved at step MESH_STEPS and restored onto one
+    device equal leaf for leaf; with four cards also onto ``plan_remesh(2,
+    model=1)``'s mesh, whose next MESH_RESUME_STEPS steps' metrics must
+    equal an uninterrupted one-device run's within (a)'s bounds. (a)-(c)
+    launch nothing of ``csrc/``. (d) The checkpoint through the serve
+    launcher's ``--ckpt-dir`` boot on one card (``serve_trained``).
+    Returns (d)'s counted launches."""
+    out: dict = {}
+    cfg = get_config("smollm-135m")
+    world = min(torch.cuda.device_count(), 4)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 17 (a): train {cfg.name} on a mesh of {world} NCCL "
+          f"rank(s) {[tuple(s.values()) for s in mesh_shapes(world)]} "
+          f"(data, model), {MESH_STEPS} f32 steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, against one device", flush=True)
+    if world == 1:
+        print("  one card: the mesh path runs at world 1 (no leaf sharded, "
+              "no collective); not evidence of sharding", flush=True)
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        mesh_rank, args=(world, f"file://{MESH_DIR / 'store'}",
+                         str(MESH_DIR)), nprocs=world, start_method="spawn")
+    out["spawn_s"] = time.perf_counter() - t0
+    ranks = [torch.load(MESH_DIR / f"rank{r}.pt") for r in range(world)]
+    one = ranks[0]["one_device"]
+    one_ms = statistics.median(one["ms"][1:])
+    out["one_device"] = dict(ms_per_step=one_ms, metrics=one["metrics"],
+                             state_bytes=one["state_bytes"])
+    out["meshes"] = []
+    for i, row0 in enumerate(ranks[0]["meshes"]):
+        shape = row0["shape"]
+        label = f"mesh {tuple(shape.values())}"
+        for r, res in enumerate(ranks):
+            if res["meshes"][i]["metrics"] != row0["metrics"]:
+                raise AssertionError(f"{label}: rank {r}'s metrics differ "
+                                     f"from rank 0's")
+        for s, (got, want) in enumerate(zip(row0["metrics"],
+                                            one["metrics"])):
+            _metrics_close(f"{label} step {s}", got, want)
+        per_rank = []
+        for r, res in enumerate(ranks):
+            row = res["meshes"][i]
+            med = statistics.median(row["ms"][1:])
+            per_rank.append(dict(ms_per_step=med, ms=row["ms"],
+                                 peak_mem_bytes=row["peak_mem_bytes"],
+                                 state_bytes=row["state_bytes"],
+                                 collective_ms=row["collective_ms"]))
+        cb = row0["collective_bytes"]
+        out["meshes"].append(dict(
+            shape=shape, ranks=per_rank, collective_bytes=cb,
+            grad_worst=row0["grad_worst"], params_max_abs=row0["max_abs"],
+            flips=row0["flips"], metrics=row0["metrics"],
+            tokens_per_s=tokens / max(p["ms_per_step"] for p in per_rank)
+            * 1e3))
+        for r, p in enumerate(per_rank):
+            print(f"  {label} rank {r}: {p['ms_per_step']:.1f} ms/step "
+                  f"(median after the first; one device {one_ms:.1f}), peak "
+                  f"memory {_gib(p['peak_mem_bytes'])}, params and "
+                  f"moments {p['state_bytes'] / 1e9:.3f} GB (one device "
+                  f"{one['state_bytes'] / 1e9:.3f}); alone, the gathers "
+                  f"{p['collective_ms']['all_gather']:.1f} ms and the "
+                  f"gradient reduction {p['collective_ms']['reduce']:.1f} "
+                  f"ms", flush=True)
+        print(f"  {label}: {out['meshes'][-1]['tokens_per_s']:.0f} tokens/s "
+              f"for the mesh; per step all-gathered "
+              f"{cb['all_gather'] / 1e9:.3f} GB, reduce-scattered "
+              f"{cb['reduce_scatter'] / 1e9:.3f} GB, all-reduced "
+              f"{cb['all_reduce'] / 1e9:.4f} GB; every rank's loss and "
+              f"gnorm bit-equal ({_bits(row0['metrics'][-1]['loss'])}, "
+              f"{_bits(row0['metrics'][-1]['gnorm'])}), within "
+              f"{MESH_REL_TOL} of one device's; gradients within "
+              f"{row0['grad_worst']:.2e} of each leaf's largest; params "
+              f"{row0['max_abs']:.2e} apart ({row0['flips']} noise-floor "
+              f"flips)", flush=True)
+    launched = {r: res["launches"] for r, res in enumerate(ranks)
+                if res["launches"]}
+    if launched:
+        raise AssertionError(f"mesh training launched {launched}")
+
+    print(f"phase 17 (b): compressed_pod_allreduce over {world} pod(s), "
+          f"{POD_STEPS} steps", flush=True)
+    model = pod_model(world)
+    for r, res in enumerate(ranks):
+        for s, ((mean, errs, _), (red, err)) in enumerate(zip(model,
+                                                              res["pod"])):
+            for k in POD_LEAVES:
+                want_mean = (pod_grads(world, r)[k] if world == 1
+                             else mean[k])
+                want_err = np.zeros_like(want_mean) if world == 1 else (
+                    errs[r][k])
+                if not (np.array_equal(red[k][0].numpy(), want_mean)
+                        and np.array_equal(err[k][0].numpy(), want_err)):
+                    raise AssertionError(f"pod exchange: rank {r} step {s} "
+                                         f"leaf {k} differs from the numpy "
+                                         f"model")
+    pod_err = {}
+    for k in POD_LEAVES:
+        truth = np.mean([pod_grads(world, p)[k] for p in range(world)],
+                        axis=0)
+        avg = np.mean([r[k][0].numpy() for r, _ in ranks[0]["pod"]], axis=0)
+        pod_err[k] = float(np.abs(avg - truth).max())
+        if world > 1 and not pod_err[k] <= model[-1][2][k]:
+            raise AssertionError(f"pod exchange: time-averaged error "
+                                 f"{pod_err[k]} over the scale "
+                                 f"{model[-1][2][k]}")
+    pod_ms = statistics.median(ranks[0]["pod_ms"][1:])
+    out["pod"] = dict(world=world, err=pod_err, ms=pod_ms)
+    print(f"  every pod equal to the numpy model bit for bit; time-averaged "
+          f"error {pod_err}; {pod_ms:.3f} ms per exchange (median after "
+          f"the first)", flush=True)
+
+    first = tuple(mesh_shapes(world)[0].values())
+    print(f"phase 17 (c): the state saved from mesh {first} at step "
+          f"{MESH_STEPS}, restored onto one device", flush=True)
+    if not ranks[0].get("restore_equal"):
+        raise AssertionError("the restored state differs from the gathered "
+                             "mesh state")
+    out["ckpt"] = dict(save_s=ranks[0]["save_s"])
+    print(f"  saved in {ranks[0]['save_s']:.1f} s; restored equal leaf for "
+          f"leaf", flush=True)
+    if world == 4:
+        from repro_torch.ft.monitor import plan_remesh
+        plan = plan_remesh(2, model=1)
+        torch.multiprocessing.start_processes(
+            remesh_rank, args=(plan.devices, f"file://{MESH_DIR / 'store2'}",
+                               str(MESH_DIR)), nprocs=plan.devices,
+            start_method="spawn")
+        rem = [torch.load(MESH_DIR / f"remesh{r}.pt")
+               for r in range(plan.devices)]
+        for r, res in enumerate(rem):
+            if res["start"] != MESH_STEPS or res["metrics"] != rem[0][
+                    "metrics"]:
+                raise AssertionError(f"elastic resume: rank {r} {res}")
+        for s, got in enumerate(rem[0]["metrics"]):
+            _metrics_close(f"elastic resume step {MESH_STEPS + s}", got,
+                           one["metrics"][MESH_STEPS + s])
+        out["remesh"] = dict(shape=rem[0]["shape"], metrics=rem[0]["metrics"],
+                             ms=[r["ms"] for r in rem])
+        print(f"  resumed onto plan_remesh(2, model=1)'s mesh "
+              f"{rem[0]['shape']}: steps {MESH_STEPS}-"
+              f"{MESH_STEPS + MESH_RESUME_STEPS - 1} within {MESH_REL_TOL} "
+              f"of the uninterrupted one-device run", flush=True)
+
+    print("phase 17 (d): the mesh-trained checkpoint through the serve "
+          "launcher's --ckpt-dir boot on one card", flush=True)
+    _, _, counts = serve_trained(MESH_DIR / "ckpt", cfg, dev, out)
+    report["mesh"] = out
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
     return counts
 
 
@@ -5239,6 +5776,10 @@ def main(argv=None) -> int:
                     help="build the kernels, then run phase 16 alone: "
                          "training on one card, then serving the trained "
                          "weights")
+    ap.add_argument("--train-mesh-only", action="store_true",
+                    help="build the kernels, then run phase 17 alone: "
+                         "training on a mesh of every card (up to 4), then "
+                         "serving the mesh-trained weights")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5265,13 +5806,17 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k}: {line.strip()}")
 
-    if args.tp_only or args.train_only:
+    if args.tp_only or args.train_only or args.train_mesh_only:
+        t0 = time.perf_counter()
         if args.tp_only:
             tp_phase(dev, report, shards=False)
-        else:
-            t0 = time.perf_counter()
+        elif args.train_only:
             report["train_launches"] = train_phase(dev, report)
             print(f"phase walls (s): 16 {time.perf_counter() - t0:.1f}",
+                  flush=True)
+        else:
+            report["mesh_launches"] = mesh_phase(dev, report)
+            print(f"phase walls (s): 17 {time.perf_counter() - t0:.1f}",
                   flush=True)
         DETAILS.parent.mkdir(parents=True, exist_ok=True)
         DETAILS.write_text(json.dumps(report, indent=1, default=str))
@@ -5398,6 +5943,10 @@ def main(argv=None) -> int:
         # path (its launches are held to phase 4's contract in the phase)
         report["train_launches"] = train_phase(dev, report)
         lap("16")
+        # phase 17: training on a mesh of ranks, then the mesh-trained
+        # weights served (held to phase 4's contract in the phase)
+        report["mesh_launches"] = mesh_phase(dev, report)
+        lap("17")
     names = list(laps)
     report["phase_s"] = {b: laps[b] - laps[a] for a, b in zip(names,
                                                                names[1:])}

@@ -26,6 +26,16 @@ its template holds the fp weight.
 :func:`save_async` (the training loop's) blocks only for the copy to host
 memory and writes on a daemon thread; :func:`wait_pending` joins every
 write still running.
+
+On a mesh of ranks (``shardings``: a tree of
+:class:`~repro_torch.launch.mesh.Placement` matching the tree, as
+``train/sharded.py:placements`` gives it) a save gathers each leaf to
+whole size, one leaf at a time (a collective: every rank calls it), and
+rank 0 writes the files a single process writes; every rank then meets at
+a barrier (for :func:`save_async`, in :func:`wait_pending`), so no rank
+sees the step before it is committed. A restore reads each rank's rows of
+each mapped ``.npy`` through its placement: resuming onto a mesh of
+another shape (elastic) is the same path as a plain resume.
 """
 from __future__ import annotations
 
@@ -40,13 +50,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantize import QMeta, QTensor
+from repro_torch.launch.mesh import Placement, barrier
 
 __all__ = ["save", "save_async", "wait_pending", "latest_step", "restore",
            "restore_tree", "restore_params"]
 
 _SEP = "__"
 _QMARK = _SEP + "Q" + _SEP  # <leafpath>__Q__<datakey>.npy
-_pending: list[threading.Thread] = []
+# (the writer thread, or None on a mesh rank that writes nothing; the mesh)
+_pending: list[tuple[Optional[threading.Thread], Any]] = []
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -74,9 +86,11 @@ def _path(prefix: str, key: str) -> str:
     return f"{prefix}{_SEP}{key}" if prefix else key
 
 
-def _flatten(tree, prefix: str = "", flat=None, qmetas=None):
-    """Path-flatten ``tree`` in JAX's order; QTensor leaves expand to
-    their packed arrays plus a JSON-able meta record."""
+def _flatten(tree, prefix: str = "", flat=None, qmetas=None, place=None):
+    """Path-flatten ``tree`` in JAX's order into ``{key: (leaf,
+    placement)}`` (the placement from the parallel tree ``place``, None
+    without one); QTensor leaves expand to their packed arrays plus a
+    JSON-able meta record."""
     flat = {} if flat is None else flat
     qmetas = {} if qmetas is None else qmetas
     children = _children(tree)
@@ -84,73 +98,122 @@ def _flatten(tree, prefix: str = "", flat=None, qmetas=None):
         keys = sorted(tree.data)
         qmetas[prefix] = {"meta": tree.meta.to_dict(), "keys": keys}
         for dkey in keys:
-            flat[prefix + _QMARK + dkey] = _to_numpy(tree.data[dkey])
+            flat[prefix + _QMARK + dkey] = (tree.data[dkey], None)
     elif children is not None:
+        places = dict(_children(place)) if place is not None else {}
         for k, child in children:
-            _flatten(child, _path(prefix, k), flat, qmetas)
+            _flatten(child, _path(prefix, k), flat, qmetas, places.get(k))
     else:
-        flat[prefix] = _to_numpy(torch.as_tensor(tree))
+        flat[prefix] = (tree, place)
     return flat, qmetas
 
 
-def _to_host(tree):
+def _mesh_of(shardings):
+    """The mesh of a tree of placements (None for no tree)."""
+    if shardings is None:
+        return None
+    if isinstance(shardings, Placement):
+        return shardings.mesh
+    return next(m for m in (_mesh_of(c) for _, c in _children(shardings))
+                if m is not None)
+
+
+def _whole(leaf, place) -> np.ndarray:
+    """A leaf as a whole host array (gathered over the mesh first when it
+    has a placement)."""
+    if place is not None:
+        leaf = place.gather(leaf)
+    return _to_numpy(leaf if isinstance(leaf, np.ndarray)
+                     else torch.as_tensor(leaf))
+
+
+def _to_host(tree, place=None, keep: bool = True):
     """A copy of ``tree`` with every tensor a host numpy array of its own
-    (dicts, dataclasses and QTensors rebuilt around them)."""
+    (dicts, dataclasses and QTensors rebuilt around them), each leaf with
+    a placement in ``place`` gathered whole first. ``keep=False`` (a mesh
+    rank that writes nothing) takes part in the gathers and keeps
+    nothing."""
     if isinstance(tree, QTensor):
         return QTensor({k: _to_host(v) for k, v in tree.data.items()},
                        tree.meta)
     children = _children(tree)
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in children}
     if children is not None:
-        return dataclasses.replace(tree, **{k: _to_host(v)
-                                            for k, v in children})
+        places = dict(_children(place)) if place is not None else {}
+        host = {k: _to_host(v, places.get(k), keep) for k, v in children}
+        if isinstance(tree, dict):
+            return host
+        return dataclasses.replace(tree, **host)
+    if place is not None:
+        tree = place.gather(tree)
+    if not keep:
+        return None
     if isinstance(tree, torch.Tensor):
         return _to_numpy(tree.detach().to("cpu", copy=True))
     return np.array(tree)
 
 
-def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
+         shardings=None) -> str:
     """Write ``tree`` (nested dicts and dataclasses of tensors, numpy
     arrays and QTensors) as checkpoint ``step``; keeps the ``keep`` newest
-    committed steps. Returns its path."""
-    flat, qmetas = _flatten(tree)
+    committed steps. Returns its path. ``shardings``: the tree's
+    placements on a mesh (every rank calls it; rank 0 writes; all meet at
+    a barrier before it returns)."""
+    mesh = _mesh_of(shardings)
+    writer = mesh is None or mesh.rank == 0
+    flat, qmetas = _flatten(tree, place=shardings)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
     meta: dict[str, Any] = {"step": step, "leaves": {}, "qtensors": qmetas}
-    for key, arr in flat.items():
-        np.save(os.path.join(tmp, key + ".npy"), arr)
-        meta["leaves"][key] = {"shape": list(arr.shape),
-                               "dtype": str(arr.dtype)}
-    with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    with open(os.path.join(tmp, "_COMMITTED"), "w") as f:
-        f.write("ok")
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _gc(ckpt_dir, keep)
+    for key, (leaf, place) in flat.items():
+        arr = _whole(leaf, place)  # one leaf on the device at a time
+        if writer:
+            np.save(os.path.join(tmp, key + ".npy"), arr)
+            meta["leaves"][key] = {"shape": list(arr.shape),
+                                   "dtype": str(arr.dtype)}
+    if writer:
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        with open(os.path.join(tmp, "_COMMITTED"), "w") as f:
+            f.write("ok")
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _gc(ckpt_dir, keep)
+    if mesh is not None:
+        barrier(mesh)
     return final
 
 
-def save_async(ckpt_dir: str, step: int, tree, *,
-               keep: int = 3) -> threading.Thread:
+def save_async(ckpt_dir: str, step: int, tree, *, keep: int = 3,
+               shardings=None) -> Optional[threading.Thread]:
     """Snapshot ``tree`` to host memory (the one blocking part: the
-    device-to-host copies), then :func:`save` it on a daemon thread.
-    Returns the thread; :func:`wait_pending` joins it."""
-    host = _to_host(tree)
-    th = threading.Thread(target=save, args=(ckpt_dir, step, host),
-                          kwargs={"keep": keep}, daemon=True)
-    th.start()
-    _pending.append(th)
+    device-to-host copies, and on a mesh the gathers), then :func:`save`
+    it on a daemon thread. Returns the thread (None on a mesh rank that
+    writes nothing); :func:`wait_pending` joins it."""
+    mesh = _mesh_of(shardings)
+    writer = mesh is None or mesh.rank == 0
+    host = _to_host(tree, shardings, keep=writer)
+    th = None
+    if writer:
+        th = threading.Thread(target=save, args=(ckpt_dir, step, host),
+                              kwargs={"keep": keep}, daemon=True)
+        th.start()
+    _pending.append((th, mesh))
     return th
 
 
 def wait_pending() -> None:
-    """Join every :func:`save_async` write still running."""
+    """Join every :func:`save_async` write still running; on a mesh every
+    rank then meets at a barrier per save (every rank calls it)."""
     while _pending:
-        _pending.pop().join()
+        th, mesh = _pending.pop()
+        if th is not None:
+            th.join()
+        if mesh is not None:
+            barrier(mesh)
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
@@ -186,36 +249,58 @@ def _load_qtensor(d: str, key: str, rec: dict, device) -> QTensor:
         for k in rec["keys"]}, QMeta.from_dict(rec["meta"]))
 
 
+def _mapped(d: str, key: str) -> np.ndarray:
+    """A leaf's ``.npy`` memory-mapped (read whole where it cannot be)."""
+    path = os.path.join(d, key + ".npy")
+    try:
+        return np.load(path, mmap_mode="r")
+    except ValueError:  # an empty array has nothing to map
+        return np.load(path)
+
+
 def restore(ckpt_dir: str, template, *, step: Optional[int] = None,
-            device=None):
+            device=None, shardings=None):
     """Rebuild a ``template``-shaped tree (dicts, dataclasses, tensors,
     QTensors) from checkpoint ``step`` (default: the latest). A leaf takes
     its template's dtype and goes to ``device`` (default: the template
     leaf's). A leaf saved as a QTensor is rebuilt as a QTensor (its QMeta
     from ``meta.json``) whether the template holds one or the fp weight.
-    Returns ``(tree, step)``."""
+    ``shardings``: a tree of placements matching ``template`` (whose
+    leaves are then this rank's slices): each leaf is read as this rank's
+    rows of its mapped file, onto the placement's device; a QTensor's
+    arrays each through the placement at its slot. Returns ``(tree,
+    step)``."""
     d, step = _step_dir(ckpt_dir, step)
     with open(os.path.join(d, "meta.json")) as f:
         qmetas = json.load(f).get("qtensors", {})
 
-    def build(node, key: str):
+    def build(node, key: str, place):
         dev = device
         if key in qmetas:
+            rec = qmetas[key]
+            if place is not None:
+                return QTensor({k: place(_mapped(d, key + _QMARK + k))
+                                for k in rec["keys"]},
+                               QMeta.from_dict(rec["meta"]))
             if dev is None:
                 dev = (next(iter(node.data.values())).device
                        if isinstance(node, QTensor) else node.device)
-            return _load_qtensor(d, key, qmetas[key], dev)
+            return _load_qtensor(d, key, rec, dev)
         children = _children(node)
-        if isinstance(node, dict):
-            return {k: build(c, _path(key, k)) for k, c in children}
         if children is not None:
-            return dataclasses.replace(node, **{
-                k: build(c, _path(key, k)) for k, c in children})
+            places = dict(_children(place)) if place is not None else {}
+            built = {k: build(c, _path(key, k), places.get(k))
+                     for k, c in children}
+            if isinstance(node, dict):
+                return built
+            return dataclasses.replace(node, **built)
+        if place is not None:
+            return place(_mapped(d, key)).to(dtype=node.dtype)
         arr = torch.from_numpy(np.load(os.path.join(d, key + ".npy")))
         return arr.to(device=node.device if dev is None else dev,
                       dtype=node.dtype)
 
-    return build(template, ""), step
+    return build(template, "", shardings), step
 
 
 def restore_tree(ckpt_dir: str, *, step: Optional[int] = None,
@@ -237,13 +322,6 @@ def restore_tree(ckpt_dir: str, *, step: Optional[int] = None,
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
     qmetas = meta.get("qtensors", {})
-
-    def mapped(key: str) -> np.ndarray:
-        path = os.path.join(d, key + ".npy")
-        try:
-            return np.load(path, mmap_mode="r")
-        except ValueError:  # an empty array has nothing to map
-            return np.load(path)
 
     def load(arr: np.ndarray) -> torch.Tensor:
         # a copy: the mapped file stays read-only and unshared
@@ -270,13 +348,13 @@ def restore_tree(ckpt_dir: str, *, step: Optional[int] = None,
 
     for key, rec in qmetas.items():
         insert(key, place(key, QTensor(
-            {k: mapped(key + _QMARK + k) for k in rec["keys"]},
+            {k: _mapped(d, key + _QMARK + k) for k in rec["keys"]},
             QMeta.from_dict(rec["meta"]))))
     owned = {k + _QMARK + dk for k, rec in qmetas.items()
              for dk in rec["keys"]}
     for key in meta["leaves"]:
         if key not in owned:
-            insert(key, place(key, mapped(key)))
+            insert(key, place(key, _mapped(d, key)))
     return tree, step
 
 

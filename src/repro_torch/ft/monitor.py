@@ -1,5 +1,5 @@
-"""Heartbeats and stall detection (the part of ``repro/ft/monitor.py``
-that serving uses: pure Python).
+"""Heartbeats, stall detection and elastic re-mesh (port of
+``repro/ft/monitor.py``: pure Python).
 
 A :class:`HeartbeatMonitor` tracks, per host, the time of its last beat
 and its recent step latencies. ``failed(now)`` names the hosts with no
@@ -9,6 +9,12 @@ watchdog is one such monitor over one "host", its decode loop: each step
 beats it, and a step whose gap since the last beat exceeds the timeout is
 counted as stalled. The clock is injectable, so the policy is tested with
 a deterministic clock instead of wall time.
+
+After a failure, :func:`plan_remesh` gives the largest mesh the survivors
+can form with the ``model`` (TP) axis kept: TP is baked into the weight
+layouts, so the data axis (and the pods) shrink. The training launcher
+then resumes from the latest checkpoint on that mesh (``checkpoint/
+ckpt.py`` places each leaf for the new mesh as it loads).
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import time
 from collections import deque
 from typing import Optional
 
-__all__ = ["HostState", "HeartbeatMonitor"]
+__all__ = ["HostState", "HeartbeatMonitor", "ElasticPlan", "plan_remesh"]
 
 
 @dataclasses.dataclass
@@ -87,3 +93,32 @@ class HeartbeatMonitor:
 
     def alive(self) -> list[int]:
         return [h for h in self.hosts if h not in self.excluded]
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    """A re-mesh decision after failures or exclusions."""
+
+    data: int
+    model: int
+    pod: int = 1
+    dropped_hosts: tuple = ()
+
+    @property
+    def devices(self) -> int:
+        return self.pod * self.data * self.model
+
+
+def plan_remesh(alive_devices: int, *, model: int, prefer_pods: int = 1,
+                min_data: int = 1) -> Optional[ElasticPlan]:
+    """The largest mesh from ``alive_devices`` survivors with the TP
+    degree ``model`` kept: the data axis shrinks (uniform across pods),
+    and so do the pods when a whole pod is unusable. None when the
+    survivors cannot host even ``min_data x model``."""
+    if alive_devices < min_data * model:
+        return None
+    for pods in range(prefer_pods, 0, -1):
+        data = alive_devices // pods // model
+        if data >= min_data:
+            return ElasticPlan(data=data, model=model, pod=pods)
+    return None

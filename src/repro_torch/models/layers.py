@@ -69,6 +69,10 @@ class Runtime:
     # tensor-parallel serving (serve/tp.py): the serving Rules, whose mesh
     # is this rank's view of the process group; None on one device
     rules: Any = None
+    # training on a mesh (train/sharded.py): the mesh whose batch ranks
+    # split the rows, so the MoE aux's means are taken over the global
+    # batch; None on one device or one batch rank
+    batch_mesh: Any = None
 
 
 def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:

@@ -165,6 +165,11 @@ def moe_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg):
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(torch.nn.functional.one_hot(idx[..., 0], e).to(
         torch.float32), dim=(0, 1))
+    if rt.batch_mesh is not None:
+        # the global batch's token means (training on a mesh)
+        from repro_torch.train import sharded  # moe <-> train
+        me = sharded.batch_mean(me, rt.batch_mesh)
+        ce = sharded.batch_mean(ce, rt.batch_mesh)
     aux = e * torch.sum(me * ce)
 
     dsp = dispatch(idx, cap)

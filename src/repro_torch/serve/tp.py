@@ -44,7 +44,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -52,6 +51,7 @@ from repro_torch.core import formats as fmt_mod
 from repro_torch.core.qlinear import qmatmul, resolve_mode
 from repro_torch.core.quantize import QTensor
 from repro_torch.kernels.attn_q8 import decode_attn_q8, prefill_attn_q8
+from repro_torch.launch.mesh import Placement, all_gather
 from repro_torch.sharding import rules as R
 
 __all__ = [
@@ -130,33 +130,6 @@ def _placements(specs, mesh):
     if isinstance(specs, dict):
         return {k: _placements(v, mesh) for k, v in specs.items()}
     return Placement(specs, mesh)
-
-
-@dataclasses.dataclass(frozen=True)
-class Placement:
-    """A leaf's place on the mesh: its ``spec`` and the mesh. Calling it
-    on a whole array (a tensor, or a numpy array, memory-mapped or not)
-    returns this rank's slice as a tensor on ``mesh.device``: only the
-    local rows of a memory-mapped ``.npy`` are ever read."""
-
-    spec: tuple
-    mesh: Any
-
-    def __call__(self, arr):
-        idx = []
-        for dim, ax in enumerate(self.spec):
-            if ax is None:
-                idx.append(slice(None))
-                continue
-            n = arr.shape[dim] // _msize(self.mesh)
-            r = self.mesh.rank
-            idx.append(slice(r * n, (r + 1) * n))
-        part = arr[tuple(idx)] if idx else arr
-        if isinstance(part, torch.Tensor):
-            return part.to(self.mesh.device).contiguous()
-        # a copy of the rows only: a mapped file stays read-only
-        return torch.from_numpy(np.array(part, order="C")).to(
-            self.mesh.device)
 
 
 def _place_tree(tree, places):
@@ -279,26 +252,8 @@ def place_draft(draft_params, draft_cfg, mesh, draft_rt, *,
 
 
 # ---------------------------------------------------------------------------
-# Collectives: exact gathers only
+# The clock on a mesh (the exact gathers are launch/mesh.py's all_gather)
 # ---------------------------------------------------------------------------
-
-def all_gather(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order (the
-    same on every rank). NCCL gathers into one tensor; gloo gathers a
-    list and concatenates it."""
-    if mesh.size == 1:
-        return t
-    dim = dim % t.dim()
-    if mesh.backend == "nccl":
-        moved = t.movedim(dim, 0).contiguous()
-        out = torch.empty((mesh.size * moved.shape[0],) + moved.shape[1:],
-                          dtype=t.dtype, device=t.device)
-        dist.all_gather_into_tensor(out, moved, group=mesh.group)
-        return out.movedim(0, dim).contiguous()
-    parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.group)
-    return torch.cat(parts, dim=dim)
-
 
 class LockstepClock:
     """The engine's clock on a mesh: rank 0 reads the wrapped clock and

@@ -1,19 +1,21 @@
-"""Logical-axis sharding rules over the ``(data, model)`` serving mesh
-(port of the serving subset of ``repro/sharding/rules.py``).
+"""Logical-axis sharding rules over the ``(pod, data, model)`` mesh (port
+of ``repro/sharding/rules.py``).
 
-``make_rules`` resolves the logical names (heads, kv_heads, ffn, experts,
-vocab, embed, ...) to mesh axes once per (config, mesh): a logical dim is
-``model``-sharded only when it divides the axis, so one model serves on a
-mesh of any size. The leaf-spec functions give one parameter leaf's
-placement: :func:`_qtensor_leaf_spec` for the packed planes of a QTensor
-(N over ``model``, the expert dim for MoE stacks), :func:`_leaf_spec` for
-a float leaf under the training rules.
+``make_rules`` resolves the logical names (batch, heads, kv_heads, ffn,
+experts, vocab, embed, fsdp, ...) to mesh axes once per (config, mesh): a
+logical dim is ``model``-sharded only when it divides the axis, so one
+model runs on a mesh of any size. :func:`param_pspecs` walks a params
+tree: :func:`_qtensor_leaf_spec` for the packed planes of a QTensor (N
+over ``model``, the expert dim for MoE stacks; serving), :func:`_leaf_spec`
+for a float leaf (FSDP over ``data``, tensor parallel over ``model``;
+training). :func:`batch_pspec` splits a batch's rows over the batch axes.
 
 A spec is the port's spelling of a ``PartitionSpec``: a tuple with one
-entry per dimension, a mesh axis name or ``None`` (``()`` for a leaf
-without a shape). It equals the reference's spec element for element.
-The FSDP and training specs (``param_pspecs`` with ``fsdp=True``,
-``batch_pspec``) are not ported yet.
+entry per dimension, a mesh axis name, a tuple of them or ``None`` (``()``
+for a leaf without a shape). It equals the reference's spec element for
+element. The port has no SPMD partitioner: ``Rules.constrain`` returns the
+spec the reference's ``with_sharding_constraint`` would apply, and
+``train/sharded.py`` moves the data to match it.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import dataclasses
 import re
 from typing import Optional, Sequence
 
-__all__ = ["Rules", "make_rules"]
+from repro_torch.core.quantize import QTensor
+
+__all__ = ["Rules", "make_rules", "param_pspecs", "batch_pspec"]
 
 Spec = tuple
 
@@ -38,6 +42,35 @@ class Rules:
 
     def spec(self, names: tuple) -> Spec:
         return tuple(self.axis_for(n) for n in names)
+
+    def constrain(self, shape: tuple, names: tuple, mesh=None) -> Spec:
+        """The spec the reference's ``constrain`` applies to an array of
+        ``shape`` under the logical ``names``: each dim takes its name's
+        axis (or axis tuple) only when no earlier dim took one of those
+        axes and the axes' product divides it; the rest, and dims past
+        ``names``, are ``None``."""
+        mesh = mesh or self.mesh
+        axes: list = []
+        used: set = set()
+        for dim, n in enumerate(names):
+            ax = self.axis_for(n)
+            if ax is None:
+                axes.append(None)
+                continue
+            ax_tuple = ax if isinstance(ax, tuple) else (ax,)
+            if any(a in used for a in ax_tuple):
+                axes.append(None)  # a mesh axis can shard only one dim
+                continue
+            size = 1
+            for a in ax_tuple:
+                size *= int(mesh.shape[a])
+            if dim < len(shape) and shape[dim] % size == 0 and shape[dim] > 0:
+                axes.append(ax)
+                used.update(ax_tuple)
+            else:
+                axes.append(None)
+        axes += [None] * (len(shape) - len(axes))
+        return tuple(axes[:len(shape)])
 
 
 def _div(n: int, k: int) -> bool:
@@ -167,3 +200,42 @@ def _qtensor_leaf_spec(path: str, name: str, shape: tuple, rules: Rules,
     if model and dims and dims[0] % msize == 0:
         spec[0] = model  # N over model
     return tuple(lead + spec)
+
+
+def param_pspecs(params, cfg, rules: Rules):
+    """Spec tree matching ``params`` (nested dicts of tensors or
+    QTensors; a QTensor maps to a QTensor of its arrays' specs), leaf for
+    leaf the reference's: packed QTensor arrays by
+    :func:`_qtensor_leaf_spec`, float leaves by :func:`_leaf_spec` (FSDP
+    over ``data`` when the rules have it), ``()`` for a leaf without a
+    shape."""
+    msize = rules.mesh.shape.get("model", 1)
+    dsize = rules.mesh.shape.get("data", 1)
+
+    def spec_of(parts: tuple, leaf) -> Spec:
+        if not hasattr(leaf, "shape"):
+            return ()
+        path = "/".join(parts)
+        stacked = _stack_depth(parts)
+        name = parts[-1]
+        if "data" in parts and name in _QDATA:
+            return _qtensor_leaf_spec(path, name, tuple(leaf.shape), rules,
+                                      msize, stacked)
+        return _leaf_spec(path, tuple(leaf.shape), rules, msize, dsize,
+                          stacked)
+
+    def walk(node, parts: tuple):
+        if isinstance(node, QTensor):
+            return QTensor({k: spec_of(parts + ("data", k), v)
+                            for k, v in node.data.items()}, node.meta)
+        if isinstance(node, dict):
+            return {k: walk(v, parts + (str(k),)) for k, v in node.items()}
+        return spec_of(parts, node)
+
+    return walk(params, ())
+
+
+def batch_pspec(rules: Rules) -> Spec:
+    """A batch's rows over the batch axes (``data``, or ``("pod",
+    "data")`` with pods)."""
+    return (rules.assignments["batch"],)

@@ -1,20 +1,24 @@
-"""Gradients of a loss over a param tree, and micro-batch accumulation
-(port of ``repro/train/grad.py``: ``accumulate_grads`` and
-``zeros_error_buf``).
+"""Gradients of a loss over a param tree, micro-batch accumulation, and
+the int8 gradient exchange across pods (port of ``repro/train/grad.py``).
 
-``compressed_pod_allreduce``, the reference's int8 gradient exchange with
-error feedback over a ``pod`` mesh axis, belongs to multi-rank training
-and is not ported here (ROADMAP item 10).
+:func:`compressed_pod_allreduce` is the reference's 1-byte exchange with
+error feedback over the ``pod`` mesh axis (4x fewer bytes than f32 across
+the slow inter-pod links): each pod quantizes ``g + e`` to int8 against a
+scale shared by the pods, the codes are summed as int32, and each pod
+keeps its quantization residual for the next step. As in the reference,
+it is a library function: the train step does not call it.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["value_and_grad", "accumulate_grads", "zeros_error_buf"]
+__all__ = ["value_and_grad", "accumulate_grads", "zeros_error_buf",
+           "compressed_pod_allreduce", "pod_quantize"]
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -54,3 +58,39 @@ def zeros_error_buf(grads):
     shaped as ``grads``."""
     return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                           device=g.device), grads)
+
+
+def pod_quantize(x: torch.Tensor, amax: torch.Tensor):
+    """One pod's side of the exchange: ``x`` (f32, gradient plus residual)
+    against ``amax``, the largest ``|x|`` over every pod. Returns ``(q,
+    scale, residual)``: int8-range codes as int32, ``max(amax, 1e-12) /
+    127`` and ``x - q * scale``. Rounding is half to even, as
+    ``jnp.round``."""
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int32), scale, x - q * scale
+
+
+def compressed_pod_allreduce(grads, error_buf, mesh, *, axis: str = "pod"):
+    """int8 + error-feedback mean over the ``axis`` ranks of ``mesh``.
+
+    Contract (the reference's): each leaf of ``grads`` is this pod's
+    partial gradient with a leading pod axis of length 1 (the slice a
+    ``shard_map`` body sees); ``error_buf`` is f32 and shaped alike.
+    Returns ``(mean, new_error_buf)``, the mean equal on every pod; both
+    unchanged where the mesh has no ``axis`` or it is 1."""
+    if axis not in mesh.shape or mesh.shape[axis] == 1:
+        return grads, error_buf
+    npod = mesh.shape[axis]
+    group = mesh.group_of(axis)
+
+    def leaf(g, e):
+        x = g.to(torch.float32) + e
+        amax = torch.max(torch.abs(x))
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        q, scale, new_e = pod_quantize(x, amax)
+        dist.all_reduce(q, group=group)
+        return (q.to(torch.float32) * scale / npod).to(g.dtype), new_e
+
+    out = tree_map(leaf, grads, error_buf)
+    return tree_map(lambda o: o[0], out), tree_map(lambda o: o[1], out)

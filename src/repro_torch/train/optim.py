@@ -39,11 +39,15 @@ def adamw_init(params) -> OptState:
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, grad_clip: float = 1.0):
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 gnorm=None):
     """Returns ``(new_params, new_state, grad_norm)``; ``lr`` a float or a
-    0-d tensor."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in tree_leaves(grads)))
+    0-d tensor. ``gnorm``: the global gradient norm, given by the caller
+    when ``grads`` are this rank's shards of a tree sharded over a mesh
+    (``train/sharded.py:global_sq_norm``); else the norm of ``grads``."""
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for g in tree_leaves(grads)))
     scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     c1 = 1.0 - torch.pow(torch.tensor(b1, device=step.device),

@@ -43,7 +43,8 @@ TP_MODULES = ("repro_torch.serve.tp", "repro_torch.sharding.rules",
 # the training slice: its modules join no process group either
 TRAIN_MODULES = ("repro_torch.data.pipeline", "repro_torch.train.tree",
                  "repro_torch.train.optim", "repro_torch.train.grad",
-                 "repro_torch.train.loop", "repro_torch.launch.train")
+                 "repro_torch.train.loop", "repro_torch.launch.train",
+                 "repro_torch.train.sharded")
 
 
 @pytest.mark.parametrize("module", TP_MODULES + TRAIN_MODULES)

@@ -18,8 +18,11 @@ live reference on the CPU.
   where they coincide its async and final saves write one directory at
   once (the port joins the async write first).
 * A run interrupted and resumed equal to an uninterrupted one, bit for bit.
-* ``--data``/``--model`` above 1 refused, naming ROADMAP item 10; neither
-  launcher falls back to the CPU without ``--device cpu``.
+* A lone process clamps ``--data``/``--model`` as the reference clamps
+  them to its devices; ``build_trainer`` on a wider mesh takes the
+  reference's FSDP specs, and a batch that does not divide the batch
+  ranks raises; neither launcher falls back to the CPU without
+  ``--device cpu``.
 * ``serve --ckpt-dir`` on that checkpoint: the same ``rid=... ->`` ids as
   the reference's ``--ckpt-dir`` (2 requests x 4 tokens).
 * The serve flags the port lacked: ``--backend ref|cuda`` reaching
@@ -273,18 +276,60 @@ def test_interrupted_run_equals_uninterrupted(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--data", "--model"])
-def test_multi_rank_training_refused(flag, capsys):
-    with pytest.raises(SystemExit):
-        ttrain.main(["--reduced", "--device", "cpu", flag, "2"])
-    assert "ROADMAP item 10" in capsys.readouterr().err
+def test_lone_process_clamps_the_mesh_as_the_reference(flag, capsys):
+    """One process has one device: ``--data 2`` / ``--model 2`` clamp to
+    (1, 1), as the reference's ``make_host_mesh`` clamps them to the
+    devices there are (one CPU device here)."""
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    ttrain.main(["--reduced", "--device", "cpu", flag, "2", "--steps", "1",
+                 "--batch", "2", "--seq", "8"])
+    out = capsys.readouterr().out
+    want = dict(jmake_host_mesh(*((2, 1) if flag == "--data" else (1, 2)))
+                .shape)
+    assert f"mesh={want} devices=1 (cpu)" in out and "done." in out
 
 
-def test_build_trainer_refuses_a_wider_mesh():
+def _wide_mesh(shape):
     from repro_torch.launch.mesh import Mesh
-    mesh = Mesh(shape={"data": 2, "model": 1}, rank=0, size=2,
-                device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        ttrain.build_trainer(reduced(get_config("smollm-135m")), mesh)
+    return Mesh(shape=shape, rank=0, size=int(np.prod(list(shape.values()))),
+                device=torch.device("cpu"), axis_names=tuple(shape))
+
+
+def test_build_trainer_on_a_wider_mesh_takes_the_reference_specs():
+    """``build_trainer`` on a (2, 1) mesh: the state's specs are the
+    reference's ``param_pspecs`` with FSDP over data, the step counters
+    replicated, the batch over data (built without joining a group)."""
+    from repro.sharding import rules as JR
+    from test_torch_tp_rules import _port_specs, _ref_specs
+    mesh = _wide_mesh({"data": 2, "model": 1})
+    cfg = reduced(get_config("smollm-135m"))
+    _, specs, rules = ttrain.build_trainer(cfg, mesh)
+    jcfg = jreduced(jget_config("smollm-135m"))
+    jrules = JR.make_rules(mesh, jcfg)
+    want = _ref_specs(JR.param_pspecs(jax.eval_shape(
+        lambda k: jloop.init_train_state(k, jcfg).params,
+        jax.random.PRNGKey(0)), jcfg, jrules))
+    for tree in (specs.params, specs.opt.mu, specs.opt.nu):
+        assert _port_specs(tree) == want
+    assert specs.step == specs.opt.step == ()
+    assert any("data" in s for s in want.values())
+    assert rules.assignments == jrules.assignments
+
+
+@pytest.mark.parametrize("shape,rows", [({"data": 2, "model": 1}, 3),
+                                        ({"pod": 2, "data": 2, "model": 1},
+                                         6)], ids=["data2-3rows",
+                                                   "pod2data2-6rows"])
+def test_batch_not_dividing_the_batch_ranks_raises(shape, rows):
+    """A batch whose rows do not divide pod * data raises before any
+    collective, as jit's in_shardings refuses it."""
+    cfg = reduced(get_config("smollm-135m"))
+    mesh = _wide_mesh(shape)
+    step, specs, _ = ttrain.build_trainer(cfg, mesh)
+    state = tloop.init_train_state(cfg, device="cpu", mesh=mesh, specs=specs)
+    batch = SyntheticCorpus(cfg.vocab_size, seed=0).batch(0, rows, 8)
+    with pytest.raises(ValueError, match="does not split over"):
+        step(state, batch)
 
 
 @pytest.mark.parametrize("launcher", [ttrain, tserve],
