@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-    python3 chip_smoke.py                 # every phase (1-17), one card
+    python3 chip_smoke.py                 # every phase (1-18), one card
     python3 chip_smoke.py --kernels-only  # phases 1-3: build and check kernels
     python3 chip_smoke.py --tp-only       # phases 1-2, then 15 (b): the mesh
                                           # over every card (up to 4)
     python3 chip_smoke.py --train-only    # phases 1-2, then 16: training
     python3 chip_smoke.py --train-mesh-only  # phases 1-2, then 17: training
                                           # on a mesh of every card (up to 4)
+    python3 chip_smoke.py --dryrun-only   # phases 1-2, then 18: the dry-run
+                                          # and three cells on one card
     python3 chip_smoke.py --profile       # also trace a short run of each path
                                           # (its cut sweeps check, untimed)
 
@@ -290,6 +292,28 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    ``quantize_blocks``, phase 4's contract, two runs equal, layer-forced
    logits within 1e-3. On a one-card machine the mesh runs at world 1 and
    a line says it is not evidence of sharding.
+18. The per-cell dry-run (``launch/steps.py``, ``launch/dryrun.py``,
+   ``launch/op_analysis.py``). (a) Host processes, no card visible, write
+   the records of smollm-135m's ``train_4k``, ``prefill_32k`` and
+   ``decode_32k`` on both production meshes (16 x 16 and 2 x 16 x 16, a
+   fake process group of 256 or 512 ranks, fake tensors) and of
+   olmoe-1b-7b's ``train_4k`` on the single mesh: every record ``ok``,
+   their walls printed. They run while (b) holds the card. (b) Three of
+   smollm-135m's cells run their own step function on real seeded
+   tensors on one card, the global batch cut: ``prefill_32k`` to one
+   32,768-token row (the query-chunked attention at full length,
+   ``itq3_matmul`` at M = 32,768), ``decode_32k`` to 32 rows of a
+   32,768-position bf16 cache (M = 32), ``train_4k`` to one row. Per
+   cell: device ms per step from ``torch.profiler`` on the plain route
+   (``backend="ref"``, the work the count models; it must launch nothing
+   of ``csrc/``) and on the kernel route (``auto``, its launches named);
+   the same cut step's FLOPs and bytes counted by a host process, the
+   three roofline terms and each over the measured times; then an f32 run
+   of both routes, their last-position logits layer-forced within 1e-3
+   of the largest (held) and apart (reported). The launch counters are
+   reset before (b) (the model is quantized on the card: row 7) and read
+   after it; rows 1 and 3 at (b)'s shapes are checked in phase 3
+   (``fwht_cells``, ``itq3_matmul_cells``).
 
 It exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Before the last line it prints the card's name and power
@@ -304,11 +328,14 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -5718,6 +5745,299 @@ def mesh_phase(dev, report: dict) -> dict:
     return counts
 
 
+# --- phase 18: the per-cell dry-run, and three cells measured -------------
+
+# (a) the dry-run's records on the production meshes: (arch, shape, mesh)
+DRYRUN_RECORDS = (("smollm-135m", "train_4k", "both"),
+                  ("smollm-135m", "prefill_32k", "both"),
+                  ("smollm-135m", "decode_32k", "both"),
+                  ("olmoe-1b-7b", "train_4k", "single"))
+# (b) the cells run on one card, each with its cut of the global batch:
+# one 32,768-token prompt; 32 rows of a 32,768-position bf16 cache; one
+# 4,096-token training row
+CELL_ARCH = "smollm-135m"
+MEASURED_CELLS = (("prefill_32k", 1), ("decode_32k", 32), ("train_4k", 1))
+DRYRUN_DIR = ROOT / "chiprun_out" / "phase18"
+# rows 1 and 3 at (b)'s shapes: smollm-135m's projections at the decode
+# cell's M = 32 and the prefill cell's M = 32,768
+CELL_SHAPES = [("wq", 576, 576, (32, 32768), False),
+               ("wk", 576, 192, (32, 32768), False),
+               ("gate", 576, 1536, (32, 32768), False),
+               ("down", 1536, 576, (32, 32768), False)]
+CELL_FWHT_ROWS = (32, 32768)
+
+
+def start_dryrun_jobs() -> list:
+    """(a)'s records and the cut cells' counts, each a ``python -m
+    repro_torch.launch.dryrun`` process on the host's cores, with no card
+    visible: they run while (b) holds the card. Returns ``(label, process,
+    log path, waiter thread, its note of the exit code and wall)``."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    runs = [(f"{a} {s} {m}", ["--arch", a, "--shape", s, "--mesh", m,
+                              "--jobs", "2" if m == "both" else "1",
+                              "--out", str(DRYRUN_DIR / "records")])
+            for a, s, m in DRYRUN_RECORDS]
+    runs += [(f"{CELL_ARCH} {s} rows {r}",
+              ["--arch", CELL_ARCH, "--shape", s, "--mesh", "one", "--rows",
+               str(r), "--out", str(DRYRUN_DIR / "cuts")])
+             for s, r in MEASURED_CELLS]
+    jobs = []
+    for i, (label, args) in enumerate(runs):
+        log = DRYRUN_DIR / f"job{i}.log"
+        with open(log, "w") as f:
+            # niced: (b)'s host-bound steps keep the host's first claim
+            proc = subprocess.Popen(base + args, cwd=ROOT, env=env,
+                                    stdout=f, stderr=subprocess.STDOUT,
+                                    preexec_fn=lambda: os.nice(10),
+                                    start_new_session=True)
+        done: dict = {}
+        # a waiter per job notes when it ends, while (b) holds the card
+        waiter = threading.Thread(target=_note_end, daemon=True,
+                                  args=(proc, done, time.perf_counter()))
+        waiter.start()
+        jobs.append((label, proc, log, waiter, done))
+    return jobs
+
+
+def _note_end(proc, done: dict, t0: float) -> None:
+    done["rc"] = proc.wait()
+    done["wall_s"] = time.perf_counter() - t0
+
+
+def stop_dryrun_jobs(jobs: list) -> None:
+    """Kill every job still running, with the workers it forked (each job
+    leads a session of its own)."""
+    for _, proc, _, _, _ in jobs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def join_dryrun_jobs(jobs: list, timeout: float) -> dict:
+    """Wait for every job; raise unless each exited 0 and wrote only
+    ``ok`` records. Returns the walls and the records by file name."""
+    walls = {}
+    end = time.perf_counter() + max(1.0, timeout)
+    for label, proc, log, waiter, done in jobs:
+        waiter.join(max(0.0, end - time.perf_counter()))
+        if "rc" not in done:
+            raise AssertionError(f"dry-run job {label!r} still running "
+                                 f"after {timeout:.0f} s")
+        walls[label], rc = done["wall_s"], done["rc"]
+        if rc != 0:
+            raise AssertionError(f"dry-run job {label!r} exit {rc}:\n"
+                                 + log.read_text()[-3000:])
+    recs = {}
+    for path in sorted(DRYRUN_DIR.glob("*/*.json")):
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"{path.name}: {rec.get('error')}")
+        recs[f"{path.parent.name}/{path.stem}"] = rec
+    return dict(walls=walls, records=recs)
+
+
+def check_fwht_cells(led: Ledger, gen: torch.Generator, dev) -> None:
+    """fwht (block 256) over the 768-wide (576 padded) activations of the
+    measured cells' projections, M = 32 and 32,768: the plain version's
+    bits, timed beside ``x @ H``."""
+    h = hadamard_matrix(256, device=dev)
+    for m in CELL_FWHT_ROWS:
+        x = torch.randn(m, 768, generator=gen, device=dev)
+        got, want = fwht(x, 256), fwht_ref(x, 256)
+        err, rel = rel_err(got, want)
+        if err != 0:
+            raise AssertionError(f"fwht ({m},768): max abs error {err}")
+        led.add("fwht_cells", f"({m},768)", err=err, rel=rel,
+                ms=device_ms(lambda: fwht(x, 256)),
+                plain_ms=device_ms(lambda: fwht_ref(x, 256), reps=2),
+                library_ms=device_ms(lambda: x.view(-1, 256) @ h, reps=2),
+                nbytes=2 * m * 768 * 4, flops=m * 768 * 9)
+
+
+def _cell_logits(cell, backends, forced: bool):
+    """Last-position f32 logits of ``cell``'s step input through each of
+    ``backends`` (no autocast, no grad). ``forced``: layer by layer, every
+    route fed the last route's input at each layer (a decode cell attends
+    its cache with the token's own K/V, writing nothing), as phase 5's
+    ``two_paths``."""
+    from repro_torch.models import lm
+
+    cfg = cell.cfg
+    rts = [dataclasses.replace(cell.rt, backend=b) for b in backends]
+    if cell.shape.kind == "decode":
+        params, tokens, cache, pos = cell.args
+    else:
+        params, batch = cell.args
+        params = getattr(params, "params", params)  # a TrainState's
+        tokens, cache, pos = batch["tokens"], None, 0
+    with torch.no_grad():
+        if not forced:
+            if cache is not None:
+                return [lm.decode_step(params, tokens, cache, pos, rt,
+                                       cfg)[0] for rt in rts]
+            return [lm.forward(params, tokens, rt, cfg, last_only=True)[0]
+                    for rt in rts]
+        x = lm._embed(params, tokens.to(torch.int64))
+        for i in range(cfg.num_layers):
+            lp = lm.layer_params(params["layers"], i)
+            kw = (dict(cache=None, pos=0) if cache is None else
+                  dict(cache=lm._layer_cache(cache, i), pos=pos,
+                       token_cache=True))
+            outs = [lm._dense_layer_apply(lp, x, rt, cfg, **kw)[0]
+                    for rt in rts]
+            x = outs[-1]
+        return [lm._head(params, o[:, -1:], rt, cfg)
+                for o, rt in zip(outs, rts)]
+
+
+def _route_ms(cell) -> dict:
+    """One step of ``cell`` under ``torch.profiler`` (CUDA activity): the
+    device's busy time, the self time of every kernel and copy on its one
+    stream; the host wall of that step (traced, and the route's first, so
+    it also loads what the route first uses: an upper bound); the
+    ``csrc/`` launches of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = collections.Counter(_build.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cell.run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    launches = {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                if v != before.get(k, 0)}
+    return dict(device_ms=busy, traced_wall_ms=wall, launches=launches,
+                top_kernels_ms=[(e.key[:50], e.self_device_time_total / 1e3)
+                                for e in top])
+
+
+def _cut_record(cuts: dict, shape_name: str, rows: int) -> dict:
+    return cuts[f"cuts/{CELL_ARCH}_{shape_name}_one_activations_rows{rows}"]
+
+
+def measure_cell(shape_name: str, rows: int, dev) -> dict:
+    """(b) for one cell: its own step function (``launch/steps.py``) on
+    real seeded tensors on a one-device mesh, the global batch cut to
+    ``rows``, timed on both routes (``_route_ms``): ``ref``, the plain
+    path the dry-run counts, and ``auto``, the card's kernels. Then the
+    f32 route check: the last-position logits layer-forced within
+    LOGITS_REL_TOL of the largest (held) and apart (reported)."""
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(CELL_ARCH, shape_name, local_mesh(dev), fake=False,
+                      rows=rows, seed=18)
+    out = {"rows": rows, "seq_len": cell.shape.seq_len,
+           "reduced": [f"global_batch {cell.shape.global_batch} -> {rows}",
+                       "one device (1 x 1 mesh)"]}
+    for route in ("ref", "auto"):
+        out[route] = _route_ms(cell.with_backend(route))
+        if route == "ref" and out[route]["launches"]:
+            raise AssertionError(f"{shape_name}: the plain route launched "
+                                 f"{out[route]['launches']}")
+        torch.cuda.empty_cache()
+    forced = _cell_logits(cell, ("auto", "ref"), forced=True)
+    err, rel = rel_err(forced[0], forced[1])
+    apart = _cell_logits(cell, ("auto", "ref"), forced=False)
+    a_err, a_rel = rel_err(apart[0], apart[1])
+    out["f32"] = dict(forced_abs=err, forced_rel=rel, apart_abs=a_err,
+                      apart_rel=a_rel,
+                      finite=bool(torch.isfinite(apart[1]).all()))
+    if not rel <= LOGITS_REL_TOL or not out["f32"]["finite"]:
+        raise AssertionError(f"{shape_name}: f32 routes, layer-forced, rel "
+                             f"{rel:.3e} > {LOGITS_REL_TOL} (or not finite)")
+    del cell, forced, apart
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_cell_widths(led: Ledger, gen: torch.Generator, dev) -> None:
+    """Rows 1 and 3 at phase 18 (b)'s shapes (``fwht_cells``,
+    ``itq3_matmul_cells``)."""
+    check_fwht_cells(led, gen, dev)
+    check_widths(led, gen, dev, CELL_SHAPES, "cells")
+    print("  measured cells' widths: fwht bit-equal, itq3_matmul within "
+          "1e-4, two calls bit-equal, at M = 32 and 32,768", flush=True)
+
+
+def dryrun_phase(dev, report: dict) -> dict:
+    """Phase 18. (a) and the cut counts start as host processes; (b) runs
+    the three cells on the card, with the launch counters reset before
+    them (the seeded model's quantization included) and read after them;
+    then (a) is joined: every record ``ok``. Returns the launches of (b).
+    Rows 1 and 3 at (b)'s shapes are phase 3's (``check_cell_widths``)."""
+    t0 = time.perf_counter()
+    jobs = start_dryrun_jobs()
+    try:
+        return _dryrun_phase(dev, report, jobs, t0)
+    finally:
+        stop_dryrun_jobs(jobs)
+
+
+def _dryrun_phase(dev, report: dict, jobs: list, t0: float) -> dict:
+    print(f"phase 18 (a): {len(jobs)} dry-run processes started on the "
+          f"host ({', '.join(j[0] for j in jobs)})", flush=True)
+    _build.reset_launches()
+    cells = {}
+    for shape_name, rows in MEASURED_CELLS:
+        cells[shape_name] = measure_cell(shape_name, rows, dev)
+        c = cells[shape_name]
+        print(f"phase 18 (b): {CELL_ARCH} {shape_name}, {rows} row(s): "
+              f"device ms/step ref {c['ref']['device_ms']:.2f}, auto "
+              f"{c['auto']['device_ms']:.2f} (launches "
+              f"{c['auto']['launches']}); traced first step's wall ms ref "
+              f"{c['ref']['traced_wall_ms']:.1f}, auto "
+              f"{c['auto']['traced_wall_ms']:.1f}; "
+              f"f32 routes layer-forced rel {c['f32']['forced_rel']:.2e}, "
+              f"apart rel {c['f32']['apart_rel']:.2e}", flush=True)
+    counts = dict(_build.launches)
+    missing = [k for k in ("quantize_blocks", "fwht/256", "itq3_matmul")
+               if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"phase 18 (b) launched none of {missing}")
+    budget = 600 - (time.perf_counter() - t0)
+    dry = join_dryrun_jobs(jobs, budget)
+    for shape_name, rows in MEASURED_CELLS:
+        c, rec = cells[shape_name], _cut_record(dry["records"], shape_name,
+                                                rows)
+        terms = {k: v * 1e3 for k, v in rec["roofline"].items()}  # ms
+        c["counted"] = dict(flops=rec["hlo_flops"], bytes=rec["hlo_bytes"],
+                            model_flops=rec["model_flops_global"],
+                            terms_ms=terms)
+        c["term_over_measured"] = {
+            route: {k: v / c[route]["device_ms"] for k, v in terms.items()}
+            for route in ("ref", "auto")}
+        print(f"  {shape_name}: counted {rec['hlo_flops']:.4g} FLOPs, "
+              f"{rec['hlo_bytes']:.4g} bytes; terms compute "
+              f"{terms['compute_s']:.3f} ms, memory {terms['memory_s']:.3f} "
+              f"ms over the measured ref {c['ref']['device_ms']:.2f} ms: "
+              f"{c['term_over_measured']['ref']['compute_s']:.4f} and "
+              f"{c['term_over_measured']['ref']['memory_s']:.4f}", flush=True)
+    for name, rec in dry["records"].items():
+        if name.startswith("records/"):
+            print(f"  record {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                  f"traced {rec['trace_s']} s; {rec['hlo_flops']:.4g} FLOPs, "
+                  f"{rec['hlo_bytes']:.4g} bytes, collectives "
+                  f"{rec['collective_bytes']} per device; bottleneck "
+                  f"{rec['bottleneck']}, useful "
+                  f"{rec['useful_flops_frac']:.4f}", flush=True)
+    print("  dry-run process walls (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in dry["walls"].items()), flush=True)
+    report["dryrun"] = dict(cells=cells, walls=dry["walls"],
+                            records=dry["records"])
+    return counts
+
+
 def profile_phase(run, report: dict, key: str = "profile",
                   table: Path = TABLE, steps: int | None = None) -> None:
     """With ``--profile``: one shorter kernel-path serving run (``run()``,
@@ -5780,6 +6100,10 @@ def main(argv=None) -> int:
                     help="build the kernels, then run phase 17 alone: "
                          "training on a mesh of every card (up to 4), then "
                          "serving the mesh-trained weights")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="build the kernels, then run phase 18 alone: the "
+                         "dry-run's records and three cells measured on "
+                         "one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5806,13 +6130,18 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k}: {line.strip()}")
 
-    if args.tp_only or args.train_only or args.train_mesh_only:
+    if (args.tp_only or args.train_only or args.train_mesh_only
+            or args.dryrun_only):
         t0 = time.perf_counter()
         if args.tp_only:
             tp_phase(dev, report, shards=False)
         elif args.train_only:
             report["train_launches"] = train_phase(dev, report)
             print(f"phase walls (s): 16 {time.perf_counter() - t0:.1f}",
+                  flush=True)
+        elif args.dryrun_only:
+            report["dryrun_launches"] = dryrun_phase(dev, report)
+            print(f"phase walls (s): 18 {time.perf_counter() - t0:.1f}",
                   flush=True)
         else:
             report["mesh_launches"] = mesh_phase(dev, report)
@@ -5882,6 +6211,10 @@ def main(argv=None) -> int:
           flush=True)
     check_frontend_widths(led, gen, dev, report)
     lap("3 frontend")
+    print("phase 3 (measured cells): fwht and itq3_matmul at phase 18 "
+          "(b)'s shapes, M = 32 and 32,768", flush=True)
+    check_cell_widths(led, gen, dev)
+    lap("3 cells")
     report["kernel_rows"] = led.rows
 
     # each kernel's launches from the counted run of its own path: the
@@ -5947,6 +6280,12 @@ def main(argv=None) -> int:
         # weights served (held to phase 4's contract in the phase)
         report["mesh_launches"] = mesh_phase(dev, report)
         lap("17")
+        # phase 18: the dry-run's records (host processes) and three cells
+        # on the card, whose kernel route launches rows 1, 3 and 7
+        cells = dryrun_phase(dev, report)
+        counts["fwht_cells"] = cells.get("fwht/256", 0)
+        counts["itq3_matmul_cells"] = cells.get("itq3_matmul", 0)
+        lap("18")
     names = list(laps)
     report["phase_s"] = {b: laps[b] - laps[a] for a, b in zip(names,
                                                                names[1:])}
@@ -6020,6 +6359,12 @@ def main(argv=None) -> int:
         "attn_q8_frontend": ("attn_q8",
                              "src/repro/kernels/attn_decode.py:230 "
                              "(head_dim 64, G = 1)"),
+        # the measured dry-run cells (phase 18 (b)): M = 32 and 32,768
+        "fwht_cells": ("fwht", "src/repro/kernels/fwht_kernel.py:39 "
+                               "(M = 32 and 32,768)"),
+        "itq3_matmul_cells": ("itq3_matmul",
+                              "src/repro/kernels/itq3_matmul.py:339 "
+                              "(M = 32 and 32,768)"),
     }
     kernels = []
     for name, (source, replaces) in kernel_table.items():

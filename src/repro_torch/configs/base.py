@@ -20,8 +20,9 @@ import dataclasses
 import importlib
 from typing import Optional
 
-__all__ = ["ModelConfig", "get_config", "reduced", "ARCH_IDS",
-           "kv_cache_bytes_per_token", "mixed_precision_recipe"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "get_config", "reduced",
+           "ARCH_IDS", "runnable_cells", "kv_cache_bytes_per_token",
+           "mixed_precision_recipe"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +67,34 @@ class ModelConfig:
     def attention_free(self) -> bool:
         return self.family == "ssm" and self.attn_every == 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts (O(1) decode state)?
+        Only the SSM and hybrid families."""
+        return self.family in ("ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the per-cell dry-run (``launch/steps.py``)."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
 
 ARCH_IDS = ["qwen3-moe-235b-a22b", "olmoe-1b-7b", "rwkv6-3b",
             "phi-3-vision-4.2b", "seamless-m4t-medium", "qwen1.5-0.5b",
@@ -82,6 +111,15 @@ def get_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.CONFIG
+
+
+def runnable_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) dry-run cell: ``long_500k`` only for the
+    sub-quadratic families, as the reference skips it."""
+    return [(arch, shape.name) for arch in ARCH_IDS
+            for shape in SHAPES.values()
+            if shape.name != "long_500k"
+            or get_config(arch).sub_quadratic]
 
 
 def mixed_precision_recipe(cfg: ModelConfig, *, head_fmt: str = "q8_0",

@@ -39,6 +39,10 @@ __all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_production_mesh",
            "coords_of", "axis_index", "all_gather", "barrier", "Placement"]
 
 BATCH_AXES = ("pod", "data")
+#: Backends that gather and reduce-scatter into one tensor: NCCL, and the
+#: fake process group of the dry-run (``launch/dryrun.py``), which stands
+#: in for the card's NCCL ranks; gloo gathers a list.
+TENSOR_COLLECTIVES = ("nccl", "fake")
 
 
 def coords_of(shape: dict, rank: int) -> dict:
@@ -250,8 +254,8 @@ def make_production_mesh(*, multi_pod: bool = False,
 def all_gather(t: torch.Tensor, dim: int, mesh, axis=None) -> torch.Tensor:
     """Every rank's ``t`` concatenated along ``dim`` in coordinate order
     (the same on every rank): over the whole group, or along ``axis``.
-    NCCL gathers into one tensor; gloo gathers a list and concatenates
-    it."""
+    NCCL (and the dry-run's fake group) gathers into one tensor; gloo
+    gathers a list and concatenates it."""
     if axis is None:
         group, n = mesh.group, mesh.size
     else:
@@ -259,7 +263,7 @@ def all_gather(t: torch.Tensor, dim: int, mesh, axis=None) -> torch.Tensor:
     if n == 1:
         return t
     dim = dim % t.dim()
-    if mesh.backend == "nccl":
+    if mesh.backend in TENSOR_COLLECTIVES:
         moved = t.movedim(dim, 0).contiguous()
         out = torch.empty((n * moved.shape[0],) + moved.shape[1:],
                           dtype=t.dtype, device=t.device)

@@ -33,6 +33,7 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint as ckpt_util
 
 from repro_torch.core.qlinear import qmatmul
 from repro_torch.core.quantize import QTensor
@@ -61,6 +62,7 @@ class Runtime:
     # (core/act_quant.py). QMeta.act_quant opts single weights out.
     act_quant: bool = False
     capacity_factor: float = 1.25  # MoE expert capacity factor
+    attn_chunk: int = 512  # query-chunk size of the fp softmax attention
     # training (models/lm.py:_maybe_remat): recompute each layer in the
     # backward pass; "dots" keeps its plain matmul outputs, "none" nothing
     remat: bool = False
@@ -150,9 +152,13 @@ def mlp_apply(p: Params, x: torch.Tensor, rt: Runtime,
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset, kv_len):
-    """Plain f32 attention over an fp cache. q (B, KV, G, Tq, HD); k, v
-    (B, KV, Tk, HD); q_offset (B,) absolute position of query 0; kv_len
-    (B,) valid keys or None."""
+    """Plain attention over an fp cache. q (B, KV, G, Tq, HD); k, v (B,
+    KV, Tk, HD); q_offset (B,) absolute position of query 0; kv_len (B,)
+    valid keys or None. The cache keeps its dtype: q is taken at k's (a
+    bf16 cache is not copied to f32, as the reference keeps K/V in their
+    storage dtype) and the softmax runs in f32; all f32 on the serving
+    paths."""
+    q = q.to(k.dtype)
     b, _, _, tq, hd = q.shape
     tk = k.shape[2]
     s = torch.einsum("bkgqd,bktd->bkgqt", q, k) * (1.0 / math.sqrt(hd))
@@ -165,8 +171,68 @@ def _sdpa(q, k, v, *, causal: bool, q_offset, kv_len):
     if kv_len is not None:
         mask = mask & (kpos[None, None, None, None, :]
                        < kv_len[:, None, None, None, None])
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    return torch.einsum("bkgqt,bktd->bkgqd", torch.softmax(s, dim=-1), v)
+    w = torch.softmax(s.masked_fill(~mask, NEG_INF).to(torch.float32), dim=-1)
+    return torch.einsum("bkgqt,bktd->bkgqd", w.to(v.dtype), v)
+
+
+def _sdpa_chunked(q, k, v, rt: Runtime, *, causal: bool, q_offset,
+                  kv_len):
+    """:func:`_sdpa` over chunks of ``min(rt.attn_chunk, Tq)`` queries, each
+    against every key (the reference's ``_sdpa_chunked``), so a long
+    prompt never holds a (Tq, Tk) score tensor. The queries are padded to
+    a multiple of the chunk; chunk ``ci`` takes the causal positions
+    ``q_offset + ci * chunk + arange(chunk)``. With grad enabled and more
+    than one chunk, each chunk runs under a non-reentrant checkpoint, so
+    the backward pass recomputes its scores instead of keeping them (the
+    reference's ``jax.checkpoint`` per chunk). One chunk is :func:`_sdpa`
+    itself, bit for bit. Over more, each chunk is two ``bmm`` over the
+    (B * KV) heads and its masking, with K, V, the key positions and the
+    ``kv_len`` mask laid out once per call: a 32k prompt runs 128 chunks a
+    layer, and their host ops, not their arithmetic, bound its time."""
+    b, kvh, g, tq, hd = q.shape
+    chunk = max(1, min(rt.attn_chunk, tq))
+    if chunk == tq:
+        return _sdpa(q, k, v, causal=causal, q_offset=q_offset,
+                     kv_len=kv_len)
+    tk = k.shape[2]
+    if q_offset is None:
+        q_offset = torch.zeros((b,), dtype=torch.int64, device=q.device)
+    pad = (-tq) % chunk
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+    nq = q.shape[3] // chunk
+    # (nq, B * KV, G * chunk, HD): each chunk's queries contiguous
+    qc = q.to(k.dtype).reshape(b, kvh, g, nq, chunk, hd).permute(
+        3, 0, 1, 2, 4, 5).reshape(nq, b * kvh, g * chunk, hd)
+    kt = k.reshape(b * kvh, tk, hd).transpose(1, 2)
+    v3 = v.reshape(b * kvh, tk, hd)
+    kpos = torch.arange(tk, device=q.device)
+    rows = torch.arange(chunk, device=q.device)[:, None]  # (chunk, 1)
+    keep = None if kv_len is None else (
+        kpos < kv_len[:, None])[:, None, None, None, :]  # (B, 1, 1, 1, Tk)
+    scale = 1.0 / math.sqrt(hd)
+
+    def one_chunk(qi, off):
+        s = torch.bmm(qi, kt).view(b, kvh, g, chunk, tk) * scale
+        mask = keep
+        if causal:  # (B, 1, 1, chunk, Tk)
+            c = kpos <= off.view(b, 1, 1, 1, 1) + rows
+            mask = c if mask is None else mask & c
+        if mask is not None:
+            s = s.masked_fill(~mask, NEG_INF)
+        w = torch.softmax(s.to(torch.float32), dim=-1).to(v.dtype)
+        return torch.bmm(w.view(b * kvh, g * chunk, tk), v3).view(
+            b, kvh, g, chunk, hd)
+
+    outs = []
+    for ci in range(nq):
+        off = q_offset + ci * chunk
+        if torch.is_grad_enabled():
+            outs.append(ckpt_util.checkpoint(one_chunk, qc[ci], off,
+                                             use_reentrant=False))
+        else:
+            outs.append(one_chunk(qc[ci], off))
+    return torch.cat(outs, dim=3)[:, :, :, :tq]
 
 
 def _sdpa_decode_token(q, ck, cv, k_tok, v_tok, *, kv_len):
@@ -175,13 +241,14 @@ def _sdpa_decode_token(q, ck, cv, k_tok, v_tok, *, kv_len):
     hd = q.shape[-1]
     tk = ck.shape[2]
     scale = 1.0 / math.sqrt(hd)
-    s_cache = torch.einsum("bkgqd,bktd->bkgqt", q, ck) * scale
+    # q at the cache's dtype (a bf16 cache is not copied), as in _sdpa
+    s_cache = torch.einsum("bkgqd,bktd->bkgqt", q.to(ck.dtype), ck) * scale
     kpos = torch.arange(tk, device=q.device)
     mask = kpos[None, None, None, None, :] < kv_len[:, None, None, None, None]
     s_cache = torch.where(mask, s_cache, torch.full_like(s_cache, NEG_INF))
     s_self = torch.einsum("bkgqd,bkqd->bkgq", q, k_tok)[..., None] * scale
     w = torch.softmax(torch.cat([s_cache, s_self], dim=-1), dim=-1)
-    out = torch.einsum("bkgqt,bktd->bkgqd", w[..., :tk], cv)
+    out = torch.einsum("bkgqt,bktd->bkgqd", w[..., :tk].to(cv.dtype), cv)
     return out + w[..., tk:] * v_tok[:, :, None]
 
 
@@ -238,7 +305,8 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     it.
 
     Cross-attention has no RoPE, no bias on K/V and no mask; it attends
-    the plain way (``_sdpa``), as the reference does outside any kernel.
+    the plain way (``_sdpa_chunked``), as the reference does outside any
+    kernel.
     With ``memory`` (B, S, D) it projects K/V from it and, given a cache
     (the layer's fp ``xattn`` leaves, (B, KV, S, HD)), writes them there
     in place; without, it reads them from the cache (decode). The
@@ -273,7 +341,8 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
         k, v = k[:, heads].contiguous(), v[:, heads].contiguous()
     ql = q if heads is None else q[:, heads].contiguous()
     if cache is None:
-        out = _sdpa(q, k, v, causal=causal, q_offset=pos_vec, kv_len=None)
+        out = _sdpa_chunked(q, k, v, rt, causal=causal, q_offset=pos_vec,
+                            kv_len=None)
     elif t == 1 and token_cache:
         if quant_cache:
             # the token goes through the codec here, so its self term sees
@@ -308,9 +377,9 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
         out_cache = cache
     else:
         _write_span(cache, {"k": k, "v": v}, pos_vec, t)
-        out = _gathered(tp_mod, _sdpa(ql, cache["k"], cache["v"],
-                                      causal=t > 1, q_offset=pos_vec,
-                                      kv_len=pos_vec + t), heads, rt)
+        out = _gathered(tp_mod, _sdpa_chunked(
+            ql, cache["k"], cache["v"], rt, causal=t > 1, q_offset=pos_vec,
+            kv_len=pos_vec + t), heads, rt)
         out_cache = cache
     out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
     return dense(out, p["wo"], rt), out_cache
@@ -370,7 +439,8 @@ def _cross_attention(p: Params, q: torch.Tensor, rt: Runtime, cfg, *,
         if cache is None:
             raise ValueError("cross-attention decode needs cached memory K/V")
         k, v = (cache[n].to(torch.float32) for n in ("k", "v"))
-    out = _gathered(tp_mod, _sdpa(q, k, v, causal=False, q_offset=None,
-                                  kv_len=None), heads, rt)
+    out = _gathered(tp_mod, _sdpa_chunked(q, k, v, rt, causal=False,
+                                          q_offset=None, kv_len=None),
+                    heads, rt)
     out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
     return dense(out, p["wo"], rt), cache

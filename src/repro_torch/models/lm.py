@@ -52,7 +52,8 @@ from repro_torch.models.layers import (
 
 Params = dict[str, Any]
 
-__all__ = ["init_params", "init_quantized_params", "init_cache", "forward",
+__all__ = ["init_params", "init_quantized_params", "shape_params",
+           "model_flops", "init_cache", "forward",
            "forward_xent", "decode_step", "score_tokens", "advance_cache",
            "finite_rows", "top_mask", "sample_tokens", "layer_params",
            "hybrid_dims", "hybrid_layer", "recurrent_layer_apply"]
@@ -184,21 +185,59 @@ def _map_spec(spec, fn, path: str = ""):
     return fn(path, *spec)
 
 
+def _param_tree(cfg, draw) -> dict:
+    """The params tree of ``cfg``, each leaf ``draw(kind, shape, *arg)``
+    (:func:`_layer_spec`'s kinds) called in the order of the seeded draws:
+    layer leaves stacked (L, ...), a hybrid's (n_full, every, ...) and
+    (tail, ...), an encoder's (L_enc, ...)."""
+    d = cfg.d_model
+
+    def stacked(lead):
+        def leaf(_, kind, shape, *arg):
+            return draw(kind, lead + shape, *arg)
+        return leaf
+
+    def norm():
+        return _map_spec(_norm_spec(d, cfg.norm), stacked(()))
+    ln_f = norm()
+    embed_spec = ("normal", (cfg.vocab_size, d), 0.02)
+    if cfg.family in ("ssm", "hybrid"):
+        tree = {"embed": draw(*embed_spec), "ln_f": ln_f}
+        for key, lead, spec in _stacks(cfg):
+            tree[key] = _map_spec(spec, stacked(lead))
+    else:
+        # attention first, then the table, then the rest: the draw order
+        # of the earlier dense slices, so their seeded models are unchanged
+        leaf = stacked((cfg.num_layers,))
+        spec = _layer_spec(cfg, cross=cfg.family == "audio")
+        attn = _map_spec(spec["attn"], leaf)
+        tree = {"embed": draw(*embed_spec), "ln_f": ln_f,
+                "layers": {k: attn if k == "attn" else _map_spec(v, leaf)
+                           for k, v in spec.items()}}
+        if cfg.family == "audio":
+            tree["encoder"] = _map_spec(_layer_spec(cfg),
+                                        stacked((cfg.encoder_layers,)))
+            tree["enc_ln_f"] = norm()
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = draw("w", (d, cfg.vocab_size))
+    if cfg.frontend:
+        tree["frontend_proj"] = draw("w", (cfg.frontend_dim, d))
+    return tree
+
+
 def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
     """Seeded random fp weights, drawn with numpy: embedding ~
     N(0, 0.02^2), projections (and the MoE router) ~ N(0, 1/K) clipped at
     3 sigma, norm scales 1, biases 0; the reference's tree (LayerNorm
     biases, no gate but for swiglu, expert stacks; RWKV6's and Mamba2's
     leaves at the reference's scales and constants; a frontend's
-    projection, an audio model's encoder and cross-attention). Layer
-    leaves are stacked (L, ...), a hybrid's (n_full, every, ...) and
-    (tail, ...), an encoder's (L_enc, ...).
+    projection, an audio model's encoder and cross-attention), stacked as
+    :func:`_param_tree` lays it out.
     For CPU-sized models: the whole f32 tree is held at
     once (:func:`init_quantized_params` draws a full-width model on the
     card)."""
     _check_family(cfg)
     rng = np.random.default_rng(seed)
-    d, n_l = cfg.d_model, cfg.num_layers
 
     def draw(kind, shape, arg=None):
         if kind == "w":
@@ -212,47 +251,61 @@ def init_params(cfg, *, seed: int = 0, device="cuda") -> Params:
             return rng.random(shape, dtype=np.float32)
         return _const(kind, shape, arg)
 
-    def stacked(lead):
-        def leaf(_, kind, shape, *arg):
-            return draw(kind, lead + shape, *arg)
-        return leaf
-    leaf = stacked((n_l,))
-
-    def norm():
-        return _map_spec(_norm_spec(d, cfg.norm),
-                         lambda _, kind, shape: _const(kind, shape))
-    ln_f = norm()
-    if cfg.family in ("ssm", "hybrid"):
-        tree = {"embed": rng.standard_normal(
-            (cfg.vocab_size, d), dtype=np.float32) * np.float32(0.02),
-            "ln_f": ln_f}
-        for key, lead, spec in _stacks(cfg):
-            tree[key] = _map_spec(spec, lambda _, kind, shape, *arg, lead=lead:
-                                  draw(kind, lead + shape, *arg))
-    else:
-        # attention first, then the table, then the rest: the draw order
-        # of the earlier dense slices, so their seeded models are unchanged
-        spec = _layer_spec(cfg, cross=cfg.family == "audio")
-        attn = _map_spec(spec["attn"], leaf)
-        embed = rng.standard_normal((cfg.vocab_size, d),
-                                    dtype=np.float32) * np.float32(0.02)
-        tree = {"embed": embed, "ln_f": ln_f,
-                "layers": {k: attn if k == "attn" else _map_spec(v, leaf)
-                           for k, v in spec.items()}}
-        if cfg.family == "audio":
-            tree["encoder"] = _map_spec(_layer_spec(cfg),
-                                        stacked((cfg.encoder_layers,)))
-            tree["enc_ln_f"] = norm()
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = draw("w", (d, cfg.vocab_size))
-    if cfg.frontend:
-        tree["frontend_proj"] = draw("w", (cfg.frontend_dim, d))
-
     def to_torch(node):
         if isinstance(node, dict):
             return {k: to_torch(v) for k, v in node.items()}
         return torch.as_tensor(node, device=device)
-    return to_torch(tree)
+    return to_torch(_param_tree(cfg, draw))
+
+
+def shape_params(cfg, mode=None) -> Params:
+    """The tree of :func:`init_params` with nothing drawn: the same keys,
+    shapes and dtypes as fake CPU tensors of ``mode`` (a new
+    ``FakeTensorMode`` when None; read it back from any leaf's
+    ``fake_mode``), the counterpart of the reference's
+    ``jax.eval_shape(lm.init_params)``. It costs nothing at any width, and
+    the port's code runs on it under that mode (``quantize_params``, a
+    forward or a train step), computing shapes only."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    _check_family(cfg)
+    mode = FakeTensorMode() if mode is None else mode
+    with mode:
+        return _param_tree(cfg, lambda kind, shape, *arg: torch.empty(shape))
+
+
+def model_flops(cfg, seq_len: int, batch: int, *, decode: bool = False) -> float:
+    """The reference's analytic FLOPs of a forward (``2 * matmul params *
+    tokens`` plus the attention's scores and values), formula for formula:
+    the roofline's MODEL_FLOPS term, independent of what implements the
+    step (a train step is 3x this, forward and backward)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hd = cfg.resolved_head_dim
+    attn_p = d * hd * (cfg.num_heads * 2 + cfg.num_kv_heads * 2)
+    mlp_p = 3 * d * f if cfg.activation == "swiglu" else 2 * d * f
+    if cfg.num_experts:
+        mlp_p = cfg.experts_per_token * mlp_p + d * cfg.num_experts
+    if cfg.family == "ssm":
+        attn_p = 5 * d * d + d * d  # r, k, v, g, o and the decay's lora
+        mlp_p = 2 * d * f
+    if cfg.family == "hybrid":
+        ed = cfg.ssm_expand * d
+        mamba_p = d * (2 * ed + 2 * cfg.ssm_state + ed // 64) + ed * d
+        total_p = cfg.num_layers * mamba_p + (attn_p + mlp_p)
+    else:
+        total_p = cfg.num_layers * (attn_p + mlp_p)
+        if cfg.is_encoder_decoder:
+            total_p += cfg.encoder_layers * (attn_p + mlp_p)
+    total_p += v * d  # head
+    tokens = batch * (1 if decode else seq_len)
+    flops = 2.0 * total_p * tokens
+    if cfg.family != "ssm":  # scores and values of the attention layers
+        q_len = 1 if decode else seq_len
+        n_attn = (cfg.num_layers if cfg.family != "hybrid"
+                  else cfg.num_layers // cfg.attn_every + 1)
+        flops += 4.0 * batch * cfg.num_heads * hd * q_len * seq_len * \
+            n_attn * (0.5 if not decode else 1.0)
+    return flops
 
 
 def init_quantized_params(cfg, policy, *, seed: int = 0,

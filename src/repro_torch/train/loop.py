@@ -62,9 +62,9 @@ def init_train_state(cfg, *, seed: int = 0, device="cuda", mesh=None,
 def state_specs(cfg, rules) -> TrainState:
     """The ``TrainState`` of specs a state is stored under on
     ``rules.mesh``: ``param_pspecs`` for the params and both moments, the
-    step counters replicated (the reference's ``build_trainer``)."""
-    pspecs = param_pspecs(lm.init_params(cfg, seed=0, device="meta"), cfg,
-                          rules)
+    step counters replicated (the reference's ``build_trainer``). Read
+    from the shape-only tree (``lm.shape_params``): nothing is drawn."""
+    pspecs = param_pspecs(lm.shape_params(cfg), cfg, rules)
     return TrainState(params=pspecs, opt=optim.OptState(pspecs, pspecs, ()),
                       step=())
 

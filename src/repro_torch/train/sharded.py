@@ -33,7 +33,9 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import BATCH_AXES, Placement, axis_index
+from repro_torch.launch.mesh import (
+    BATCH_AXES, TENSOR_COLLECTIVES, Placement, axis_index,
+)
 from repro_torch.sharding.rules import Rules, batch_pspec
 from repro_torch.train.tree import tree_leaves, tree_map
 
@@ -127,13 +129,13 @@ def _all_reduce(t: torch.Tensor, mesh, axis) -> torch.Tensor:
 
 def _reduce_scatter(t: torch.Tensor, dim: int, mesh, axis) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum of ``t`` over the ranks
-    along ``axis`` (NCCL's reduce-scatter; gloo sums the whole tensor and
-    keeps the block)."""
+    along ``axis`` (NCCL's reduce-scatter, and the dry-run's fake group's;
+    gloo sums the whole tensor and keeps the block)."""
     coord, ways = axis_index(mesh, axis)
     if ways == 1:
         return t
     n = t.shape[dim] // ways
-    if mesh.backend == "nccl":
+    if mesh.backend in TENSOR_COLLECTIVES:
         moved = t.movedim(dim, 0).contiguous()
         out = torch.empty((n,) + moved.shape[1:], dtype=t.dtype,
                           device=t.device)

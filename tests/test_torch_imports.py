@@ -68,6 +68,32 @@ def test_tensor_parallel_modules_import_without_jax(module):
     assert out.returncode == 0, out.stderr
 
 
+# the dry-run slice: its three new modules and the three it changed; none
+# joins a process group (the fake one included) at import
+DRYRUN_MODULES = ("repro_torch.launch.op_analysis", "repro_torch.launch.steps",
+                  "repro_torch.launch.dryrun", "repro_torch.configs.base",
+                  "repro_torch.models.lm", "repro_torch.models.layers")
+
+
+def test_dryrun_modules_import_without_jax():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.path[:0] = [{str(ROOT / "src")!r}]
+        for name in {DRYRUN_MODULES!r}:
+            importlib.import_module(name)
+        import torch.distributed as dist
+        assert not dist.is_initialized()
+        loaded = [m for m in sys.modules
+                  if m == "repro" or m.startswith("repro.")
+                  or m.endswith("fake_pg")]
+        assert not loaded, loaded
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
 def test_no_reference_package_import(path):
     text = path.read_text()
