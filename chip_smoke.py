@@ -156,7 +156,7 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    on 1000 seeded mixed-sampling windows at (4, 5, vocab): acceptance
    uniforms bit-equal, ``(out, n)`` equal on at least 999.
 
-11. The MoE path: olmoe-1b-7b at full width, cut to ``MOE_LAYERS`` (4)
+11. The MoE path: olmoe-1b-7b at full width, cut to ``MOE_LAYERS`` (2)
    of its 16 layers (64 experts top-8), seeded on the card and quantized as drawn
    (``lm.init_quantized_params``), phase 4's requests, ``kv_quant``. (a)
    Uniform itq3_s: exact launches per decode step and prefill wave (per
@@ -179,8 +179,8 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    ``kv_quant``) and stablelm-3b (LayerNorm, partial rotary, head_dim 80
    on the fp cache), each held to phase 11's contract and parity.
 13. The recurrent families at full width, cut in depth
-   (``RECURRENT_LAYERS``: rwkv6-3b 8 of 32, zamba2-7b 14 of 81, two
-   macroblocks and a 2-layer tail), seeded on the card and quantized as
+   (``RECURRENT_LAYERS``: rwkv6-3b 4 of 32, zamba2-7b 7 of 81, one
+   macroblock and a 1-layer tail), seeded on the card and quantized as
    drawn, phase 4's requests on 4 slots through the engine's
    chunk ladder (``prompt_chunk=32``: chunks of 32 rows run the matmul,
    the rest the matvec): (a) rwkv6-3b (attention-free RWKV6, untied
@@ -196,7 +196,7 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    these widths (K 2560 to 8960, N up to 65,536) against their plain
    versions and times them (``<kernel>_ssm`` in the kernel line).
 14. The frontend families at full width (phi-3-vision-4.2b cut to
-   ``PHI_LAYERS`` (8) of its 32 layers; seamless-m4t-medium whole),
+   ``PHI_LAYERS`` (4) of its 32 layers; seamless-m4t-medium whole),
    seeded on the card and quantized as drawn, with seeded (4, P, F) features from a generator on
    the card: (a) phi-3-vision-4.2b on itq3_s (head_dim 96 on the fp
    cache), (a1) phase 4's requests through the engine, text only as the
@@ -291,7 +291,23 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    serve launcher's ``--ckpt-dir`` boot on one card as phase 16 (d):
    ``quantize_blocks``, phase 4's contract, two runs equal, layer-forced
    logits within 1e-3. On a one-card machine the mesh runs at world 1 and
-   a line says it is not evidence of sharding.
+   a line says it is not evidence of sharding. (a)'s (2, 2) mesh splits
+   the compute over ``model`` (``train/tp.py``). (e) The model axis's
+   compute split on ``(data 1, model world)``: smollm-135m at full width
+   and depth (3 KV heads: the key sequence splits), qwen1.5-0.5b at full
+   width, 8 layers (16 KV heads: each rank its heads; QKV bias, the tied
+   151,936-row head vocab-parallel), olmoe-1b-7b at full width, 2 layers
+   (64 experts over the ranks, untied vocab-parallel head), three f32
+   steps each, held to one device (rank 0's own run) as (a) holds its
+   meshes; every gather of a step's params gives each leaf's model slice
+   (inside the forward the key-split attention gathers wq, wk, wv whole,
+   in one collective, and the tied head takes its rows by an all-to-all);
+   per rank ms/step, peak memory, the bytes of the params and moments and
+   of the params' working set (derived from the specs), and the bytes
+   and count of one step's collectives. With four cards also rwkv6-3b at
+   full width, 2 layers, whose family keeps the storage form, on (2, 2),
+   held alike. At world 1 the run is one device's and a line says it is
+   not evidence of the split.
 18. The per-cell dry-run (``launch/steps.py``, ``launch/dryrun.py``,
    ``launch/op_analysis.py``). (a) Host processes, no card visible, write
    the records of smollm-135m's ``train_4k``, ``prefill_32k`` and
@@ -2890,9 +2906,9 @@ DENSE_FAMILY_LAYERS = 2
 # layers; rwkv6's blocks; zamba2's macroblocks, tail and shared attention;
 # phi's decoder), which cuts their host-bound steps and plain-path
 # parities in proportion.
-MOE_LAYERS = 4
-RECURRENT_LAYERS = {"rwkv6-3b": 8, "zamba2-7b": 14}
-PHI_LAYERS = 8
+MOE_LAYERS = 2
+RECURRENT_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 7}
+PHI_LAYERS = 4
 
 
 def expert_stack(fmt: str, e: int, k: int, n: int, gen, dev):
@@ -4914,7 +4930,8 @@ def hold_grads(label: str, want, got) -> float:
 
     worst = 0.0
     for i, (a, b) in enumerate(zip(tree_leaves(want), tree_leaves(got))):
-        a, b = a.double().cpu(), b.double().cpu()
+        a = a.double()  # on want's device: a card's trees stay there
+        b = b.to(a.device).double()
         err = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
         worst = max(worst, err)
         if not err <= TRAIN_GRAD_TOL:
@@ -4933,14 +4950,14 @@ def hold_params(label: str, want, got, ref_grads, tol: float) -> dict:
     steps = ref_grads if isinstance(ref_grads, list) else [ref_grads]
     worst, flips = 0.0, 0
     for i, (a, b) in enumerate(zip(tree_leaves(want), tree_leaves(got))):
-        d = (a.double().cpu() - b.double().cpu()).abs()
+        d = (a.double() - b.to(a.device).double()).abs()
         worst = max(worst, float(d.max()))
         apart = d > tol
         if not bool(apart.any()):
             continue
         floor = torch.zeros_like(apart)
         for tree in steps:
-            g = tree_leaves(tree)[i].abs().cpu()
+            g = tree_leaves(tree)[i].abs().to(a.device)
             floor |= g < FLIP_FLOOR * g.max()
         if bool((apart & ~floor).any()) or float(apart.double().mean()) > (
                 FLIP_SHARE):
@@ -5275,19 +5292,22 @@ def mesh_shapes(world: int) -> list:
 
 def mesh_step_grads(cfg, state, batch, mesh, specs):
     """The f32 train loss's gradients at ``state`` (no remat), whole: on a
-    mesh this rank's rows, the params gathered, the gradients reduced to
-    the specs and gathered again (every rank calls it)."""
+    mesh as the train step takes them, this rank's rows, the params
+    gathered (along ``data`` only where the model axis splits the
+    compute, ``train/tp.py``), the gradients reduced to the specs, then
+    gathered whole (every rank calls it)."""
     from repro_torch.models import lm
     from repro_torch.models.layers import Runtime
     from repro_torch.sharding.rules import make_rules
-    from repro_torch.train import sharded
+    from repro_torch.train import sharded, tp
     from repro_torch.train.grad import value_and_grad
 
-    rt = sharded.batch_runtime(Runtime(capacity_factor=2.0), mesh)
+    split = None if mesh is None else tp.plan(cfg, mesh, specs.params)
+    rt = sharded.step_runtime(Runtime(capacity_factor=2.0), mesh, split)
     params = state.params
     if mesh is not None:
         batch = sharded.split_batch(batch, mesh, make_rules(mesh, cfg))
-        params = sharded.gather_params(params, specs.params, mesh)
+        params = sharded.gather_params(params, specs.params, mesh, split)
 
     def loss(p, b):
         xent, aux = lm.forward_xent(p, b["tokens"], b["labels"], rt, cfg)
@@ -5298,7 +5318,7 @@ def mesh_step_grads(cfg, state, batch, mesh, specs):
     del params
     if mesh is None:
         return grads
-    grads = sharded.reduce_grads(grads, specs.params, mesh)
+    grads = sharded.reduce_grads(grads, specs.params, mesh, split)
     return sharded.gather_params(grads, specs.params, mesh)
 
 
@@ -5353,12 +5373,16 @@ def state_bytes(state) -> int:
         state.params, state.opt.mu, state.opt.nu) for t in tree_leaves(tree))
 
 
-def collective_bytes(specs, cfg, shape: dict) -> dict:
-    """Bytes one mesh step moves through each collective on a rank, from
-    the specs and the f32 leaf sizes: ``all_gather`` the whole leaves a
-    gather builds; ``reduce_scatter`` the inputs of the reduce-scatters
-    (a leaf's model slice, where it has a data dim); ``all_reduce`` those
-    of the all-reduces (the leaves with no data dim, when data > 1)."""
+def collective_bytes(specs, cfg, shape: dict, split=None) -> dict:
+    """Bytes one mesh step moves through the state's collectives on a
+    rank, from the specs and the f32 leaf sizes: ``all_gather`` the
+    leaves a gather builds (whole, or under ``split`` (``train/tp.py``)
+    each leaf's model slice, gathered along ``data`` only);
+    ``reduce_scatter`` the inputs of the reduce-scatters (a leaf's model
+    slice, where it has a data dim); ``all_reduce`` those of the
+    all-reduces (the leaves with no data dim, when data > 1). A split
+    step's collectives inside the forward and backward are counted
+    apart (``count_ops``)."""
     from repro_torch.models import lm
     from repro_torch.train.tree import tree_leaves
 
@@ -5366,7 +5390,11 @@ def collective_bytes(specs, cfg, shape: dict) -> dict:
     out = dict(all_gather=0, reduce_scatter=0, all_reduce=0)
     for leaf, spec in zip(leaves, tree_leaves(specs.params)):
         whole = leaf.numel() * 4
-        if any(ax is not None for ax in spec):
+        if split is not None:
+            if "data" in spec:
+                out["all_gather"] += (whole // shape["model"]
+                                      if "model" in spec else whole)
+        elif any(ax is not None for ax in spec):
             out["all_gather"] += whole
         part = whole // shape["model"] if "model" in spec else whole
         if "data" in spec:
@@ -5376,10 +5404,11 @@ def collective_bytes(specs, cfg, shape: dict) -> dict:
     return out
 
 
-def collective_ms(state, specs, mesh) -> dict:
+def collective_ms(state, specs, mesh, split=None) -> dict:
     """Host ms of a step's param gathers alone and of its gradient
     reduction alone (on the gathered params as gradients), each started
-    by every rank together and ended by a synchronize."""
+    by every rank together and ended by a synchronize; under ``split``
+    the gathers along ``data`` only."""
     from repro_torch.launch.mesh import barrier
     from repro_torch.train import sharded
 
@@ -5391,8 +5420,9 @@ def collective_ms(state, specs, mesh) -> dict:
         torch.cuda.synchronize()
         return out, 1e3 * (time.perf_counter() - t0)
     whole, ag = timed(lambda: sharded.gather_params(state.params,
-                                                    specs.params, mesh))
-    _, red = timed(lambda: sharded.reduce_grads(whole, specs.params, mesh))
+                                                    specs.params, mesh, split))
+    _, red = timed(lambda: sharded.reduce_grads(whole, specs.params, mesh,
+                                                split))
     return dict(all_gather=ag, reduce=red)
 
 
@@ -5437,7 +5467,7 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     last the pod exchange (b). Each rank saves its results."""
     from repro_torch.checkpoint import ckpt as ckpt_mod
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.train import loop, sharded
+    from repro_torch.train import loop, sharded, tp
     from repro_torch.train.grad import (compressed_pod_allreduce,
                                         zeros_error_buf)
 
@@ -5471,10 +5501,14 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                         f"mesh {shape} step {s}", yard_grads[s], g))
             state, specs, m, ms, peak = mesh_train(
                 cfg, dev, mesh, steps=MESH_STEPS, on_grads=on_grads)
+            split = tp.plan(cfg, mesh, specs.params)
             row = dict(shape=shape, metrics=m, ms=ms, peak_mem_bytes=peak,
                        state_bytes=state_bytes(state),
-                       collective_bytes=collective_bytes(specs, cfg, shape),
-                       collective_ms=collective_ms(state, specs, mesh))
+                       split=None if split is None else split.attention,
+                       collective_bytes=collective_bytes(specs, cfg, shape,
+                                                         split),
+                       collective_ms=collective_ms(state, specs, mesh,
+                                                   split))
             whole = sharded.gather_params(state.params, specs.params, mesh)
             if rank == 0:
                 row.update(grad_worst=held["grad_worst"], **hold_params(
@@ -5568,6 +5602,253 @@ def remesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             torch.distributed.destroy_process_group()
 
 
+# (e) the model axis's compute split (train/tp.py) on (data 1, model
+# world): (arch, layers kept or None for every one), each against one
+# device by (a)'s bounds. smollm's 3 KV heads do not divide 2 or 4 (the
+# key sequence splits, T = 256); qwen1.5's 16 do (heads; QKV bias, tied
+# 151,936-row head); olmoe's 64 experts split, its head untied.
+SPLIT_ARCHS = (("smollm-135m", None), ("qwen1.5-0.5b", 8),
+               ("olmoe-1b-7b", 2))
+# with four cards, a family that keeps the storage form (train/tp.py
+# SPLIT_FAMILIES) on (2, 2), held alike: its leaves gathered whole, the
+# gradients' model slices taken after
+STORAGE_ARCH, STORAGE_LAYERS = "rwkv6-3b", 2
+
+
+def split_runs(world: int) -> list:
+    """(e)'s runs: (arch, layers kept or None, mesh shape)."""
+    runs = [(a, n, {"data": 1, "model": world}) for a, n in SPLIT_ARCHS]
+    if world == 4:
+        runs.append((STORAGE_ARCH, STORAGE_LAYERS, {"data": 2, "model": 2}))
+    return runs
+
+
+def split_cfg(arch: str, layers):
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def _sliced(shape, spec, shape_of: dict, axes) -> tuple:
+    """``shape`` with each dim named by one of ``axes`` in ``spec`` cut
+    by that axis's size."""
+    return tuple(n // shape_of[ax] if ax in axes else n
+                 for n, ax in zip(shape, spec))
+
+
+def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase 17 (e) on ``cuda:rank``: per run of
+    :func:`split_runs` (SPLIT_ARCHS on a (1, world) NCCL mesh, with four
+    cards the storage form on (2, 2)) rank 0 first runs the one-device
+    yardstick (MESH_STEPS f32 steps, its gradients kept) while the others
+    wait, then every rank trains MESH_STEPS steps on the mesh, rank 0
+    holding each step's whole gradients and then the params to the
+    yardstick's. Every gather of the split step's params is checked to
+    give each leaf's model slice; the storage form's step must not split.
+    One more step, untimed and dropped, counts the collectives it
+    dispatches (``count_ops``). At world 1 the mesh step is one device's:
+    no yardstick, nothing to count. Each rank saves its results."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch.mesh import barrier, make_mesh
+    from repro_torch.launch.op_analysis import count_ops
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Runtime
+    from repro_torch.train import loop, sharded, tp
+    from repro_torch.train.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    _build.reset_launches()
+    res: dict = {}
+    meshes: dict = {}
+    gather = sharded.gather_params
+    # at world 1 the mesh step is one device's (no split): it is its own
+    # yardstick, and it dispatches no collective to count
+    yard = world > 1
+    try:
+        for arch, layers, shape in split_runs(world):
+            key = tuple(shape.values())
+            if key not in meshes:
+                meshes[key] = make_mesh(shape, device=dev, init_method=store,
+                                        rank=rank, world_size=world)
+            mesh = meshes[key]
+            cfg = split_cfg(arch, layers)
+            row: dict = {}
+            if rank == 0 and yard:
+                yard_grads = {}
+                one, _, m1, ms1, peak1 = mesh_train(
+                    cfg, dev, None, steps=MESH_STEPS,
+                    on_grads=yard_grads.__setitem__)
+                row["one_device"] = dict(metrics=m1, ms=ms1,
+                                         peak_mem_bytes=peak1,
+                                         state_bytes=state_bytes(one))
+                yard_params = one.params
+                del one
+                torch.cuda.empty_cache()
+            barrier(mesh)
+            held = {"grad_worst": 0.0}
+            sets = []
+
+            def on_grads(s, g):
+                if rank == 0:
+                    held["grad_worst"] = max(held["grad_worst"], hold_grads(
+                        f"split {arch} step {s}", yard_grads[s], g))
+
+            def spy(local, pspecs, mesh_, split=None):
+                out = gather(local, pspecs, mesh_, split)
+                if split is not None:
+                    sets.append([tuple(t.shape) for t in tree_leaves(out)])
+                return out
+            sharded.gather_params = spy
+            try:
+                state, specs, m, ms, peak = mesh_train(
+                    cfg, dev, mesh, steps=MESH_STEPS,
+                    on_grads=on_grads if yard else None)
+            finally:
+                sharded.gather_params = gather
+            split = tp.plan(cfg, mesh, specs.params)
+            whole = [tuple(t.shape) for t in tree_leaves(lm.shape_params(
+                cfg))]
+            pspecs = tree_leaves(specs.params)
+            want = [_sliced(w, sp, mesh.shape, ("model",))
+                    for w, sp in zip(whole, pspecs)]
+            if arch == STORAGE_ARCH:
+                if split is not None or sets:
+                    raise AssertionError(f"{arch}: the storage form split")
+                want = whole
+            elif world > 1 and (not sets or any(got != want
+                                                for got in sets)):
+                raise AssertionError(f"split {arch}: a gather gave other "
+                                     f"than each leaf's model slice")
+            coll: dict = {"bytes": {}, "counts": {}}
+            if yard:
+                step = loop.make_train_step(
+                    cfg, Runtime(capacity_factor=2.0),
+                    compute_dtype=torch.float32, mesh=mesh, specs=specs,
+                    **TRAIN_KW)
+                batch = SyntheticCorpus(cfg.vocab_size, seed=17).batch(
+                    MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+                with count_ops(tags=False) as st:
+                    step(state, batch)
+                torch.cuda.synchronize()
+                coll = {"bytes": dict(st.collective_bytes),
+                        "counts": dict(st.collective_counts)}
+            row.update(
+                metrics=m, ms=ms, peak_mem_bytes=peak,
+                state_bytes=state_bytes(state),
+                working_bytes=4 * sum(math.prod(w) for w in want),
+                whole_bytes=4 * sum(math.prod(w) for w in whole),
+                attention=None if split is None else split.attention,
+                collective_bytes=coll["bytes"],
+                collective_counts=coll["counts"])
+            if not yard:
+                row.update(one_device=dict(
+                    metrics=m, ms=ms, peak_mem_bytes=peak,
+                    state_bytes=row["state_bytes"]), grad_worst=0.0,
+                    max_abs=0.0, flips=0)
+            elif rank == 0:
+                params = sharded.gather_params(state.params, specs.params,
+                                               mesh)
+                row.update(grad_worst=held["grad_worst"], **hold_params(
+                    f"split {arch}", yard_params, params,
+                    list(yard_grads.values()), MESH_PARAM_TOL))
+                del yard_params, yard_grads, params
+            else:  # every rank takes the gather's collectives
+                sharded.gather_params(state.params, specs.params, mesh)
+            del state
+            torch.cuda.empty_cache()
+            res[arch] = row
+        res["launches"] = dict(_build.launches)
+        torch.save(res, Path(out_dir) / f"split{rank}.pt")
+    finally:
+        sharded.gather_params = gather
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def split_phase(world: int, out: dict) -> None:
+    """Phase 17 (e): SPLIT_ARCHS trained on a (1, world) mesh whose model
+    axis splits the compute, and with four cards STORAGE_ARCH's storage
+    form on (2, 2), each held to one device as (a) holds its meshes; per
+    rank ms/step, peak memory, the params and moments' bytes, the working
+    set's bytes (derived from the specs: each leaf's model slice, whole
+    under the storage form) and the collectives of one measured step."""
+    print(f"phase 17 (e): the model axis's compute split on (data 1, model "
+          f"{world}) NCCL rank(s): "
+          + ", ".join(f"{a} ({'all' if n is None else n} layers)"
+                      for a, n in SPLIT_ARCHS)
+          + f", {MESH_STEPS} f32 steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens each, against one device", flush=True)
+    if world == 1:
+        print("  one card: the split path runs at world 1 (a model axis of "
+              "one rank splits nothing, no collective; the run is one "
+              "device's, so it is its own yardstick); not evidence of the "
+              "split; the storage form's (2, 2) needs four cards",
+              flush=True)
+    else:
+        print(f"  and {STORAGE_ARCH} ({STORAGE_LAYERS} layers), which keeps "
+              f"the storage form, on (data 2, model 2)" if world == 4 else
+              "  the storage form's (2, 2) needs four cards", flush=True)
+    torch.cuda.empty_cache()
+    torch.multiprocessing.start_processes(
+        split_rank, args=(world, f"file://{MESH_DIR / 'store_split'}",
+                          str(MESH_DIR)), nprocs=world, start_method="spawn")
+    ranks = [torch.load(MESH_DIR / f"split{r}.pt") for r in range(world)]
+    launched = {r: res["launches"] for r, res in enumerate(ranks)
+                if res["launches"]}
+    if launched:
+        raise AssertionError(f"split training launched {launched}")
+    out["split"] = {}
+    for arch, layers, shape in split_runs(world):
+        row0 = ranks[0][arch]
+        one = row0["one_device"]
+        label = f"split {arch}"
+        for r, res in enumerate(ranks):
+            if res[arch]["metrics"] != row0["metrics"]:
+                raise AssertionError(f"{label}: rank {r}'s metrics differ "
+                                     f"from rank 0's")
+        for s, (got, want) in enumerate(zip(row0["metrics"],
+                                            one["metrics"])):
+            _metrics_close(f"{label} step {s}", got, want)
+        one_ms = statistics.median(one["ms"][1:])
+        per_rank = [dict(ms_per_step=statistics.median(res[arch]["ms"][1:]),
+                         **{k: res[arch][k] for k in (
+                             "ms", "peak_mem_bytes", "state_bytes",
+                             "working_bytes", "collective_bytes",
+                             "collective_counts")})
+                    for res in ranks]
+        out["split"][arch] = dict(
+            layers=layers, mesh=shape, attention=row0["attention"],
+            one_device=dict(ms_per_step=one_ms, **one), ranks=per_rank,
+            whole_bytes=row0["whole_bytes"], grad_worst=row0["grad_worst"],
+            params_max_abs=row0["max_abs"], flips=row0["flips"],
+            metrics=row0["metrics"])
+        held = ("the run is one device's" if world == 1 else
+                f"within {MESH_REL_TOL} of one device's; gradients within "
+                f"{row0['grad_worst']:.2e} of each leaf's largest; params "
+                f"{row0['max_abs']:.2e} apart ({row0['flips']} noise-floor "
+                f"flips)")
+        form = row0["attention"] or ("storage form" if arch == STORAGE_ARCH
+                                     else "one rank")
+        print(f"  {arch} on {tuple(shape.values())} ({form}): every rank's "
+              f"loss and gnorm bit-equal ({_bits(row0['metrics'][-1]['loss'])}"
+              f", {_bits(row0['metrics'][-1]['gnorm'])}), {held}", flush=True)
+        for r, p in enumerate(per_rank):
+            coll = ", ".join(f"{k} {p['collective_counts'][k]:.0f} calls "
+                             f"{p['collective_bytes'][k] / 1e6:.1f} MB"
+                             for k in sorted(p["collective_counts"]))
+            print(f"    rank {r}: {p['ms_per_step']:.1f} ms/step (one device "
+                  f"{one_ms:.1f}), peak memory {_gib(p['peak_mem_bytes'])} "
+                  f"(one device {_gib(one['peak_mem_bytes'])}), params and "
+                  f"moments {p['state_bytes'] / 1e9:.3f} GB (one device "
+                  f"{one['state_bytes'] / 1e9:.3f}), params' working set "
+                  f"from the specs {p['working_bytes'] / 1e9:.3f} GB of "
+                  f"{row0['whole_bytes'] / 1e9:.3f}; one step's "
+                  f"collectives {coll or 'none'}", flush=True)
+
+
 def _metrics_close(label: str, got: dict, want: dict) -> None:
     for k in ("loss", "gnorm", "moe_aux"):
         if not abs(got[k] - want[k]) <= MESH_REL_TOL * max(abs(want[k]),
@@ -5596,8 +5877,10 @@ def mesh_phase(dev, report: dict) -> dict:
     model=1)``'s mesh, whose next MESH_RESUME_STEPS steps' metrics must
     equal an uninterrupted one-device run's within (a)'s bounds. (a)-(c)
     launch nothing of ``csrc/``. (d) The checkpoint through the serve
-    launcher's ``--ckpt-dir`` boot on one card (``serve_trained``).
-    Returns (d)'s counted launches."""
+    launcher's ``--ckpt-dir`` boot on one card (``serve_trained``). (e)
+    The model axis's compute split (``train/tp.py``) on ``(data 1, model
+    world)`` for SPLIT_ARCHS (:func:`split_phase`), held as (a); (a)'s
+    (2, 2) mesh runs the split too. Returns (d)'s counted launches."""
     out: dict = {}
     cfg = get_config("smollm-135m")
     world = min(torch.cuda.device_count(), 4)
@@ -5625,7 +5908,8 @@ def mesh_phase(dev, report: dict) -> dict:
     out["meshes"] = []
     for i, row0 in enumerate(ranks[0]["meshes"]):
         shape = row0["shape"]
-        label = f"mesh {tuple(shape.values())}"
+        label = f"mesh {tuple(shape.values())}" + (
+            f" (split, {row0['split']})" if row0.get("split") else "")
         for r, res in enumerate(ranks):
             if res["meshes"][i]["metrics"] != row0["metrics"]:
                 raise AssertionError(f"{label}: rank {r}'s metrics differ "
@@ -5643,7 +5927,8 @@ def mesh_phase(dev, report: dict) -> dict:
                                  collective_ms=row["collective_ms"]))
         cb = row0["collective_bytes"]
         out["meshes"].append(dict(
-            shape=shape, ranks=per_rank, collective_bytes=cb,
+            shape=shape, split=row0.get("split"), ranks=per_rank,
+            collective_bytes=cb,
             grad_worst=row0["grad_worst"], params_max_abs=row0["max_abs"],
             flips=row0["flips"], metrics=row0["metrics"],
             tokens_per_s=tokens / max(p["ms_per_step"] for p in per_rank)
@@ -5740,6 +6025,7 @@ def mesh_phase(dev, report: dict) -> dict:
     print("phase 17 (d): the mesh-trained checkpoint through the serve "
           "launcher's --ckpt-dir boot on one card", flush=True)
     _, _, counts = serve_trained(MESH_DIR / "ckpt", cfg, dev, out)
+    split_phase(world, out)
     report["mesh"] = out
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     return counts

@@ -26,8 +26,13 @@ SPMD partitioner):
   * a ``train`` cell runs ``make_train_step`` on the mesh
     (``train/sharded.py``): this rank's slices of the state under
     ``param_pspecs``, the global batch split over the batch axes, the
-    params gathered. The ``model`` axis is a storage layout there: the
-    model ranks of one data group compute the same rows;
+    params gathered along ``data``. For the dense and MoE families the
+    ``model`` axis splits the compute (``train/tp.py``: column- and
+    row-parallel products, the attention by KV heads or by blocks of
+    keys, the vocab-parallel head, experts over ``model``); ``vlm``,
+    ``audio``, ``ssm`` and ``hybrid`` keep the storage form, the model
+    ranks of one data group computing the same rows (``Cell.layout``
+    records which, and the attention case);
   * a serving cell takes its rows of the global batch over the batch axes
     (:func:`_batch_axis_for`) and runs the ``model`` axis through
     ``serve/tp.py``'s rules on its model group: packed planes column-
@@ -53,6 +58,7 @@ from repro_torch.serve.quantized import QuantPolicy, quantize_params
 from repro_torch.sharding import rules as rules_mod
 from repro_torch.train import loop as train_loop
 from repro_torch.train import optim
+from repro_torch.train import tp as train_tp
 
 __all__ = ["Cell", "build_cell", "input_specs", "param_tree"]
 
@@ -281,8 +287,8 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
                 specs=specs if mesh.size > 1 else None)(state, batch)
 
         layout["batch_specs"] = _batch_specs(batch, rules, mesh)
-        layout["model_axis"] = ("storage: the model ranks of a data group "
-                                "compute the same rows (train/sharded.py)")
+        layout["model_axis"] = _train_model_axis(cfg, mesh, specs,
+                                                 shape.seq_len)
         return Cell(arch, shape, cfg, mesh, rules, rt, train_step,
                     (local, batch), state, specs, layout, mode)
 
@@ -344,6 +350,31 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
     return Cell(arch, shape, cfg, mesh, rules, rt, decode_fn,
                 (local, tokens, local_cache, pos), qparams, qspecs, layout,
                 mode)
+
+
+def _train_model_axis(cfg, mesh: Mesh, specs, seq: int) -> str:
+    """What a train step's ``model`` axis does: ``train/tp.py``'s split
+    and its attention case, or the storage form of the families that keep
+    it."""
+    m = int(mesh.shape.get("model", 1))
+    if m == 1:
+        return "one rank"
+    split = train_tp.plan(cfg, mesh, specs.params)
+    if split is None:
+        return (f"storage: the {cfg.family} family keeps the storage form, "
+                f"the model ranks of a data group compute the same rows "
+                f"(train/sharded.py)")
+    if split.heads:
+        attn = "heads: each rank its kv_heads / m groups"
+    elif seq % m == 0:
+        attn = "kv_seq: every query against each rank's T/m keys"
+    else:
+        attn = "kv_seq: T does not divide the axis, replicated"
+    ffn = ("experts over model" if split.has("moe.up") else
+           "mlp column/row-parallel" if split.has("mlp.up") else
+           "mlp replicated")
+    head = "vocab-parallel head" if split.vocab else "head replicated"
+    return f"tensor parallel (train/tp.py): attention {attn}; {ffn}; {head}"
 
 
 def _cache_layout(cfg, cache, srules, ref_specs) -> dict:

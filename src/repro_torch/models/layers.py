@@ -25,6 +25,16 @@ its mesh; ``serve/tp.py``) :func:`dense` runs a placed QTensor column-
 parallel, and :func:`attention_apply` attends this rank's KV heads against
 its head-sharded cache, then gathers the heads: every rank leaves each
 block holding the whole activations.
+
+Under the training split (``Runtime.model_split``, set by the train step
+alone; ``train/tp.py``) the params are this rank's model slices: the MLP
+runs gate and up column-parallel and down row-parallel, and the attention
+either attends this rank's ``kv_heads / m`` groups (wq, wk, wv column-,
+wo row-parallel), or, where the KV heads do not divide the axis (the
+reference's ``kv_seq``), projects every head on the gathered weights and
+attends all queries to this rank's block of T/m keys, merging the ranks'
+(acc, max, sum) (:func:`_merge_blocks`); where T does not divide the axis
+either, it attends replicated. Every block leaves the whole activations.
 """
 from __future__ import annotations
 
@@ -75,11 +85,20 @@ class Runtime:
     # split the rows, so the MoE aux's means are taken over the global
     # batch; None on one device or one batch rank
     batch_mesh: Any = None
+    # training on a mesh whose model axis splits the compute: this rank's
+    # train/tp.py ModelSplit (set by the train step, never by serving)
+    model_split: Any = None
 
 
-def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:
+def dense(x: torch.Tensor, w, rt: Runtime, bias=None, *,
+          row: bool = False) -> torch.Tensor:
     """``x @ w (+ bias)`` with QTensor dispatch (the quantization seam);
-    under ``rt.rules`` a QTensor runs column-parallel."""
+    under ``rt.rules`` a QTensor runs column-parallel. Under
+    ``rt.model_split`` a plain-tensor slice runs by its leaf's role:
+    column-parallel on an ``x`` already entered into the split region
+    (the caller enters it once for all the products that read it), and,
+    with ``row``, row-parallel: the partial products summed over the
+    model group in f32 before the bias."""
     if isinstance(w, QTensor) and rt.rules is not None:
         from repro_torch.serve import tp as tp_mod  # layers <-> serve
         y = tp_mod.tp_qmatmul(x, w, rt.rules, mode=rt.quant_mode,
@@ -89,6 +108,8 @@ def dense(x: torch.Tensor, w, rt: Runtime, bias=None) -> torch.Tensor:
                     act_quant=rt.act_quant)
     else:
         y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    if row:
+        y = rt.model_split.leave(y)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -146,9 +167,14 @@ def activate(activation: str, up: torch.Tensor, gate=None) -> torch.Tensor:
 
 def mlp_apply(p: Params, x: torch.Tensor, rt: Runtime,
               activation: str) -> torch.Tensor:
+    """The MLP; under a model split whose ``d_ff`` divides the axis, gate
+    and up column-parallel and down row-parallel."""
+    row = rt.model_split is not None and rt.model_split.has("mlp.up")
+    if row:
+        x = rt.model_split.enter(x)
     gate = dense(x, p["gate"], rt) if activation == "swiglu" else None
     h = activate(activation, dense(x, p["up"], rt), gate)
-    return dense(h, p["down"], rt)
+    return dense(h, p["down"], rt, row=row)
 
 
 def _sdpa(q, k, v, *, causal: bool, q_offset, kv_len):
@@ -176,7 +202,7 @@ def _sdpa(q, k, v, *, causal: bool, q_offset, kv_len):
 
 
 def _sdpa_chunked(q, k, v, rt: Runtime, *, causal: bool, q_offset,
-                  kv_len):
+                  kv_len, k_offset: int = 0, partial: bool = False):
     """:func:`_sdpa` over chunks of ``min(rt.attn_chunk, Tq)`` queries, each
     against every key (the reference's ``_sdpa_chunked``), so a long
     prompt never holds a (Tq, Tk) score tensor. The queries are padded to
@@ -188,10 +214,18 @@ def _sdpa_chunked(q, k, v, rt: Runtime, *, causal: bool, q_offset,
     itself, bit for bit. Over more, each chunk is two ``bmm`` over the
     (B * KV) heads and its masking, with K, V, the key positions and the
     ``kv_len`` mask laid out once per call: a 32k prompt runs 128 chunks a
-    layer, and their host ops, not their arithmetic, bound its time."""
+    layer, and their host ops, not their arithmetic, bound its time.
+
+    With ``partial`` (the key-split attention of a training model split)
+    the keys are one block at absolute positions ``k_offset + 0..Tk-1``
+    and the result is unnormalized: ``(acc (B, KV, G, Tq, HD), m, l (B,
+    KV, G, Tq))`` in f32, ``m`` the detached row max of the scores and
+    ``l`` the sum of ``exp(s - m)``, for :func:`_merge_blocks`. A row
+    whose every key is masked has ``m = NEG_INF``: its block weighs
+    ``exp(NEG_INF - M) = 0`` in the merge."""
     b, kvh, g, tq, hd = q.shape
     chunk = max(1, min(rt.attn_chunk, tq))
-    if chunk == tq:
+    if chunk == tq and not partial:
         return _sdpa(q, k, v, causal=causal, q_offset=q_offset,
                      kv_len=kv_len)
     tk = k.shape[2]
@@ -206,7 +240,7 @@ def _sdpa_chunked(q, k, v, rt: Runtime, *, causal: bool, q_offset,
         3, 0, 1, 2, 4, 5).reshape(nq, b * kvh, g * chunk, hd)
     kt = k.reshape(b * kvh, tk, hd).transpose(1, 2)
     v3 = v.reshape(b * kvh, tk, hd)
-    kpos = torch.arange(tk, device=q.device)
+    kpos = k_offset + torch.arange(tk, device=q.device)
     rows = torch.arange(chunk, device=q.device)[:, None]  # (chunk, 1)
     keep = None if kv_len is None else (
         kpos < kv_len[:, None])[:, None, None, None, :]  # (B, 1, 1, 1, Tk)
@@ -220,18 +254,28 @@ def _sdpa_chunked(q, k, v, rt: Runtime, *, causal: bool, q_offset,
             mask = c if mask is None else mask & c
         if mask is not None:
             s = s.masked_fill(~mask, NEG_INF)
-        w = torch.softmax(s.to(torch.float32), dim=-1).to(v.dtype)
+        s = s.to(torch.float32)
+        if partial:
+            m = torch.amax(s.detach(), dim=-1, keepdim=True)
+            e = torch.exp(s - m)
+            acc = torch.bmm(e.to(v.dtype).view(b * kvh, g * chunk, tk), v3)
+            return (acc.view(b, kvh, g, chunk, hd).to(torch.float32),
+                    m[..., 0], torch.sum(e, dim=-1))
+        w = torch.softmax(s, dim=-1).to(v.dtype)
         return torch.bmm(w.view(b * kvh, g * chunk, tk), v3).view(
             b, kvh, g, chunk, hd)
 
     outs = []
     for ci in range(nq):
         off = q_offset + ci * chunk
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() and nq > 1:
             outs.append(ckpt_util.checkpoint(one_chunk, qc[ci], off,
                                              use_reentrant=False))
         else:
             outs.append(one_chunk(qc[ci], off))
+    if partial:
+        return tuple(torch.cat(parts, dim=3)[:, :, :, :tq]
+                     for parts in zip(*outs))
     return torch.cat(outs, dim=3)[:, :, :, :tq]
 
 
@@ -313,6 +357,8 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     reference replaces its cache by the projected K/V whatever their
     length; here a memory whose length is not the cache's raises
     ``ValueError`` instead of writing a cache of another size."""
+    if rt.model_split is not None and cache is None and not cross:
+        return _split_attention(p, x, rt, cfg, pos=pos, causal=causal), None
     b, t, _ = x.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
@@ -383,6 +429,77 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
         out_cache = cache
     out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
     return dense(out, p["wo"], rt), out_cache
+
+
+def _merge_blocks(acc, m, l, split) -> torch.Tensor:
+    """The softmax attention of the model group's key blocks from each
+    rank's partial :func:`_sdpa_chunked`: the all-reduce max ``M`` of the detached
+    maxima, each rank's (acc, l) rescaled by ``exp(m - M)`` and summed over
+    the group in one f32 all-reduce, then ``acc / l``."""
+    w = torch.exp(m - split.max(m))
+    both = split.leave(torch.cat([acc * w[..., None], (l * w)[..., None]],
+                                 dim=-1))
+    return both[..., :-1] / both[..., -1:]
+
+
+def _split_attention(p: Params, x: torch.Tensor, rt: Runtime, cfg, *, pos,
+                     causal: bool) -> torch.Tensor:
+    """Self-attention without a cache under ``rt.model_split``: this
+    rank's ``kv_heads / m`` groups where they divide the axis, else every
+    head on wq, wk, wv gathered whole in one collective (replicated
+    compute) attending all queries to this rank's T/m keys (``kv_seq``;
+    replicated where T does not divide the axis); wo row-parallel where it
+    holds its rows' slice. Q, K and V are one product, entered into the
+    split once. Returns the (B, T, D) output, the same on every rank."""
+    split = rt.model_split
+    b, t, _ = x.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    g = h // kvh
+    pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    pos_vec = pos_vec.expand(b) if pos_vec.dim() == 0 else pos_vec
+    qpos = pos_vec[:, None] + torch.arange(t, device=x.device)  # (B, T)
+    names = ("wq", "wk", "wv")
+    seq = not split.heads and t % split.ways == 0
+    if split.heads:
+        x = split.enter(x)
+        h, kvh = h // split.ways, kvh // split.ways
+        w = torch.cat([p[n] for n in names], -1)
+    else:
+        w = split.whole_cat([p[n] for n in names],
+                            [f"attn.{n}" for n in names], -1)
+    sizes = [h * hd, kvh * hd, kvh * hd]
+    bias = None
+    if "bq" in p:  # the config's QKV biases, all three
+        bias = torch.cat([p["bq"], p["bk"], p["bv"]])
+        if split.heads:  # the blocks of this rank's heads
+            bias = torch.cat([bv.narrow(0, *split.block(bv.shape[0]))
+                              for bv in split.enter(bias).split(
+                                  [n * split.ways for n in sizes])])
+    qkv = dense(x, w, rt, bias)
+    if seq:
+        qkv = split.enter(qkv)
+    q, k, v = qkv.split(sizes, -1)
+    q = rope(q.reshape(b, t, h, hd).transpose(1, 2), qpos[:, None, :],
+             cfg.rope_theta, cfg.rotary_pct).reshape(b, kvh, g, t, hd)
+    k = rope(k.reshape(b, t, kvh, hd).transpose(1, 2), qpos[:, None, :],
+             cfg.rope_theta, cfg.rotary_pct)
+    v = v.reshape(b, t, kvh, hd).transpose(1, 2)
+    if seq:
+        lo, n = split.block(t)
+        out = _merge_blocks(*_sdpa_chunked(
+            q, k[:, :, lo:lo + n], v[:, :, lo:lo + n], rt, causal=causal,
+            q_offset=pos_vec, kv_len=None, k_offset=lo, partial=True),
+            split)
+    else:
+        out = _sdpa_chunked(q, k, v, rt, causal=causal, q_offset=pos_vec,
+                            kv_len=None)
+    out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
+    if split.heads:
+        return dense(out, p["wo"], rt, row=True)
+    if split.has("attn.wo"):
+        return dense(split.own(out, -1), p["wo"], rt, row=True)
+    return dense(out, p["wo"], rt)
 
 
 def _tp_heads(rt: Runtime, kvh: int, cache):

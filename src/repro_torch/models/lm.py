@@ -620,11 +620,24 @@ def _embed(params, tokens, rt=None, cfg=None):
         return formats.dequantize(table).T[tokens]
     if tp_mod is not None:
         return tp_mod.embed_rows(table, tokens, cfg, rt.rules)
+    split = None if rt is None else rt.model_split
+    if split is not None and split.has("embed"):
+        # this rank's D columns of the rows, gathered along D for the
+        # replicated stack
+        return split.whole(table.to(torch.float32)[tokens], "embed", -1)
     return table.to(torch.float32)[tokens]
 
 
 def _head_weight(params, rt, cfg):
-    """The (D, V) head weight: ``lm_head``, or the tied table."""
+    """The (D, V) head weight: ``lm_head``, or the tied table. Under a
+    model split the vocab-parallel head is this rank's (D, V/m) block:
+    ``lm_head``'s own slice, or the rows of the tied table, which is
+    stored split along D, moved to this rank by one all-to-all (each
+    rank's head reads its rows only, and no rank holds the table whole);
+    a head whose vocabulary does not divide the axis is whole."""
+    split = None if rt is None else rt.model_split
+    if split is not None:
+        return _split_head_weight(params, split, cfg)
     w = params.get("lm_head")
     if w is None:
         w = params["embed"]
@@ -637,6 +650,20 @@ def _head_weight(params, rt, cfg):
                 w = tp_mod.full_table(w, cfg, rt.rules)
             w = w.T  # tied head: a plain f32 product
     return w
+
+
+def _split_head_weight(params, split, cfg):
+    """:func:`_head_weight` under ``split`` (plain tensors)."""
+    w = params.get("lm_head")
+    if w is not None:
+        return w  # its vocab slice where it holds one, else whole
+    table = params["embed"]
+    if not split.vocab:
+        return split.whole(table, "embed", -1).T
+    if split.has("embed"):
+        return split.swap(table, 0, -1).T
+    lo, n = split.block(cfg.vocab_size)
+    return split.enter(table)[lo:lo + n].T
 
 
 def _head(params, x, rt, cfg):
@@ -785,12 +812,33 @@ def _train_stack(params, x, rt, cfg, memory=None):
 
 def _xent_chunk(x, labels, w, rt):
     """Summed token cross-entropy of one chunk of positions: the head's
-    f32 logits (B, C, V) and their logsumexp; labels < 0 count 0."""
+    f32 logits (B, C, V) and their logsumexp; labels < 0 count 0. Under a
+    vocab-parallel model split the logits are this rank's (B, C, V/m)
+    block (:func:`_vocab_xent`)."""
     logits = dense(x, w, rt).to(torch.float32)
+    if rt.model_split is not None and rt.model_split.vocab:
+        return _vocab_xent(logits, labels, rt.model_split)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, torch.clamp_min(labels, 0)[..., None])[
         ..., 0]
     return torch.sum((lse - ll) * (labels >= 0).to(torch.float32))
+
+
+def _vocab_xent(logits, labels, split):
+    """The summed cross-entropy of vocab-parallel logits: the logsumexp
+    as a detached all-reduce max plus the model group's sum of
+    ``exp(logit - max)``; the label's logit from the rank whose block
+    holds it, summed over the group (the two sums in one all-reduce)."""
+    lo, n = split.block(logits.shape[-1] * split.ways)
+    mx = split.max(torch.amax(logits, dim=-1))
+    se = torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
+    lab = torch.clamp_min(labels, 0) - lo
+    mine = (lab >= 0) & (lab < n)
+    ll = torch.gather(logits, -1, torch.clamp(lab, 0, n - 1)[..., None])[
+        ..., 0]
+    both = split.leave(torch.stack([se, torch.where(mine, ll, 0.0)]))
+    lse = torch.log(both[0]) + mx
+    return torch.sum((lse - both[1]) * (labels >= 0).to(torch.float32))
 
 
 def forward_xent(params: Params, tokens, labels, rt: Runtime, cfg, *,
@@ -809,6 +857,8 @@ def forward_xent(params: Params, tokens, labels, rt: Runtime, cfg, *,
     x, aux = _train_stack(params, x, rt, cfg, memory)
     x = norm_apply(params["ln_f"], x[:, prefix:], cfg.norm)
     w = _head_weight(params, rt, cfg)
+    if rt.model_split is not None and rt.model_split.vocab:
+        x = rt.model_split.enter(x)  # once, for every chunk's head
     b, t, _ = x.shape
     chunk = max(1, min(chunk, t))
     tot = torch.zeros((), device=x.device)

@@ -35,6 +35,13 @@ then the ascending-order sum above runs as on one device. The reference
 instead combines inside a ``shard_map`` with a ``psum`` at (T, D) width:
 a cross-device float reduction, whose order would break bit-identity with
 the single-device engine. The gather here is (T·k, D) wide per row.
+
+The train step's expert parallelism (``Runtime.model_split``,
+``train/tp.py``) is the same form on float stacks of E/m experts: the
+router and the dispatch run whole on every rank, the rank's experts run
+its capacity rows, and the combine selects each assignment's row from
+the all-gathered blocks, the gather's backward handing each rank its own
+rows' gradient (the combine is replicated compute).
 """
 from __future__ import annotations
 
@@ -144,6 +151,9 @@ def _expert_ffn(p: Params, x: torch.Tensor, rt: Runtime, activation: str,
 def _expert_shard(p: Params, rt: Runtime, e: int):
     """(first expert, experts) of this rank's expert-parallel shard, or
     None when every rank holds the whole stacks."""
+    split = rt.model_split
+    if split is not None:
+        return split.block(e) if split.has("moe.up") else None
     if rt.rules is None:
         return None
     held = min(_experts_held(p[k]) for k in ("gate", "up", "down") if k in p)
@@ -173,6 +183,9 @@ def moe_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg):
     aux = e * torch.sum(me * ce)
 
     dsp = dispatch(idx, cap)
+    shard = _expert_shard(p, rt, e)
+    if shard is not None and rt.model_split is not None:
+        x = rt.model_split.enter(x)  # into this rank's experts' rows
     rows = torch.arange(b, device=x.device)[:, None]
     # slot of each sorted assignment in the expert-major (E, B, cap) buffer
     slot = (dsp.s_eid * b + rows) * cap + dsp.rankc
@@ -180,7 +193,6 @@ def moe_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg):
     buf = x.new_zeros((trash + 1, d))
     buf[torch.where(dsp.keep, slot, trash).reshape(-1)] = x[
         rows, dsp.order // k].reshape(-1, d)
-    shard = _expert_shard(p, rt, e)
     if shard is None:
         out_buf = _expert_ffn(p, buf[:trash].view(e, b * cap, d), rt,
                               cfg.activation).reshape(trash, d)
@@ -216,15 +228,25 @@ def _ep_select(out_loc: torch.Tensor, slot_tok: torch.Tensor, per: int,
     the whole (E*B*cap, D) buffer). Each rank fills the (B, T, k, D) rows
     of the assignments it owns, zeros elsewhere; one all-gather; every
     rank selects each assignment's row from its owner's block: the rows
-    of the single-device buffer, bit for bit."""
-    from repro_torch.serve import tp as tp_mod  # moe <-> serve
+    of the single-device buffer, bit for bit. In training the gather is
+    ``train/tp.py``'s ``gather_replicated``."""
+    if rt.model_split is not None:
+        coord = rt.model_split.coord
 
-    mesh = rt.rules.mesh
-    local = slot_tok - mesh.rank * per
+        def gather(t):
+            return rt.model_split.gather(t, 0)
+    else:
+        from repro_torch.serve import tp as tp_mod  # moe <-> serve
+        mesh = rt.rules.mesh
+        coord = mesh.rank
+
+        def gather(t):
+            return tp_mod.all_gather(t, 0, mesh)
+    local = slot_tok - coord * per
     mine = (local >= 0) & (local < per)
     rows = torch.where(mine[..., None], out_loc[torch.clamp(local, 0,
                                                             per - 1)], 0.0)
-    every = tp_mod.all_gather(rows[None], 0, mesh)  # (m, B, T, k, D)
+    every = gather(rows[None])  # (m, B, T, k, D)
     owner = (slot_tok // per)[None, ..., None].expand(
         1, *rows.shape)
     return torch.gather(every, 0, owner)[0]

@@ -18,7 +18,14 @@ holds this rank's slices under ``specs`` and the step runs as
 ``train/sharded.py`` describes: the batch split over the batch ranks,
 the params gathered, the gradients reduced to the specs, one global norm,
 AdamW on the slices, and the loss and aux averaged over the ranks, so
-every rank reports the same metrics.
+every rank reports the same metrics. By family on a model axis of more
+than one rank: ``dense`` and ``moe`` split the compute over ``model``
+(``train/tp.py``: the params gathered along ``data`` only, column- and
+row-parallel products, the attention by KV heads or by blocks of keys,
+the vocab-parallel head and cross-entropy, experts over ``model``);
+``vlm``, ``audio``, ``ssm`` and ``hybrid`` keep the storage form (every
+leaf gathered whole, the model ranks of a data group computing the same
+rows).
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import torch
 from repro_torch.models import lm
 from repro_torch.models.layers import Runtime
 from repro_torch.sharding.rules import make_rules, param_pspecs
-from repro_torch.train import optim, sharded
+from repro_torch.train import optim, sharded, tp
 from repro_torch.train.grad import accumulate_grads, value_and_grad
 
 __all__ = ["TrainState", "make_train_step", "init_train_state",
@@ -94,7 +101,8 @@ def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
     rt = dataclasses.replace(rt, remat=remat,
                              remat_policy=remat_policy or "none")
     rules = None if mesh is None else make_rules(mesh, cfg)
-    rt = sharded.batch_runtime(rt, mesh)
+    split = None if mesh is None else tp.plan(cfg, mesh, specs.params)
+    rt = sharded.step_runtime(rt, mesh, split)
 
     def loss_fn(params, batch):
         dev = batch["tokens"].device
@@ -110,7 +118,8 @@ def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
         params, gnorm = state.params, None
         if mesh is not None:
             batch = sharded.split_batch(batch, mesh, rules, num_micro)
-            params = sharded.gather_params(params, specs.params, mesh)
+            params = sharded.gather_params(params, specs.params, mesh,
+                                           split)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         lr = optim.cosine_lr(state.step, peak=lr_peak, warmup=warmup,
                              total=total_steps)
@@ -123,7 +132,7 @@ def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
             (loss, aux), grads = value_and_grad(loss_fn, params, batch)
         del params
         if mesh is not None:
-            grads = sharded.reduce_grads(grads, specs.params, mesh)
+            grads = sharded.reduce_grads(grads, specs.params, mesh, split)
             gnorm = torch.sqrt(sharded.global_sq_norm(grads, specs.params,
                                                       mesh))
             loss = sharded.world_mean(loss, mesh)

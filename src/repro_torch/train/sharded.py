@@ -9,22 +9,29 @@ counters whole. One step on a rank:
 
 1. :func:`split_batch`: this rank's rows of the global batch, which every
    rank draws whole (``batch_pspec``: rows over the batch axes);
-2. :func:`gather_params`: every leaf made whole (all-gathers along the
-   axes its spec names);
+2. :func:`gather_params`: the leaves gathered along ``data``, and, for a
+   family that keeps the storage form, along ``model`` too;
 3. the loss and its gradients on the local rows (``train/grad.py``);
 4. :func:`reduce_grads`: the mean over the batch ranks, reduce-scattered
-   onto each leaf's ``data`` dim (all-reduced where it has none), this
-   rank's slice of any ``model`` dim;
+   onto each leaf's ``data`` dim (all-reduced where it has none);
 5. :func:`global_sq_norm`: the squared norm of the whole gradient, each
    element counted once;
 6. AdamW on the local slices (elementwise, so a slice's update is the
    whole leaf's update restricted to it).
 
-The ``model`` axis is a storage layout here: the model ranks of one data
-group compute the same rows with the same gathered params. The MoE aux
-loss takes its token means over the global batch (:func:`batch_mean`,
-``models/moe.py``). Gradient reductions are float sums in another order
-than one process's, so a mesh step is not bitwise with one device.
+For the dense and MoE families on a model axis of more than one rank the
+``model`` axis splits the compute (``train/tp.py``, the reference's
+partitioner on ``model``): a rank's working set is its model slice of
+each leaf, its products run column- or row-parallel, its attention over
+its KV heads or its block of keys, its head over its block of the
+vocabulary and its MoE block over its experts; the gradients come out
+as the rank's slices. ``vlm``, ``audio``, ``ssm`` and ``hybrid`` keep the
+storage form: their leaves are gathered whole and the model ranks of one
+data group compute the same rows, the gradients' model slices taken
+after. The MoE aux loss takes its token means over the global batch
+(:func:`batch_mean`, ``models/moe.py``). Gradient reductions are float
+sums in another order than one process's, so a mesh step is not bitwise
+with one device.
 """
 from __future__ import annotations
 
@@ -33,15 +40,15 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import (
-    BATCH_AXES, TENSOR_COLLECTIVES, Placement, axis_index,
-)
+from repro_torch.launch.mesh import BATCH_AXES, Placement, axis_index
 from repro_torch.sharding.rules import Rules, batch_pspec
+from repro_torch.train.tp import all_reduce as _all_reduce
+from repro_torch.train.tp import reduce_scatter as _reduce_scatter
 from repro_torch.train.tree import tree_leaves, tree_map
 
 __all__ = ["map_state", "placements", "shard_state", "gather_params",
            "split_batch", "reduce_grads", "global_sq_norm", "world_mean",
-           "batch_mean", "batch_axis", "batch_runtime"]
+           "batch_mean", "batch_axis", "step_runtime"]
 
 
 def map_state(fn, state, *rest):
@@ -71,10 +78,18 @@ def shard_state(state, specs, mesh):
                      specs)
 
 
-def gather_params(local, specs, mesh):
-    """The whole params tree from every rank's slices."""
-    return tree_map(lambda t, spec: Placement(spec, mesh).gather(t), local,
-                    specs)
+def _off_model(spec) -> tuple:
+    """``spec`` with its ``model`` entries dropped."""
+    return tuple(None if ax == "model" else ax for ax in spec)
+
+
+def gather_params(local, specs, mesh, split=None):
+    """The step's working params from every rank's slices: whole, or,
+    under a :class:`~repro_torch.train.tp.ModelSplit`, gathered along
+    ``data`` only (each leaf's model slice)."""
+    return tree_map(lambda t, spec: Placement(
+        _off_model(spec) if split is not None else spec, mesh).gather(t),
+        local, specs)
 
 
 def batch_axis(mesh):
@@ -84,9 +99,12 @@ def batch_axis(mesh):
     return axes[0] if len(axes) == 1 else (axes or None)
 
 
-def batch_runtime(rt, mesh):
+def step_runtime(rt, mesh, split=None):
     """``rt`` for a step on ``mesh``: with more than one batch rank the MoE
-    aux takes its token means over the global batch (``batch_mesh``)."""
+    aux takes its token means over the global batch (``batch_mesh``);
+    ``split`` (``train/tp.py:plan``) splits the compute over ``model``."""
+    if split is not None:
+        rt = dataclasses.replace(rt, model_split=split)
     if mesh is None or axis_index(mesh, batch_axis(mesh))[1] == 1:
         return rt
     return dataclasses.replace(rt, batch_mesh=mesh)
@@ -117,46 +135,21 @@ def split_batch(batch: dict, mesh, rules: Rules, num_micro: int = 1) -> dict:
     return out
 
 
-def _all_reduce(t: torch.Tensor, mesh, axis) -> torch.Tensor:
-    """The sum of ``t`` over the ranks along ``axis`` (a new tensor)."""
-    group = mesh.group_of(axis)
-    if group is None:
-        return t
-    t = t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(t, group=group)
-    return t
-
-
-def _reduce_scatter(t: torch.Tensor, dim: int, mesh, axis) -> torch.Tensor:
-    """This rank's block along ``dim`` of the sum of ``t`` over the ranks
-    along ``axis`` (NCCL's reduce-scatter, and the dry-run's fake group's;
-    gloo sums the whole tensor and keeps the block)."""
-    coord, ways = axis_index(mesh, axis)
-    if ways == 1:
-        return t
-    n = t.shape[dim] // ways
-    if mesh.backend in TENSOR_COLLECTIVES:
-        moved = t.movedim(dim, 0).contiguous()
-        out = torch.empty((n,) + moved.shape[1:], dtype=t.dtype,
-                          device=t.device)
-        dist.reduce_scatter_tensor(out, moved, group=mesh.group_of(axis))
-        return out.movedim(0, dim).contiguous()
-    return _all_reduce(t, mesh, axis).narrow(dim, coord * n, n).contiguous()
-
-
-def reduce_grads(grads, specs, mesh):
+def reduce_grads(grads, specs, mesh, split=None):
     """This rank's slices of the mean gradient over the batch ranks:
-    ``grads`` is the whole gradient tree of this rank's rows (the same on
-    the model ranks of one data group). Each leaf takes its ``model``
-    slice first, then is reduce-scattered onto its ``data`` dim over the
+    ``grads`` is the gradient tree of this rank's rows, whole (the same
+    on the model ranks of one data group) or, under ``split``, already
+    each leaf's model slice. A whole leaf takes its ``model`` slice
+    first; then each is reduce-scattered onto its ``data`` dim over the
     data ranks (all-reduced where its spec names none) and all-reduced
     over the pods, then divided by the batch ranks' count."""
     pods = axis_index(mesh, "pod")[1] if "pod" in mesh.shape else 1
     ranks = pods * axis_index(mesh, "data")[1]
 
     def leaf(g, spec):
-        g = Placement(tuple(ax if ax == "model" else None for ax in spec),
-                      mesh)(g)
+        if split is None:
+            g = Placement(tuple(ax if ax == "model" else None
+                                for ax in spec), mesh)(g)
         if "data" in spec:
             g = _reduce_scatter(g, spec.index("data"), mesh, "data")
         else:

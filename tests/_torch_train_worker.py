@@ -34,11 +34,12 @@ def batches(cfg) -> list:
     return [corpus.batch(s, B, T) for s in range(STEPS)]
 
 
-def _runtime(mesh):
-    """The train step's runtime on ``mesh`` (None: one process)."""
+def _runtime(mesh, split=None):
+    """The train step's runtime on ``mesh`` (None: one process) under
+    ``split`` (``train/tp.py:plan``)."""
     from repro_torch.models.layers import Runtime
     from repro_torch.train import sharded
-    return sharded.batch_runtime(Runtime(capacity_factor=2.0), mesh)
+    return sharded.step_runtime(Runtime(capacity_factor=2.0), mesh, split)
 
 
 def _whole(tree, specs, mesh):
@@ -54,14 +55,16 @@ def _whole(tree, specs, mesh):
 def grads_of(cfg, params, batch, mesh, specs, *, aux_only=False):
     """The gradient of the train loss (or of the MoE aux alone) at
     ``params`` (this rank's slices on a mesh): ``(value, whole grads)``.
-    On a mesh: this rank's rows, the params gathered, the gradients
-    reduced to the specs, then gathered whole."""
+    On a mesh, as the train step takes them: this rank's rows, the params
+    gathered (along ``data`` only where the model axis splits the
+    compute), the gradients reduced to the specs, then gathered whole."""
     from repro_torch.models import lm
     from repro_torch.sharding.rules import make_rules
-    from repro_torch.train import sharded
+    from repro_torch.train import sharded, tp
     from repro_torch.train.grad import value_and_grad
 
-    rt = _runtime(mesh)
+    split = None if mesh is None else tp.plan(cfg, mesh, specs.params)
+    rt = _runtime(mesh, split)
 
     def loss_fn(p, b):
         xent, aux = lm.forward_xent(p, b["tokens"], b["labels"], rt, cfg)
@@ -69,11 +72,11 @@ def grads_of(cfg, params, batch, mesh, specs, *, aux_only=False):
 
     if mesh is not None:
         batch = sharded.split_batch(batch, mesh, make_rules(mesh, cfg))
-        params = sharded.gather_params(params, specs.params, mesh)
+        params = sharded.gather_params(params, specs.params, mesh, split)
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     (value, _), grads = value_and_grad(loss_fn, params, batch)
     if mesh is not None:
-        grads = sharded.reduce_grads(grads, specs.params, mesh)
+        grads = sharded.reduce_grads(grads, specs.params, mesh, split)
         value = sharded.world_mean(value, mesh)
     return float(value), _whole(grads, specs.params if specs else None,
                                 mesh)

@@ -53,8 +53,9 @@ from repro_torch.train.tree import tree_leaves
 from _torch_threads import one_torch_thread  # noqa: F401
 from test_torch_bridge import to_numpy_tree
 
-FAMILIES = ("smollm-135m", "olmoe-1b-7b", "rwkv6-3b", "zamba2-7b",
-            "phi-3-vision-4.2b", "seamless-m4t-medium")
+# qwen1.5-0.5b: the QKV biases and the tied head
+FAMILIES = ("smollm-135m", "qwen1.5-0.5b", "olmoe-1b-7b", "rwkv6-3b",
+            "zamba2-7b", "phi-3-vision-4.2b", "seamless-m4t-medium")
 GRAD_TOL = 5e-5  # of each leaf's largest reference element
 LOSS_TOL = 1e-5
 PARAM_TOL = 5e-5
@@ -360,7 +361,7 @@ def test_remat_bit_equal_to_no_remat(arch, policy):
 
 # --- train steps against the reference's ---------------------------------
 
-STEP_ARCHS = ("smollm-135m", "olmoe-1b-7b")
+STEP_ARCHS = ("smollm-135m", "qwen1.5-0.5b", "olmoe-1b-7b")
 STEP_KW = dict(lr_peak=3e-3, warmup=2, total_steps=10)
 
 
