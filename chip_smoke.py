@@ -272,6 +272,7 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    state on a ``(data=world, model=1)`` mesh, and with four cards also on
    ``(2, 2)``: every rank's loss and gnorm bit-equal to each other's and
    within 1e-5 relative of one device's (rank 0's own run, the
+   yardstick; at world 1 the mesh run is one device's, its own
    yardstick); each step's gradients, reduced to the FSDP specs and
    gathered, within 5e-5 of each leaf's largest; the params within 5e-5,
    a param parting further only at a noise-floor gradient of some step
@@ -304,10 +305,18 @@ It drives the port (``src/repro_torch``) and nothing of the JAX package:
    in one collective, and the tied head takes its rows by an all-to-all);
    per rank ms/step, peak memory, the bytes of the params and moments and
    of the params' working set (derived from the specs), and the bytes
-   and count of one step's collectives. With four cards also rwkv6-3b at
-   full width, 2 layers, whose family keeps the storage form, on (2, 2),
-   held alike. At world 1 the run is one device's and a line says it is
-   not evidence of the split.
+   and count of one step's collectives. With more than one card also the
+   other four families at full width on (1, world), held alike:
+   rwkv6-3b, 2 layers (40 heads, 10 a rank on 4: the time mix, the decay
+   LoRA and ``ln_out`` across the split, the channel mix on ``cm_k``'s
+   columns); zamba2-7b, 7 layers (a macroblock and the tail: 112 Mamba2
+   heads, the gated norm across the split, the shared attention by
+   heads); phi-3-vision-4.2b, 4 layers, seeded patch features as the
+   prefix; seamless-m4t-medium, 2 + 2 layers, seeded frames (the encoder
+   and the cross-attention by heads, its 256,206-row head replicated);
+   with four cards rwkv6-3b also on (2, 2). At world 1 the run is one
+   device's and a line says it is not evidence of the split, and that
+   the four families' evidence is the four-card call.
 18. The per-cell dry-run (``launch/steps.py``, ``launch/dryrun.py``,
    ``launch/op_analysis.py``). (a) Host processes, no card visible, write
    the records of smollm-135m's ``train_4k``, ``prefill_32k`` and
@@ -342,6 +351,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -353,6 +363,8 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -4923,20 +4935,36 @@ def xent_grads(cfg, params, batch: dict):
                                          for k, v in batch.items()})[1]
 
 
-def hold_grads(label: str, want, got) -> float:
-    """Each leaf of ``got`` within TRAIN_GRAD_TOL of ``want``'s largest
-    element; returns the worst share."""
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The dotted paths of a tree's leaves, in ``tree_leaves`` order."""
+    if not isinstance(tree, dict):
+        return [prefix]
+    return [p for k in sorted(tree)
+            for p in leaf_paths(tree[k], f"{prefix}.{k}" if prefix else k)]
+
+
+def grad_share(label: str, want, got) -> tuple:
+    """(the largest share of a leaf's largest element by which ``got``
+    parts from ``want``, over the leaves; a message naming that leaf)."""
     from repro_torch.train.tree import tree_leaves
 
-    worst = 0.0
+    worst, at = 0.0, 0
     for i, (a, b) in enumerate(zip(tree_leaves(want), tree_leaves(got))):
         a = a.double()  # on want's device: a card's trees stay there
         b = b.to(a.device).double()
         err = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
-        worst = max(worst, err)
-        if not err <= TRAIN_GRAD_TOL:
-            raise AssertionError(f"{label}: gradient leaf {i} parts by "
-                                 f"{err:.2e} of its largest")
+        if not err <= worst:
+            worst, at = err, i
+    return worst, (f"{label}: gradient leaf {at} ({leaf_paths(want)[at]}) "
+                   f"parts by {worst:.2e} of its largest")
+
+
+def hold_grads(label: str, want, got) -> float:
+    """Each leaf of ``got`` within TRAIN_GRAD_TOL of ``want``'s largest
+    element; returns the worst share."""
+    worst, msg = grad_share(label, want, got)
+    if not worst <= TRAIN_GRAD_TOL:
+        raise AssertionError(msg)
     return worst
 
 
@@ -5293,9 +5321,9 @@ def mesh_shapes(world: int) -> list:
 def mesh_step_grads(cfg, state, batch, mesh, specs):
     """The f32 train loss's gradients at ``state`` (no remat), whole: on a
     mesh as the train step takes them, this rank's rows, the params
-    gathered (along ``data`` only where the model axis splits the
-    compute, ``train/tp.py``), the gradients reduced to the specs, then
-    gathered whole (every rank calls it)."""
+    gathered along ``data`` (each leaf its model slice, ``train/tp.py``),
+    the gradients reduced to the specs, then gathered whole (every rank
+    calls it)."""
     from repro_torch.models import lm
     from repro_torch.models.layers import Runtime
     from repro_torch.sharding.rules import make_rules
@@ -5307,10 +5335,11 @@ def mesh_step_grads(cfg, state, batch, mesh, specs):
     params = state.params
     if mesh is not None:
         batch = sharded.split_batch(batch, mesh, make_rules(mesh, cfg))
-        params = sharded.gather_params(params, specs.params, mesh, split)
+        params = sharded.gather_params(params, specs.params, mesh)
 
     def loss(p, b):
-        xent, aux = lm.forward_xent(p, b["tokens"], b["labels"], rt, cfg)
+        xent, aux = lm.forward_xent(p, b["tokens"], b["labels"], rt, cfg,
+                                    frontend_feats=b.get("frontend"))
         return xent + 0.01 * aux, aux
     dev = state.step.device
     _, grads = value_and_grad(loss, params, {
@@ -5318,8 +5347,8 @@ def mesh_step_grads(cfg, state, batch, mesh, specs):
     del params
     if mesh is None:
         return grads
-    grads = sharded.reduce_grads(grads, specs.params, mesh, split)
-    return sharded.gather_params(grads, specs.params, mesh)
+    grads = sharded.reduce_grads(grads, specs.params, mesh)
+    return sharded.gather_whole(grads, specs.params, mesh)
 
 
 def mesh_train(cfg, dev, mesh, *, steps: int, start: int = 0, state=None,
@@ -5327,10 +5356,9 @@ def mesh_train(cfg, dev, mesh, *, steps: int, start: int = 0, state=None,
     """``steps`` f32 steps (remat "dots", TF32 off) of ``cfg`` on ``mesh``
     (None: one device) from the seeded state (or ``state``, this rank's
     slices), over phase 16's batches ``start ..``. Before each step
-    ``on_grads(s, whole grads)`` sees the step's gradients (computed apart,
-    untimed). Returns (state, specs, per-step metrics as floats, host ms
+    ``on_grads(s, whole grads, state)`` sees the step's gradients
+    (computed apart, untimed) and the state they were taken at. Returns (state, specs, per-step metrics as floats, host ms
     per step ending in the metrics' transfer, the steps' peak memory)."""
-    from repro_torch.data.pipeline import SyntheticCorpus
     from repro_torch.launch.mesh import barrier
     from repro_torch.models.layers import Runtime
     from repro_torch.sharding.rules import make_rules
@@ -5345,12 +5373,11 @@ def mesh_train(cfg, dev, mesh, *, steps: int, start: int = 0, state=None,
     step = loop.make_train_step(cfg, Runtime(capacity_factor=2.0),
                                 compute_dtype=torch.float32, mesh=mesh,
                                 specs=specs, **TRAIN_KW)
-    corpus = SyntheticCorpus(cfg.vocab_size, seed=17)
     metrics, ms, peak = [], [], 0
     for s in range(start, start + steps):
-        b = corpus.batch(s, TRAIN_BATCH, TRAIN_SEQ)
+        b = train_batch(cfg, s)
         if on_grads is not None:
-            on_grads(s, mesh_step_grads(cfg, state, b, mesh, specs))
+            on_grads(s, mesh_step_grads(cfg, state, b, mesh, specs), state)
         torch.cuda.synchronize()
         if mesh is not None:  # every rank starts the timed step together
             barrier(mesh)
@@ -5365,6 +5392,22 @@ def mesh_train(cfg, dev, mesh, *, steps: int, start: int = 0, state=None,
     return state, specs, metrics, ms, peak
 
 
+def train_batch(cfg, step: int) -> dict:
+    """Phase 16's batch ``step`` of the synthetic corpus; a frontend
+    config's also carries seeded (TRAIN_BATCH, frontend_len,
+    frontend_dim) f32 features (the vlm's patch rows, the audio model's
+    frames)."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+
+    b = SyntheticCorpus(cfg.vocab_size, seed=17).batch(step, TRAIN_BATCH,
+                                                       TRAIN_SEQ)
+    if cfg.frontend:
+        b["frontend"] = np.random.default_rng(step).normal(size=(
+            TRAIN_BATCH, cfg.frontend_len, cfg.frontend_dim)).astype(
+                np.float32)
+    return b
+
+
 def state_bytes(state) -> int:
     """Bytes of a train state's params and both moments (this rank's)."""
     from repro_torch.train.tree import tree_leaves
@@ -5373,16 +5416,15 @@ def state_bytes(state) -> int:
         state.params, state.opt.mu, state.opt.nu) for t in tree_leaves(tree))
 
 
-def collective_bytes(specs, cfg, shape: dict, split=None) -> dict:
+def collective_bytes(specs, cfg, shape: dict) -> dict:
     """Bytes one mesh step moves through the state's collectives on a
     rank, from the specs and the f32 leaf sizes: ``all_gather`` the
-    leaves a gather builds (whole, or under ``split`` (``train/tp.py``)
-    each leaf's model slice, gathered along ``data`` only);
-    ``reduce_scatter`` the inputs of the reduce-scatters (a leaf's model
-    slice, where it has a data dim); ``all_reduce`` those of the
-    all-reduces (the leaves with no data dim, when data > 1). A split
-    step's collectives inside the forward and backward are counted
-    apart (``count_ops``)."""
+    leaves a gather builds (each leaf's model slice, gathered along
+    ``data`` only); ``reduce_scatter`` the inputs of the reduce-scatters
+    (a leaf's model slice, where it has a data dim); ``all_reduce`` those
+    of the all-reduces (the leaves with no data dim, when data > 1). The
+    split's collectives inside the forward and backward are counted apart
+    (``count_ops``)."""
     from repro_torch.models import lm
     from repro_torch.train.tree import tree_leaves
 
@@ -5390,13 +5432,9 @@ def collective_bytes(specs, cfg, shape: dict, split=None) -> dict:
     out = dict(all_gather=0, reduce_scatter=0, all_reduce=0)
     for leaf, spec in zip(leaves, tree_leaves(specs.params)):
         whole = leaf.numel() * 4
-        if split is not None:
-            if "data" in spec:
-                out["all_gather"] += (whole // shape["model"]
-                                      if "model" in spec else whole)
-        elif any(ax is not None for ax in spec):
-            out["all_gather"] += whole
         part = whole // shape["model"] if "model" in spec else whole
+        if "data" in spec:
+            out["all_gather"] += part
         if "data" in spec:
             out["reduce_scatter"] += part
         elif shape["data"] > 1:
@@ -5404,11 +5442,10 @@ def collective_bytes(specs, cfg, shape: dict, split=None) -> dict:
     return out
 
 
-def collective_ms(state, specs, mesh, split=None) -> dict:
-    """Host ms of a step's param gathers alone and of its gradient
-    reduction alone (on the gathered params as gradients), each started
-    by every rank together and ended by a synchronize; under ``split``
-    the gathers along ``data`` only."""
+def collective_ms(state, specs, mesh) -> dict:
+    """Host ms of a step's param gathers alone (along ``data``) and of its
+    gradient reduction alone (on the gathered params as gradients), each
+    started by every rank together and ended by a synchronize."""
     from repro_torch.launch.mesh import barrier
     from repro_torch.train import sharded
 
@@ -5420,9 +5457,9 @@ def collective_ms(state, specs, mesh, split=None) -> dict:
         torch.cuda.synchronize()
         return out, 1e3 * (time.perf_counter() - t0)
     whole, ag = timed(lambda: sharded.gather_params(state.params,
-                                                    specs.params, mesh, split))
-    _, red = timed(lambda: sharded.reduce_grads(whole, specs.params, mesh,
-                                                split))
+                                                    specs.params, mesh))
+    _, red = timed(lambda: sharded.reduce_grads(whole, specs.params,
+                                                mesh))
     return dict(all_gather=ag, reduce=red)
 
 
@@ -5458,13 +5495,15 @@ def pod_model(world: int) -> list:
 
 
 def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
-    """One rank of phase 17 (a)-(c) on ``cuda:rank``. Rank 0 first runs
-    the single-device yardstick (MESH_STEPS + MESH_RESUME_STEPS steps) and
-    keeps its gradients; then every rank joins the NCCL group and trains
-    on each mesh of ``mesh_shapes``, rank 0 holding each step's whole
-    gradients, then the params, to the yardstick's; the first mesh's state
-    is saved (c), gathered, and rank 0 restores it onto its one device;
-    last the pod exchange (b). Each rank saves its results."""
+    """One rank of phase 17 (a)-(c) on ``cuda:rank``. With more than one
+    rank, rank 0 first runs the single-device yardstick (MESH_STEPS +
+    MESH_RESUME_STEPS steps) and keeps its gradients; then every rank
+    joins the NCCL group and trains on each mesh of ``mesh_shapes``, rank
+    0 holding each step's whole gradients, then the params, to the
+    yardstick's (at world 1 the mesh step is one device's: it is its own
+    yardstick); the first mesh's state is saved (c), gathered, and rank 0
+    restores it onto its one device; last the pod exchange (b). Each rank
+    saves its results."""
     from repro_torch.checkpoint import ckpt as ckpt_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import loop, sharded, tp
@@ -5478,11 +5517,12 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     cfg = get_config("smollm-135m")
     res: dict = {"meshes": []}
     _build.reset_launches()
-    if rank == 0:  # the yardstick: one device, then (c)'s two steps on
+    yard = world > 1
+    if rank == 0 and yard:  # one device, then (c)'s two steps on
         yard_grads = {}
         one, _, m1, ms1, _ = mesh_train(
             cfg, dev, None, steps=MESH_STEPS,
-            on_grads=yard_grads.__setitem__)
+            on_grads=lambda s, g, _: yard_grads.__setitem__(s, g))
         yard_params = one.params
         _, _, m2, _, _ = mesh_train(cfg, dev, None, steps=MESH_RESUME_STEPS,
                                     start=MESH_STEPS, state=one)
@@ -5495,26 +5535,31 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                              world_size=world)
             held = {"grad_worst": 0.0}
 
-            def on_grads(s, g):
+            def on_grads(s, g, _):
                 if rank == 0:
                     held["grad_worst"] = max(held["grad_worst"], hold_grads(
                         f"mesh {shape} step {s}", yard_grads[s], g))
             state, specs, m, ms, peak = mesh_train(
-                cfg, dev, mesh, steps=MESH_STEPS, on_grads=on_grads)
+                cfg, dev, mesh, steps=MESH_STEPS,
+                on_grads=on_grads if yard else None)
             split = tp.plan(cfg, mesh, specs.params)
             row = dict(shape=shape, metrics=m, ms=ms, peak_mem_bytes=peak,
                        state_bytes=state_bytes(state),
                        split=None if split is None else split.attention,
-                       collective_bytes=collective_bytes(specs, cfg, shape,
-                                                         split),
-                       collective_ms=collective_ms(state, specs, mesh,
-                                                   split))
-            whole = sharded.gather_params(state.params, specs.params, mesh)
-            if rank == 0:
-                row.update(grad_worst=held["grad_worst"], **hold_params(
-                    f"mesh {shape}", yard_params, whole,
-                    list(yard_grads.values()), MESH_PARAM_TOL))
-            del whole
+                       collective_bytes=collective_bytes(specs, cfg, shape),
+                       collective_ms=collective_ms(state, specs, mesh))
+            if not yard:
+                res["one_device"] = dict(metrics=m, ms=ms,
+                                         state_bytes=row["state_bytes"])
+                row.update(grad_worst=0.0, max_abs=0.0, flips=0)
+            else:
+                whole = sharded.gather_whole(state.params, specs.params,
+                                             mesh)
+                if rank == 0:
+                    row.update(grad_worst=held["grad_worst"], **hold_params(
+                        f"mesh {shape}", yard_params, whole,
+                        list(yard_grads.values()), MESH_PARAM_TOL))
+                del whole
             if i == 0:  # (c) the save, then a restore onto one device
                 places = sharded.placements(specs, mesh)
                 t0 = time.perf_counter()
@@ -5609,24 +5654,50 @@ def remesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
 # 151,936-row head); olmoe's 64 experts split, its head untied.
 SPLIT_ARCHS = (("smollm-135m", None), ("qwen1.5-0.5b", 8),
                ("olmoe-1b-7b", 2))
-# with four cards, a family that keeps the storage form (train/tp.py
-# SPLIT_FAMILIES) on (2, 2), held alike: its leaves gathered whole, the
-# gradients' model slices taken after
-STORAGE_ARCH, STORAGE_LAYERS = "rwkv6-3b", 2
+# with more than one card, the other four families at full width on
+# (data 1, model world): rwkv6-3b's 40 heads (10 a rank on 4), its untied
+# 65,536-row head; zamba2-7b's first macroblock and its tail (7 of 81
+# layers: 112 Mamba2 heads, the shared attention by heads, tied 32,000-row
+# head); phi-3-vision-4.2b with seeded 1,024-wide patch features as the
+# prefix; seamless-m4t-medium, 2 encoder and 2 decoder layers, seeded
+# frames, its 256,206-row head replicated (it does not divide 4). At world
+# 1 a model axis of one rank runs none of their split code. With four
+# cards rwkv6-3b also on (data 2, model 2), and zamba2-7b and
+# phi-3-vision-4.2b on (data 4, model 1), where nothing splits the
+# compute: how far a mesh's trajectory parts from one device's without
+# the split.
+FAMILY_ARCHS = (("rwkv6-3b", 2), ("zamba2-7b", 7), ("phi-3-vision-4.2b", 4),
+                ("seamless-m4t-medium", 2))
+DATA_ONLY_ARCHS = (("zamba2-7b", 7), ("phi-3-vision-4.2b", 4))
+
+
+# each rank of (e) waits this long in a collective before it fails:
+# rank 0's longest one-device yardstick, with room
+SPLIT_TIMEOUT_S = 300
 
 
 def split_runs(world: int) -> list:
     """(e)'s runs: (arch, layers kept or None, mesh shape)."""
-    runs = [(a, n, {"data": 1, "model": world}) for a, n in SPLIT_ARCHS]
+    archs = SPLIT_ARCHS + (FAMILY_ARCHS if world > 1 else ())
+    runs = [(a, n, {"data": 1, "model": world}) for a, n in archs]
     if world == 4:
-        runs.append((STORAGE_ARCH, STORAGE_LAYERS, {"data": 2, "model": 2}))
+        runs.append(("rwkv6-3b", 2, {"data": 2, "model": 2}))
+        runs += [(a, n, {"data": 4, "model": 1}) for a, n in DATA_ONLY_ARCHS]
     return runs
 
 
+def split_key(arch: str, shape: dict) -> str:
+    return f"{arch} {tuple(shape.values())}"
+
+
 def split_cfg(arch: str, layers):
+    """``arch``'s full-width config, cut to ``layers`` (a seamless cut
+    keeps as many encoder layers)."""
     cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          num_layers=layers)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=layers,
+                               encoder_layers=min(cfg.encoder_layers, layers))
 
 
 def _sliced(shape, spec, shape_of: dict, axes) -> tuple:
@@ -5638,21 +5709,25 @@ def _sliced(shape, spec, shape_of: dict, axes) -> tuple:
 
 def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     """One rank of phase 17 (e) on ``cuda:rank``: per run of
-    :func:`split_runs` (SPLIT_ARCHS on a (1, world) NCCL mesh, with four
-    cards the storage form on (2, 2)) rank 0 first runs the one-device
-    yardstick (MESH_STEPS f32 steps, its gradients kept) while the others
-    wait, then every rank trains MESH_STEPS steps on the mesh, rank 0
-    holding each step's whole gradients and then the params to the
-    yardstick's. Every gather of the split step's params is checked to
-    give each leaf's model slice; the storage form's step must not split.
-    One more step, untimed and dropped, counts the collectives it
-    dispatches (``count_ops``). At world 1 the mesh step is one device's:
-    no yardstick, nothing to count. Each rank saves its results."""
-    from repro_torch.data.pipeline import SyntheticCorpus
+    :func:`split_runs` rank 0 first runs the one-device yardstick
+    (MESH_STEPS f32 steps, its gradients kept) while the others wait, then
+    every rank trains MESH_STEPS steps on the mesh. Before each step the
+    mesh's params are gathered whole and rank 0 holds the step's whole
+    gradients to one device's at those params on the same batch (the
+    split's own error; after AdamW's first update the two trajectories
+    hold other params), and reports how far they part from the
+    yardstick's own step (not held); after the steps it holds the params
+    to the yardstick's under the flip rule. Every gather of the step's
+    params is checked to give each leaf's model slice. One more step,
+    untimed and dropped, counts the collectives it dispatches
+    (``count_ops``). At world 1 the mesh step is one device's: no
+    yardstick, nothing to count. Each rank saves its results, keyed by
+    :func:`split_key`."""
     from repro_torch.launch.mesh import barrier, make_mesh
     from repro_torch.launch.op_analysis import count_ops
     from repro_torch.models import lm
     from repro_torch.models.layers import Runtime
+    from repro_torch.sharding.rules import make_rules
     from repro_torch.train import loop, sharded, tp
     from repro_torch.train.tree import tree_leaves
 
@@ -5667,6 +5742,11 @@ def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     # at world 1 the mesh step is one device's (no split): it is its own
     # yardstick, and it dispatches no collective to count
     yard = world > 1
+    # the group's collectives time out after SPLIT_TIMEOUT_S, not NCCL's
+    # ten minutes: a rank that fails leaves the others waiting in one
+    torch.distributed.init_process_group(
+        "nccl", init_method=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SPLIT_TIMEOUT_S))
     try:
         for arch, layers, shape in split_runs(world):
             key = tuple(shape.values())
@@ -5680,7 +5760,7 @@ def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 yard_grads = {}
                 one, _, m1, ms1, peak1 = mesh_train(
                     cfg, dev, None, steps=MESH_STEPS,
-                    on_grads=yard_grads.__setitem__)
+                    on_grads=lambda s, g, _: yard_grads.__setitem__(s, g))
                 row["one_device"] = dict(metrics=m1, ms=ms1,
                                          peak_mem_bytes=peak1,
                                          state_bytes=state_bytes(one))
@@ -5688,18 +5768,34 @@ def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 del one
                 torch.cuda.empty_cache()
             barrier(mesh)
-            held = {"grad_worst": 0.0}
+            held = {"grad_worst": 0.0, "grad_steps": [], "path_steps": []}
             sets = []
+            run_specs = loop.state_specs(cfg, make_rules(mesh, cfg))
+            label = f"split {split_key(arch, shape)}"
 
-            def on_grads(s, g):
+            def on_grads(s, g, state):
+                # every rank takes the gather's collectives
+                whole = sharded.gather_whole(state.params,
+                                             run_specs.params, mesh)
                 if rank == 0:
-                    held["grad_worst"] = max(held["grad_worst"], hold_grads(
-                        f"split {arch} step {s}", yard_grads[s], g))
+                    at = mesh_step_grads(cfg, types.SimpleNamespace(
+                        params=whole, step=state.step), train_batch(cfg, s),
+                        None, None)
+                    worst, msg = grad_share(f"{label} step {s}", at, g)
+                    # a failed hold is kept and raised by split_phase: rank
+                    # 0 raising here would leave the others in a collective
+                    if not worst <= TRAIN_GRAD_TOL:
+                        held.setdefault("failed", msg)
+                    held["grad_steps"].append(worst)
+                    held["grad_worst"] = max(held["grad_worst"], worst)
+                    held["path_steps"].append(grad_share(
+                        label, yard_grads[s], g)[0])
+                    del at
+                del whole
 
-            def spy(local, pspecs, mesh_, split=None):
-                out = gather(local, pspecs, mesh_, split)
-                if split is not None:
-                    sets.append([tuple(t.shape) for t in tree_leaves(out)])
+            def spy(local, pspecs, mesh_):
+                out = gather(local, pspecs, mesh_)
+                sets.append([tuple(t.shape) for t in tree_leaves(out)])
                 return out
             sharded.gather_params = spy
             try:
@@ -5714,24 +5810,17 @@ def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             pspecs = tree_leaves(specs.params)
             want = [_sliced(w, sp, mesh.shape, ("model",))
                     for w, sp in zip(whole, pspecs)]
-            if arch == STORAGE_ARCH:
-                if split is not None or sets:
-                    raise AssertionError(f"{arch}: the storage form split")
-                want = whole
-            elif world > 1 and (not sets or any(got != want
-                                                for got in sets)):
-                raise AssertionError(f"split {arch}: a gather gave other "
-                                     f"than each leaf's model slice")
+            if world > 1 and (not sets or any(got != want for got in sets)):
+                raise AssertionError(f"{label}: a gather gave other than "
+                                     f"each leaf's model slice")
             coll: dict = {"bytes": {}, "counts": {}}
             if yard:
                 step = loop.make_train_step(
                     cfg, Runtime(capacity_factor=2.0),
                     compute_dtype=torch.float32, mesh=mesh, specs=specs,
                     **TRAIN_KW)
-                batch = SyntheticCorpus(cfg.vocab_size, seed=17).batch(
-                    MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ)
                 with count_ops(tags=False) as st:
-                    step(state, batch)
+                    step(state, train_batch(cfg, MESH_STEPS))
                 torch.cuda.synchronize()
                 coll = {"bytes": dict(st.collective_bytes),
                         "counts": dict(st.collective_counts)}
@@ -5740,28 +5829,45 @@ def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 state_bytes=state_bytes(state),
                 working_bytes=4 * sum(math.prod(w) for w in want),
                 whole_bytes=4 * sum(math.prod(w) for w in whole),
-                attention=None if split is None else split.attention,
+                cases=None if split is None else dict(split.cases),
+                vocab=None if split is None else split.vocab,
                 collective_bytes=coll["bytes"],
                 collective_counts=coll["counts"])
             if not yard:
                 row.update(one_device=dict(
                     metrics=m, ms=ms, peak_mem_bytes=peak,
                     state_bytes=row["state_bytes"]), grad_worst=0.0,
-                    max_abs=0.0, flips=0)
+                    grad_steps=[], path_steps=[], max_abs=0.0, flips=0)
             elif rank == 0:
-                params = sharded.gather_params(state.params, specs.params,
-                                               mesh)
-                row.update(grad_worst=held["grad_worst"], **hold_params(
-                    f"split {arch}", yard_params, params,
-                    list(yard_grads.values()), MESH_PARAM_TOL))
+                params = sharded.gather_whole(state.params, specs.params,
+                                              mesh)
+                try:
+                    row.update(hold_params(label, yard_params, params,
+                                           list(yard_grads.values()),
+                                           MESH_PARAM_TOL))
+                except AssertionError as e:
+                    held.setdefault("failed", str(e))
+                    row.update(max_abs=float("nan"), flips=-1)
+                row.update(grad_worst=held["grad_worst"],
+                           grad_steps=held["grad_steps"],
+                           path_steps=held["path_steps"],
+                           failed=held.get("failed"))
                 del yard_params, yard_grads, params
             else:  # every rank takes the gather's collectives
-                sharded.gather_params(state.params, specs.params, mesh)
+                sharded.gather_whole(state.params, specs.params, mesh)
             del state
             torch.cuda.empty_cache()
-            res[arch] = row
+            res[split_key(arch, shape)] = row
+            if rank == 0:  # progress, before the phase's report
+                print(f"  (e) {label} done: gradient shares by step "
+                      f"{row.get('grad_steps')}, ms {row['ms']}",
+                      flush=True)
         res["launches"] = dict(_build.launches)
         torch.save(res, Path(out_dir) / f"split{rank}.pt")
+    except BaseException:
+        traceback.print_exc()  # now: the others may wait in a collective
+        sys.stdout.flush()
+        raise
     finally:
         sharded.gather_params = gather
         if torch.distributed.is_initialized():
@@ -5769,28 +5875,28 @@ def split_rank(rank: int, world: int, store: str, out_dir: str) -> None:
 
 
 def split_phase(world: int, out: dict) -> None:
-    """Phase 17 (e): SPLIT_ARCHS trained on a (1, world) mesh whose model
-    axis splits the compute, and with four cards STORAGE_ARCH's storage
-    form on (2, 2), each held to one device as (a) holds its meshes; per
-    rank ms/step, peak memory, the params and moments' bytes, the working
-    set's bytes (derived from the specs: each leaf's model slice, whole
-    under the storage form) and the collectives of one measured step."""
-    print(f"phase 17 (e): the model axis's compute split on (data 1, model "
-          f"{world}) NCCL rank(s): "
-          + ", ".join(f"{a} ({'all' if n is None else n} layers)"
-                      for a, n in SPLIT_ARCHS)
+    """Phase 17 (e): the runs of :func:`split_runs` trained on a mesh
+    whose model axis splits the compute, each held to one device as (a)
+    holds its meshes; per rank ms/step, peak memory, the params and
+    moments' bytes, the working set's bytes (derived from the specs: each
+    leaf's model slice) and the collectives of one measured step (on
+    (data 1, model world) every one is the model axis's). A data-only
+    run (DATA_ONLY_ARCHS) is held the same way, with no split."""
+    runs = split_runs(world)
+    print(f"phase 17 (e): the model axis's compute split on NCCL rank(s), "
+          + ", ".join(f"{a} ({'all' if n is None else n} layers) on "
+                      f"{tuple(sh.values())}" for a, n, sh in runs)
           + f", {MESH_STEPS} f32 steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
           f"tokens each, against one device", flush=True)
     if world == 1:
         print("  one card: the split path runs at world 1 (a model axis of "
               "one rank splits nothing, no collective; the run is one "
               "device's, so it is its own yardstick); not evidence of the "
-              "split; the storage form's (2, 2) needs four cards",
+              "split. The other four families ("
+              + ", ".join(a for a, _ in FAMILY_ARCHS) + ") do not run at "
+              "world 1, where none of their split code runs: their "
+              "evidence is a run on four cards (--train-mesh-only)",
               flush=True)
-    else:
-        print(f"  and {STORAGE_ARCH} ({STORAGE_LAYERS} layers), which keeps "
-              f"the storage form, on (data 2, model 2)" if world == 4 else
-              "  the storage form's (2, 2) needs four cards", flush=True)
     torch.cuda.empty_cache()
     torch.multiprocessing.start_processes(
         split_rank, args=(world, f"file://{MESH_DIR / 'store_split'}",
@@ -5801,37 +5907,56 @@ def split_phase(world: int, out: dict) -> None:
     if launched:
         raise AssertionError(f"split training launched {launched}")
     out["split"] = {}
-    for arch, layers, shape in split_runs(world):
-        row0 = ranks[0][arch]
+    failed = []
+    for arch, layers, shape in runs:
+        key = split_key(arch, shape)
+        row0 = ranks[0][key]
         one = row0["one_device"]
-        label = f"split {arch}"
-        for r, res in enumerate(ranks):
-            if res[arch]["metrics"] != row0["metrics"]:
-                raise AssertionError(f"{label}: rank {r}'s metrics differ "
-                                     f"from rank 0's")
-        for s, (got, want) in enumerate(zip(row0["metrics"],
-                                            one["metrics"])):
-            _metrics_close(f"{label} step {s}", got, want)
+        label = f"split {key}"
+        try:
+            for r, res in enumerate(ranks):
+                if res[key]["metrics"] != row0["metrics"]:
+                    raise AssertionError(f"{label}: rank {r}'s metrics "
+                                         f"differ from rank 0's")
+            for s, (got, want) in enumerate(zip(row0["metrics"],
+                                                one["metrics"])):
+                _metrics_close(f"{label} step {s}", got, want)
+            if row0.get("failed"):
+                raise AssertionError(row0["failed"])
+        except AssertionError as e:
+            failed.append(str(e))
+            print(f"  {arch} on {tuple(shape.values())}: FAILED: {e}",
+                  flush=True)
         one_ms = statistics.median(one["ms"][1:])
-        per_rank = [dict(ms_per_step=statistics.median(res[arch]["ms"][1:]),
-                         **{k: res[arch][k] for k in (
+        per_rank = [dict(ms_per_step=statistics.median(res[key]["ms"][1:]),
+                         **{k: res[key][k] for k in (
                              "ms", "peak_mem_bytes", "state_bytes",
                              "working_bytes", "collective_bytes",
                              "collective_counts")})
                     for res in ranks]
-        out["split"][arch] = dict(
-            layers=layers, mesh=shape, attention=row0["attention"],
+        out["split"][key] = dict(
+            layers=layers, mesh=shape, cases=row0["cases"],
+            vocab=row0["vocab"],
             one_device=dict(ms_per_step=one_ms, **one), ranks=per_rank,
             whole_bytes=row0["whole_bytes"], grad_worst=row0["grad_worst"],
+            grad_steps=row0["grad_steps"], path_steps=row0["path_steps"],
             params_max_abs=row0["max_abs"], flips=row0["flips"],
             metrics=row0["metrics"])
         held = ("the run is one device's" if world == 1 else
                 f"within {MESH_REL_TOL} of one device's; gradients within "
-                f"{row0['grad_worst']:.2e} of each leaf's largest; params "
-                f"{row0['max_abs']:.2e} apart ({row0['flips']} noise-floor "
-                f"flips)")
-        form = row0["attention"] or ("storage form" if arch == STORAGE_ARCH
-                                     else "one rank")
+                f"{row0['grad_worst']:.2e} of each leaf's largest of one "
+                f"device's at the run's own params (by step "
+                + ", ".join(f"{g:.2e}" for g in row0["grad_steps"])
+                + "; from the one-device run's own steps, not held: "
+                + ", ".join(f"{g:.2e}" for g in row0["path_steps"])
+                + f"); params {row0['max_abs']:.2e} apart ({row0['flips']} "
+                f"noise-floor flips)")
+        if row0["cases"] is None:
+            form = "one rank" if world == 1 else "data only, nothing split"
+        else:
+            form = ", ".join(f"{k} {v}" for k, v in row0["cases"].items()) + (
+                ", vocab-parallel head" if row0["vocab"]
+                else ", head replicated")
         print(f"  {arch} on {tuple(shape.values())} ({form}): every rank's "
               f"loss and gnorm bit-equal ({_bits(row0['metrics'][-1]['loss'])}"
               f", {_bits(row0['metrics'][-1]['gnorm'])}), {held}", flush=True)
@@ -5843,10 +5968,14 @@ def split_phase(world: int, out: dict) -> None:
                   f"{one_ms:.1f}), peak memory {_gib(p['peak_mem_bytes'])} "
                   f"(one device {_gib(one['peak_mem_bytes'])}), params and "
                   f"moments {p['state_bytes'] / 1e9:.3f} GB (one device "
-                  f"{one['state_bytes'] / 1e9:.3f}), params' working set "
-                  f"from the specs {p['working_bytes'] / 1e9:.3f} GB of "
+                  f"{one['state_bytes'] / 1e9:.3f}, "
+                  f"{p['state_bytes'] / one['state_bytes']:.3f}), params' "
+                  f"working set from the specs "
+                  f"{p['working_bytes'] / 1e9:.3f} GB of "
                   f"{row0['whole_bytes'] / 1e9:.3f}; one step's "
                   f"collectives {coll or 'none'}", flush=True)
+    if failed:
+        raise AssertionError("phase 17 (e): " + "; ".join(failed))
 
 
 def _metrics_close(label: str, got: dict, want: dict) -> None:
@@ -5879,8 +6008,9 @@ def mesh_phase(dev, report: dict) -> dict:
     launch nothing of ``csrc/``. (d) The checkpoint through the serve
     launcher's ``--ckpt-dir`` boot on one card (``serve_trained``). (e)
     The model axis's compute split (``train/tp.py``) on ``(data 1, model
-    world)`` for SPLIT_ARCHS (:func:`split_phase`), held as (a); (a)'s
-    (2, 2) mesh runs the split too. Returns (d)'s counted launches."""
+    world)`` for SPLIT_ARCHS, and with more than one card FAMILY_ARCHS
+    (:func:`split_phase`), held as (a); (a)'s (2, 2) mesh runs the split
+    too. Returns (d)'s counted launches."""
     out: dict = {}
     cfg = get_config("smollm-135m")
     world = min(torch.cuda.device_count(), 4)
@@ -5891,7 +6021,8 @@ def mesh_phase(dev, report: dict) -> dict:
           f"{TRAIN_SEQ} tokens, against one device", flush=True)
     if world == 1:
         print("  one card: the mesh path runs at world 1 (no leaf sharded, "
-              "no collective); not evidence of sharding", flush=True)
+              "no collective; the run is one device's, its own yardstick); "
+              "not evidence of sharding", flush=True)
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     MESH_DIR.mkdir(parents=True)
     torch.cuda.empty_cache()

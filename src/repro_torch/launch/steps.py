@@ -26,13 +26,11 @@ SPMD partitioner):
   * a ``train`` cell runs ``make_train_step`` on the mesh
     (``train/sharded.py``): this rank's slices of the state under
     ``param_pspecs``, the global batch split over the batch axes, the
-    params gathered along ``data``. For the dense and MoE families the
-    ``model`` axis splits the compute (``train/tp.py``: column- and
-    row-parallel products, the attention by KV heads or by blocks of
-    keys, the vocab-parallel head, experts over ``model``); ``vlm``,
-    ``audio``, ``ssm`` and ``hybrid`` keep the storage form, the model
-    ranks of one data group computing the same rows (``Cell.layout``
-    records which, and the attention case);
+    params gathered along ``data``. The ``model`` axis splits the compute
+    of every family (``train/tp.py``: column- and row-parallel products,
+    the attention by KV heads or by blocks of keys, RWKV6's and Mamba2's
+    mixers by heads, the vocab-parallel head, experts over ``model``);
+    ``Cell.layout`` records each stack's case;
   * a serving cell takes its rows of the global batch over the batch axes
     (:func:`_batch_axis_for`) and runs the ``model`` axis through
     ``serve/tp.py``'s rules on its model group: packed planes column-
@@ -58,7 +56,6 @@ from repro_torch.serve.quantized import QuantPolicy, quantize_params
 from repro_torch.sharding import rules as rules_mod
 from repro_torch.train import loop as train_loop
 from repro_torch.train import optim
-from repro_torch.train import tp as train_tp
 
 __all__ = ["Cell", "build_cell", "input_specs", "param_tree"]
 
@@ -281,14 +278,15 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
                                gen=gen, device=dev)
 
         def train_step(rt, state, batch):
-            return train_loop.make_train_step(
+            step = train_loop.make_train_step(
                 cfg, rt, num_micro=num_micro, compute_dtype=torch.bfloat16,
                 mesh=mesh if mesh.size > 1 else None,
-                specs=specs if mesh.size > 1 else None)(state, batch)
+                specs=specs if mesh.size > 1 else None)
+            out = step(state, batch)
+            layout["model_axis"] = _train_model_axis(cfg, step.split, specs)
+            return out
 
         layout["batch_specs"] = _batch_specs(batch, rules, mesh)
-        layout["model_axis"] = _train_model_axis(cfg, mesh, specs,
-                                                 shape.seq_len)
         return Cell(arch, shape, cfg, mesh, rules, rt, train_step,
                     (local, batch), state, specs, layout, mode)
 
@@ -352,29 +350,44 @@ def build_cell(arch: str, shape_name: str, mesh: Mesh, *,
                 mode)
 
 
-def _train_model_axis(cfg, mesh: Mesh, specs, seq: int) -> str:
-    """What a train step's ``model`` axis does: ``train/tp.py``'s split
-    and its attention case, or the storage form of the families that keep
-    it."""
-    m = int(mesh.shape.get("model", 1))
-    if m == 1:
-        return "one rank"
-    split = train_tp.plan(cfg, mesh, specs.params)
+def _train_model_axis(cfg, split, specs) -> str:
+    """What a train step's ``model`` axis did (read after the step ran):
+    ``train/tp.py``'s split, stack by stack (the attention's case and,
+    under ``kv_seq``, whether the step split the keys' length, RWKV6's
+    time mix and Mamba2's mixer by heads or replicated, the MLP's or
+    channel mix's split), and the head's."""
     if split is None:
-        return (f"storage: the {cfg.family} family keeps the storage form, "
-                f"the model ranks of a data group compute the same rows "
-                f"(train/sharded.py)")
-    if split.heads:
-        attn = "heads: each rank its kv_heads / m groups"
-    elif seq % m == 0:
-        attn = "kv_seq: every query against each rank's T/m keys"
-    else:
-        attn = "kv_seq: T does not divide the axis, replicated"
-    ffn = ("experts over model" if split.has("moe.up") else
-           "mlp column/row-parallel" if split.has("mlp.up") else
-           "mlp replicated")
-    head = "vocab-parallel head" if split.vocab else "head replicated"
-    return f"tensor parallel (train/tp.py): attention {attn}; {ffn}; {head}"
+        return "one rank"
+    keys = {"split": "every query against each rank's 1/m of the keys",
+            "replicated": "the keys' length does not divide the axis, "
+                          "replicated"}
+    parts = []
+    for key, case in split.cases:
+        stack, block = key.split(".")
+        if block in ("attn", "xattn"):
+            what = "cross-attention" if block == "xattn" else "attention"
+            how = ("each rank its kv_heads / m groups" if case == "heads"
+                   else keys[split.taken[key]])
+            parts.append(f"{stack} {what} {case}: {how}")
+        elif block == "time_mix":
+            parts.append(f"{stack} RWKV6 time mix {case}" + (
+                ": each rank its num_heads / m heads" if case == "heads"
+                else ": the heads do not divide the axis"))
+        else:
+            parts.append(f"{stack} Mamba2 {case}" + (
+                ": each rank its heads" if case == "heads"
+                else ": the heads do not divide the axis"))
+    for stack in ("encoder", "layers"):
+        s = split.at(stack)
+        ffn = ("experts over model" if s.has("moe.up") else
+               "mlp column/row-parallel" if s.has("mlp.up") else
+               "channel mix column/row-parallel" if s.has("cm_v") else
+               None)
+        if stack in specs.params and ffn:
+            parts.append(f"{stack} {ffn}")
+    parts.append("vocab-parallel head" if split.vocab else
+                 "head replicated")
+    return "tensor parallel (train/tp.py): " + "; ".join(parts)
 
 
 def _cache_layout(cfg, cache, srules, ref_specs) -> dict:

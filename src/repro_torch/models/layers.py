@@ -29,12 +29,15 @@ block holding the whole activations.
 Under the training split (``Runtime.model_split``, set by the train step
 alone; ``train/tp.py``) the params are this rank's model slices: the MLP
 runs gate and up column-parallel and down row-parallel, and the attention
-either attends this rank's ``kv_heads / m`` groups (wq, wk, wv column-,
-wo row-parallel), or, where the KV heads do not divide the axis (the
-reference's ``kv_seq``), projects every head on the gathered weights and
-attends all queries to this rank's block of T/m keys, merging the ranks'
-(acc, max, sum) (:func:`_merge_blocks`); where T does not divide the axis
-either, it attends replicated. Every block leaves the whole activations.
+(self- or cross-) either attends this rank's ``kv_heads / m`` groups (wq,
+wk, wv column-, wo row-parallel), or, where the KV heads do not divide
+the axis (the reference's ``kv_seq``), projects every head on the
+gathered weights and attends all queries to this rank's block of the
+keys (T/m, or the memory's S/m), merging the ranks' (acc, max, sum)
+(:func:`_merge_blocks`); where the keys' length does not divide the axis
+either, it attends replicated. A norm over a width split by heads
+(:func:`_split_norm`) takes its moments from the model group's sums.
+Every block leaves the whole activations.
 """
 from __future__ import annotations
 
@@ -116,7 +119,12 @@ def dense(x: torch.Tensor, w, rt: Runtime, bias=None, *,
 
 
 def norm_apply(p: Params, x: torch.Tensor, kind: str,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, split=None) -> torch.Tensor:
+    """RMSNorm or LayerNorm (with its bias) over the last dim. With
+    ``split`` (a training model split) ``x`` is this rank's block of a
+    width split over the model group: :func:`_split_norm`."""
+    if split is not None:
+        return _split_norm(p, x, kind, eps, split)
     x = x.to(torch.float32)
     if kind == "rmsnorm":
         x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
@@ -129,6 +137,30 @@ def norm_apply(p: Params, x: torch.Tensor, kind: str,
     x = x * p["scale"]
     if "bias" in p:
         x = x + p["bias"]
+    return x
+
+
+def _split_norm(p: Params, x: torch.Tensor, kind: str, eps: float,
+                split) -> torch.Tensor:
+    """:func:`norm_apply` over a width split over the model group: each
+    moment is the group's f32 sum of the ranks' partial sums (the
+    LayerNorm's two passes, the mean then the centred squares, as one
+    device takes them), and the scale and bias are this rank's blocks."""
+    x = x.to(torch.float32)
+    n = x.shape[-1] * split.ways
+
+    def mean(t):
+        return split.total(torch.sum(t, dim=-1, keepdim=True)) / n
+    if kind == "rmsnorm":
+        x = x * torch.rsqrt(mean(x * x) + eps)
+    elif kind == "layernorm":
+        x = x - mean(x)
+        x = x * torch.rsqrt(mean(x * x) + eps)
+    else:
+        raise ValueError(f"unknown norm {kind!r}")
+    x = x * split.own(p["scale"], 0)
+    if "bias" in p:
+        x = x + split.own(p["bias"], 0)
     return x
 
 
@@ -357,8 +389,9 @@ def attention_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     reference replaces its cache by the projected K/V whatever their
     length; here a memory whose length is not the cache's raises
     ``ValueError`` instead of writing a cache of another size."""
-    if rt.model_split is not None and cache is None and not cross:
-        return _split_attention(p, x, rt, cfg, pos=pos, causal=causal), None
+    if rt.model_split is not None and cache is None:
+        return _split_attention(p, x, rt, cfg, pos=pos, causal=causal,
+                                memory=memory if cross else None), None
     b, t, _ = x.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
@@ -443,50 +476,72 @@ def _merge_blocks(acc, m, l, split) -> torch.Tensor:
 
 
 def _split_attention(p: Params, x: torch.Tensor, rt: Runtime, cfg, *, pos,
-                     causal: bool) -> torch.Tensor:
-    """Self-attention without a cache under ``rt.model_split``: this
-    rank's ``kv_heads / m`` groups where they divide the axis, else every
+                     causal: bool, memory=None) -> torch.Tensor:
+    """Attention without a cache under ``rt.model_split``: self-attention,
+    or, with ``memory`` (B, S, D), cross-attention (the ``xattn`` block:
+    queries from ``x``, keys and values from the memory, no RoPE, no
+    mask). Where the KV heads divide the axis (the block's ``heads``
+    case) this rank's ``kv_heads / m`` groups; else (``kv_seq``) every
     head on wq, wk, wv gathered whole in one collective (replicated
-    compute) attending all queries to this rank's T/m keys (``kv_seq``;
-    replicated where T does not divide the axis); wo row-parallel where it
-    holds its rows' slice. Q, K and V are one product, entered into the
+    compute) attending all queries to this rank's block of the keys' length
+    (the memory's S/m under cross-attention; replicated where the length
+    does not divide the axis); wo row-parallel where it holds its rows'
+    slice. Q, K and V of self-attention are one product, entered into the
     split once. Returns the (B, T, D) output, the same on every rank."""
     split = rt.model_split
+    block = "attn" if memory is None else "xattn"
+    heads = split.case(block) == "heads"
     b, t, _ = x.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     g = h // kvh
+    src = x if memory is None else memory
+    tk = src.shape[1]
     pos_vec = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     pos_vec = pos_vec.expand(b) if pos_vec.dim() == 0 else pos_vec
     qpos = pos_vec[:, None] + torch.arange(t, device=x.device)  # (B, T)
     names = ("wq", "wk", "wv")
-    seq = not split.heads and t % split.ways == 0
-    if split.heads:
+    seq = not heads and tk % split.ways == 0
+    if not heads:
+        split.taken[split.name(block)] = "split" if seq else "replicated"
+    if heads:
         x = split.enter(x)
+        src = x if memory is None else split.enter(memory)
         h, kvh = h // split.ways, kvh // split.ways
         w = torch.cat([p[n] for n in names], -1)
     else:
         w = split.whole_cat([p[n] for n in names],
-                            [f"attn.{n}" for n in names], -1)
+                            [f"{block}.{n}" for n in names], -1)
     sizes = [h * hd, kvh * hd, kvh * hd]
     bias = None
     if "bq" in p:  # the config's QKV biases, all three
         bias = torch.cat([p["bq"], p["bk"], p["bv"]])
-        if split.heads:  # the blocks of this rank's heads
+        if heads:  # the blocks of this rank's heads
             bias = torch.cat([bv.narrow(0, *split.block(bv.shape[0]))
                               for bv in split.enter(bias).split(
                                   [n * split.ways for n in sizes])])
-    qkv = dense(x, w, rt, bias)
+    if memory is None:
+        qkv = dense(x, w, rt, bias)
+        if seq:
+            qkv = split.enter(qkv)
+        q, k, v = qkv.split(sizes, -1)
+    else:
+        wq, wkv = w.split([sizes[0], sum(sizes[1:])], -1)
+        q, kv = dense(x, wq, rt), dense(src, wkv, rt)
+        if seq:
+            q, kv = split.enter(q), split.enter(kv)
+        k, v = kv.split(sizes[1:], -1)
+    q = q.reshape(b, t, h, hd).transpose(1, 2)
+    k = k.reshape(b, tk, kvh, hd).transpose(1, 2)
+    v = v.reshape(b, tk, kvh, hd).transpose(1, 2)
+    if memory is None:
+        q = rope(q, qpos[:, None, :], cfg.rope_theta, cfg.rotary_pct)
+        k = rope(k, qpos[:, None, :], cfg.rope_theta, cfg.rotary_pct)
+    else:
+        causal, pos_vec = False, None
+    q = q.reshape(b, kvh, g, t, hd)
     if seq:
-        qkv = split.enter(qkv)
-    q, k, v = qkv.split(sizes, -1)
-    q = rope(q.reshape(b, t, h, hd).transpose(1, 2), qpos[:, None, :],
-             cfg.rope_theta, cfg.rotary_pct).reshape(b, kvh, g, t, hd)
-    k = rope(k.reshape(b, t, kvh, hd).transpose(1, 2), qpos[:, None, :],
-             cfg.rope_theta, cfg.rotary_pct)
-    v = v.reshape(b, t, kvh, hd).transpose(1, 2)
-    if seq:
-        lo, n = split.block(t)
+        lo, n = split.block(tk)
         out = _merge_blocks(*_sdpa_chunked(
             q, k[:, :, lo:lo + n], v[:, :, lo:lo + n], rt, causal=causal,
             q_offset=pos_vec, kv_len=None, k_offset=lo, partial=True),
@@ -495,9 +550,9 @@ def _split_attention(p: Params, x: torch.Tensor, rt: Runtime, cfg, *, pos,
         out = _sdpa_chunked(q, k, v, rt, causal=causal, q_offset=pos_vec,
                             kv_len=None)
     out = out.reshape(b, h, t, hd).transpose(1, 2).reshape(b, t, h * hd)
-    if split.heads:
+    if heads:
         return dense(out, p["wo"], rt, row=True)
-    if split.has("attn.wo"):
+    if split.has(f"{block}.wo"):
         return dense(split.own(out, -1), p["wo"], rt, row=True)
     return dense(out, p["wo"], rt)
 

@@ -34,6 +34,7 @@ leaves; the table has no layer axis and joins each layer's cache view.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Optional
 
@@ -542,7 +543,8 @@ def recurrent_layer_apply(params, x, rt, cfg, i: int, *, cache, pos,
                                         cache["ssm"].items()}
     if cfg.family == "ssm":
         x, new = ssm_mod.rwkv6_apply(layer_params(params["layers"], i), x,
-                                     rt, cfg, state=state, decode=decode)
+                                     _at(rt, "layers"), cfg, state=state,
+                                     decode=decode)
     else:
         attn, blk, j = hybrid_layer(cfg, i)
         if attn is not None:
@@ -551,13 +553,15 @@ def recurrent_layer_apply(params, x, rt, cfg, i: int, *, cache, pos,
                   {k: v[attn] for k, v in cache["attn"].items()})
             h, _ = attention_apply(sa["attn"], norm_apply(sa["ln"], x,
                                                           cfg.norm),
-                                   rt, cfg, cache=kv, pos=pos)
+                                   _at(rt, "shared_attn"), cfg, cache=kv,
+                                   pos=pos)
             x = x + h
         lp = (layer_params(params["mamba_blocks"], blk, j) if blk >= 0
               else layer_params(params["mamba_tail"], j))
-        h, new = ssm_mod.mamba2_apply(lp["mamba"],
-                                      norm_apply(lp["ln"], x, cfg.norm), rt,
-                                      cfg, state=state, decode=decode)
+        h, new = ssm_mod.mamba2_apply(
+            lp["mamba"], norm_apply(lp["ln"], x, cfg.norm),
+            _at(rt, "mamba_blocks" if blk >= 0 else "mamba_tail"), cfg,
+            state=state, decode=decode)
         x = x + h
     if cache is not None:
         for k, v in new.items():
@@ -593,6 +597,14 @@ def _run_decoder_token(params, x, rt, cfg, *, cache, pos):
         for k, v in tok.items():  # (B, KV, 1, X) -> layer i, row, pos
             layer_cache[k][rows, :, at] = v[:, :, 0].to(layer_cache[k].dtype)
     return x, cache
+
+
+def _at(rt, stack: str):
+    """``rt`` with its training model split viewing ``stack``'s leaves
+    (``train/tp.py:ModelSplit.at``); ``rt`` itself without one."""
+    if rt is None or rt.model_split is None:
+        return rt
+    return dataclasses.replace(rt, model_split=rt.model_split.at(stack))
 
 
 def _tp(rt):
@@ -675,13 +687,27 @@ def _tokens(tokens, params) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params["embed"].device)
 
 
+def _frontend(params, feats, rt) -> torch.Tensor:
+    """``feats`` (B, P, F) through ``frontend_proj`` (F, D). Under a
+    training model split the weight, stored column-split, is gathered
+    whole for the replicated stack: F x D/m a rank, where gathering the
+    output would move B x P x D/m (F is 160 and 1,024 at full width; B x
+    P is 4,608 and more in the full-width train runs of ``chip_smoke.py``
+    and the dry-run's ``train_4k`` cells)."""
+    w = params["frontend_proj"]
+    if rt.model_split is not None:
+        w = rt.model_split.whole(w, "frontend_proj", -1)
+    return dense(feats, w, rt)
+
+
 def _encode(params, frames, rt, cfg) -> torch.Tensor:
     """The audio encoder: frames (B, S, F) -> memory (B, S, D) through
     ``frontend_proj``, the non-causal encoder stack (RoPE at positions
     0..S-1, no mask) and ``enc_ln_f``."""
-    x = dense(frames, params["frontend_proj"], rt)
+    x = _frontend(params, frames, rt)
+    enc = _at(rt, "encoder")
     layer = _maybe_remat(lambda xc, i: _dense_layer_apply(
-        layer_params(params["encoder"], i), xc, rt, cfg, cache=None, pos=0,
+        layer_params(params["encoder"], i), xc, enc, cfg, cache=None, pos=0,
         causal=False)[0], rt)
     for i in range(cfg.encoder_layers):
         x = layer(x, i)
@@ -701,7 +727,7 @@ def _with_frontend(params, x, rt, cfg, frontend_feats):
             raise ValueError("seamless needs encoder frames")
         memory = _encode(params, feats, rt, cfg)
     elif cfg.frontend and frontend_feats is not None:
-        x = torch.cat([dense(feats, params["frontend_proj"], rt), x], dim=1)
+        x = torch.cat([_frontend(params, feats, rt), x], dim=1)
         prefix = feats.shape[1]
     return x, memory, prefix
 
@@ -776,6 +802,7 @@ def _train_stack(params, x, rt, cfg, memory=None):
     ``(x, aux)``: the MoE aux loss averaged over the layers, 0 for the
     other families."""
     zero = torch.zeros((), device=x.device)
+    rt_layers = _at(rt, "layers")
     if cfg.family in ("ssm", "hybrid"):
         every, n_units = ((1, cfg.num_layers) if cfg.family == "ssm"
                           else hybrid_dims(cfg)[:2])
@@ -797,8 +824,8 @@ def _train_stack(params, x, rt, cfg, memory=None):
 
     def dense_layer(xc, i):
         out, _, aux = _dense_layer_apply(layer_params(params["layers"], i),
-                                         xc, rt, cfg, cache=None, pos=0,
-                                         memory=memory)
+                                         xc, rt_layers, cfg, cache=None,
+                                         pos=0, memory=memory)
         return out, aux
     unit = _maybe_remat(dense_layer, rt)
     auxs = []

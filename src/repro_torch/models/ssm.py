@@ -21,6 +21,14 @@ D), "cm_prev": (B, D)}``. The projections flow through
 :func:`~repro_torch.models.layers.dense`, so ITQ3_S leaves run the card's
 kernels; the scans themselves are plain PyTorch, as the reference leaves
 them to XLA.
+
+Under a training model split (``Runtime.model_split``, ``train/tp.py``)
+each block runs on this rank's heads where they divide the axis, the
+scans unchanged: the column-parallel projections on the entered input,
+this rank's blocks of the replicated per-head leaves, the norm over the
+split width from the group's sums, and the output projection (and
+RWKV6's channel mix, on ``cm_k``'s columns) row-parallel; otherwise the
+mixer runs replicated on its projections made whole.
 """
 from __future__ import annotations
 
@@ -118,11 +126,18 @@ def mamba2_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     (output (B, T, D), the new state, or None without a state)."""
     b, t, _ = x.shape
     ed, h, n = mamba2_dims(cfg)
-    z = _f32(dense(x, p["wz"], rt))
-    xh = _f32(dense(x, p["wx"], rt))
+    split = rt.model_split
+    heads = split is not None and split.case("mamba") == "heads"
+    xs = x  # the input of the products whose outputs are split by heads
+    if split is not None:
+        p, xs = _mamba2_split(p, x, split, heads, ed)
+        if heads:
+            ed, h = ed // split.ways, h // split.ways
+    z = _f32(dense(xs, p["wz"], rt))
+    xh = _f32(dense(xs, p["wx"], rt))
     bm = _f32(dense(x, p["wB"], rt))
     cm = _f32(dense(x, p["wC"], rt))
-    dt = _f32(dense(x, p["wdt"], rt)) + p["dt_bias"]
+    dt = _f32(dense(xs, p["wdt"], rt)) + p["dt_bias"]
     # jax.nn.softplus is logaddexp(x, 0) everywhere; torch's softplus
     # returns x past its threshold
     dt = torch.logaddexp(dt, torch.zeros_like(dt))  # (B, T, H)
@@ -146,6 +161,8 @@ def mamba2_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
                       + p["conv_b"])
 
     xh_c, b_c, c_c = torch.split(conv, [ed, n, n], dim=-1)
+    if heads:  # B and C, computed whole, feed every head
+        b_c, c_c = split.enter(conv[..., ed:]).split([n, n], dim=-1)
     xhh = xh_c.reshape(b, t, h, MAMBA_HEADDIM)
 
     if decode:
@@ -164,8 +181,34 @@ def mamba2_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
                      else None)
 
     y = y + xhh * p["D"][None, None, :, None]  # skip connection
-    y = norm_apply(p["norm"], y.reshape(b, t, ed), "rmsnorm") * F.silu(z)
-    return dense(y, p["out_proj"], rt), new_state
+    y = norm_apply(p["norm"], y.reshape(b, t, ed), "rmsnorm",
+                   split=split if heads else None) * F.silu(z)
+    if split is None:
+        return dense(y, p["out_proj"], rt), new_state
+    row = split.has("mamba.out_proj")
+    if row and not heads:
+        y = split.own(y, -1)
+    return dense(y, p["out_proj"], rt, row=row), new_state
+
+
+def _mamba2_split(p: Params, x: torch.Tensor, split, heads: bool, ed: int):
+    """(this rank's view of a Mamba2 mixer's leaves, the input its
+    head-split products read) under a training model split. ``heads``:
+    wz, wx (and, by the caller, out_proj) are the rank's model slices,
+    the input is entered, and the rank takes its heads' blocks of the
+    replicated wdt, dt_bias, A_log, D, conv_x, the first ``ed`` entries of
+    conv_b and the norm's scale; wB, wC and the B and C channels of the
+    convolution stay whole. Else the mixer runs replicated on wz and wx
+    made whole."""
+    if not heads:
+        return dict(p, wz=split.whole(p["wz"], "mamba.wz", -1),
+                    wx=split.whole(p["wx"], "mamba.wx", -1)), x
+    own = split.own
+    return dict(p, wdt=own(p["wdt"], -1), dt_bias=own(p["dt_bias"], 0),
+                A_log=own(p["A_log"], 0), D=own(p["D"], 0),
+                conv_x=own(p["conv_x"], -1),
+                conv_b=torch.cat([own(p["conv_b"][:ed], 0),
+                                  p["conv_b"][ed:]])), split.enter(x)
 
 
 # ===========================================================================
@@ -244,6 +287,10 @@ def rwkv6_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     state). Returns (x_new, new state or None without a state)."""
     b, t, d = x.shape
     h, hd = rwkv6_dims(cfg)
+    split = rt.model_split
+    heads = split is not None and split.case("time_mix") == "heads"
+    if heads:
+        h //= split.ways
     st = (state if state is not None
           else rwkv6_empty_state(cfg, b, device=x.device))
 
@@ -253,16 +300,21 @@ def rwkv6_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     mu = p["mu"][:, None, None, :]  # (5, 1, 1, D)
     xs = xf[None] + (prev - xf)[None] * mu  # streams r, k, v, w, g
 
-    r = _f32(dense(xs[0], p["wr"], rt)).reshape(b, t, h, hd)
-    k = _f32(dense(xs[1], p["wk"], rt)).reshape(b, t, h, hd)
-    v = _f32(dense(xs[2], p["wv"], rt)).reshape(b, t, h, hd)
-    g = _f32(dense(xs[4], p["wg"], rt))
-    dd = torch.matmul(torch.tanh(torch.matmul(xs[3], p["w_lora_a"])),
-                      p["w_lora_b"])
+    xe, dd = xs, None  # the streams the head-split products read
+    if split is not None:
+        p, xe, dd = _time_mix_split(p, xs, split, heads)
+    r = _f32(dense(xe[0], p["wr"], rt)).reshape(b, t, h, hd)
+    k = _f32(dense(xe[1], p["wk"], rt)).reshape(b, t, h, hd)
+    v = _f32(dense(xe[2], p["wv"], rt)).reshape(b, t, h, hd)
+    g = _f32(dense(xe[4], p["wg"], rt))
+    if dd is None:
+        dd = torch.matmul(torch.tanh(torch.matmul(xs[3], p["w_lora_a"])),
+                          p["w_lora_b"])
     logw = -torch.exp(torch.clamp(p["w_base"] + dd, -8.0, 1.0))  # <= 0
     w = torch.exp(logw).reshape(b, t, h, hd)  # decay in (0, 1)
     u = p["u"]  # (H, hd)
-    s0 = _f32(st["wkv"])  # (B, H, hd_k, hd_v)
+    # (B, H, hd_k, hd_v); the rank's H/m heads of the zeros in training
+    s0 = _f32(st["wkv"])[:, :h]
 
     if decode:
         s_new, y = _wkv_step(s0, r[:, 0], k[:, 0], v[:, 0], w[:, 0], u)
@@ -280,18 +332,48 @@ def rwkv6_apply(p: Params, x: torch.Tensor, rt: Runtime, cfg, *,
     else:
         raise ValueError(f"unknown rwkv_mode {rt.rwkv_mode!r}")
 
-    y = norm_apply(p["ln_out"], y.reshape(b, t, h * hd), "layernorm")
-    tm_out = dense(y * F.silu(g), p["wo"], rt)
+    y = norm_apply(p["ln_out"], y.reshape(b, t, h * hd), "layernorm",
+                   split=split if heads else None) * F.silu(g)
+    row = split is not None and split.has("wo")
+    if row and not heads:
+        y = split.own(y, -1)
+    tm_out = dense(y, p["wo"], rt, row=row)
 
     # residual, then the channel mix (its own LayerNorm and token shift)
     x2 = x_res + _f32(tm_out)
     x2n = norm_apply(p["ln2"], x2, "layernorm")
     prev2 = _token_shift(x2n, _f32(st["cm_prev"]))
     xk = x2n + (prev2 - x2n) * p["cm_mu"][0]
-    kcm = torch.square(torch.relu(dense(xk, p["cm_k"], rt)))
-    out = x2 + _f32(dense(kcm, p["cm_v"], rt))
+    row = split is not None and split.has("cm_v")
+    cm_k = p["cm_k"]
+    if row:  # cm_k is stored whole: the rank's d_ff/m columns of it
+        xk, cm_k = split.enter(xk), split.own(cm_k, -1)
+    kcm = torch.square(torch.relu(dense(xk, cm_k, rt)))
+    out = x2 + _f32(dense(kcm, p["cm_v"], rt, row=row))
     new_state = None
     if state is not None:
         new_state = {"wkv": s_new, "tm_prev": xf[:, -1],
                      "cm_prev": x2n[:, -1]}
     return out, new_state
+
+
+def _time_mix_split(p: Params, xs: torch.Tensor, split, heads: bool):
+    """(this rank's view of an RWKV6 time mix's leaves, the streams its
+    head-split products read, the rank's block of the decay LoRA's
+    output or None) under a training model split. ``heads``: wr, wk, wv,
+    wg and wo are the rank's model slices, the streams are entered, the
+    rank takes its heads' blocks of w_base, u and ln_out; the LoRA's
+    hidden is split with its width (w_lora_a column-, w_lora_b
+    row-parallel), so its output's partial sums feed the rank's heads
+    reduce-scattered (backward: all-gathered). Else the time mix runs
+    replicated on its projections made whole."""
+    names = ("wr", "wk", "wv", "wg", "w_lora_a")
+    if not heads:
+        return dict(p, **{n: split.whole(p[n], n, -1) for n in names},
+                    w_lora_b=split.whole(p["w_lora_b"], "w_lora_b", 0)), \
+            xs, None
+    xe = split.enter(xs)
+    dd = split.scatter(torch.matmul(torch.tanh(torch.matmul(
+        xe[3], p["w_lora_a"])), p["w_lora_b"]), -1)
+    return dict(p, w_base=split.own(p["w_base"], 0),
+                u=split.own(p["u"], 0)), xe, dd

@@ -16,16 +16,14 @@ forward reaches no ``pallas_call``.
 On a mesh of ranks (``make_train_step(..., mesh=, specs=)``) the state
 holds this rank's slices under ``specs`` and the step runs as
 ``train/sharded.py`` describes: the batch split over the batch ranks,
-the params gathered, the gradients reduced to the specs, one global norm,
-AdamW on the slices, and the loss and aux averaged over the ranks, so
-every rank reports the same metrics. By family on a model axis of more
-than one rank: ``dense`` and ``moe`` split the compute over ``model``
-(``train/tp.py``: the params gathered along ``data`` only, column- and
-row-parallel products, the attention by KV heads or by blocks of keys,
-the vocab-parallel head and cross-entropy, experts over ``model``);
-``vlm``, ``audio``, ``ssm`` and ``hybrid`` keep the storage form (every
-leaf gathered whole, the model ranks of a data group computing the same
-rows).
+the params gathered along ``data``, the gradients reduced to the specs,
+one global norm, AdamW on the slices, and the loss and aux averaged over
+the ranks, so every rank reports the same metrics. On a model axis of
+more than one rank every family splits the compute over ``model``
+(``train/tp.py``: column- and row-parallel products, the attention by KV
+heads or by blocks of keys, RWKV6's and Mamba2's mixers by heads, the
+norms over a split width on the group's sums, the vocab-parallel head
+and cross-entropy, experts over ``model``).
 """
 from __future__ import annotations
 
@@ -97,7 +95,9 @@ def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
     ``loss`` (with the aux term), ``gnorm`` (before the clip), ``lr`` and
     ``moe_aux``. With ``mesh``, ``state`` holds this rank's slices under
     ``specs`` (:func:`state_specs`), every rank passes the whole batch,
-    and the metrics are the mesh's, the same on every rank."""
+    and the metrics are the mesh's, the same on every rank. The step's
+    ``split`` is its model axis's plan (``train/tp.py``; None without
+    one)."""
     rt = dataclasses.replace(rt, remat=remat,
                              remat_policy=remat_policy or "none")
     rules = None if mesh is None else make_rules(mesh, cfg)
@@ -118,8 +118,7 @@ def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
         params, gnorm = state.params, None
         if mesh is not None:
             batch = sharded.split_batch(batch, mesh, rules, num_micro)
-            params = sharded.gather_params(params, specs.params, mesh,
-                                           split)
+            params = sharded.gather_params(params, specs.params, mesh)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         lr = optim.cosine_lr(state.step, peak=lr_peak, warmup=warmup,
                              total=total_steps)
@@ -132,7 +131,7 @@ def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
             (loss, aux), grads = value_and_grad(loss_fn, params, batch)
         del params
         if mesh is not None:
-            grads = sharded.reduce_grads(grads, specs.params, mesh, split)
+            grads = sharded.reduce_grads(grads, specs.params, mesh)
             gnorm = torch.sqrt(sharded.global_sq_norm(grads, specs.params,
                                                       mesh))
             loss = sharded.world_mean(loss, mesh)
@@ -142,4 +141,5 @@ def make_train_step(cfg, rt: Runtime, *, lr_peak: float = 3e-4,
         metrics = {"loss": loss, "gnorm": gnorm, "lr": lr, "moe_aux": aux}
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
+    train_step.split = split
     return train_step

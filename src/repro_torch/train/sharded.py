@@ -9,8 +9,8 @@ counters whole. One step on a rank:
 
 1. :func:`split_batch`: this rank's rows of the global batch, which every
    rank draws whole (``batch_pspec``: rows over the batch axes);
-2. :func:`gather_params`: the leaves gathered along ``data``, and, for a
-   family that keeps the storage form, along ``model`` too;
+2. :func:`gather_params`: the leaves gathered along ``data``, each its
+   model slice;
 3. the loss and its gradients on the local rows (``train/grad.py``);
 4. :func:`reduce_grads`: the mean over the batch ranks, reduce-scattered
    onto each leaf's ``data`` dim (all-reduced where it has none);
@@ -19,19 +19,16 @@ counters whole. One step on a rank:
 6. AdamW on the local slices (elementwise, so a slice's update is the
    whole leaf's update restricted to it).
 
-For the dense and MoE families on a model axis of more than one rank the
-``model`` axis splits the compute (``train/tp.py``, the reference's
-partitioner on ``model``): a rank's working set is its model slice of
-each leaf, its products run column- or row-parallel, its attention over
-its KV heads or its block of keys, its head over its block of the
-vocabulary and its MoE block over its experts; the gradients come out
-as the rank's slices. ``vlm``, ``audio``, ``ssm`` and ``hybrid`` keep the
-storage form: their leaves are gathered whole and the model ranks of one
-data group compute the same rows, the gradients' model slices taken
-after. The MoE aux loss takes its token means over the global batch
-(:func:`batch_mean`, ``models/moe.py``). Gradient reductions are float
-sums in another order than one process's, so a mesh step is not bitwise
-with one device.
+On a model axis of more than one rank the ``model`` axis splits the
+compute of every family (``train/tp.py``, the reference's partitioner on
+``model``): a rank's working set is its model slice of each leaf, its
+products run column- or row-parallel, its attention over its KV heads or
+its block of keys, RWKV6's and Mamba2's mixers over their heads, its
+head over its block of the vocabulary and its MoE block over its
+experts; the gradients come out as the rank's slices. The MoE aux loss
+takes its token means over the global batch (:func:`batch_mean`,
+``models/moe.py``). Gradient reductions are float sums in another order
+than one process's, so a mesh step is not bitwise with one device.
 """
 from __future__ import annotations
 
@@ -47,7 +44,8 @@ from repro_torch.train.tp import reduce_scatter as _reduce_scatter
 from repro_torch.train.tree import tree_leaves, tree_map
 
 __all__ = ["map_state", "placements", "shard_state", "gather_params",
-           "split_batch", "reduce_grads", "global_sq_norm", "world_mean",
+           "gather_whole", "split_batch", "reduce_grads", "global_sq_norm",
+           "world_mean",
            "batch_mean", "batch_axis", "step_runtime"]
 
 
@@ -83,13 +81,18 @@ def _off_model(spec) -> tuple:
     return tuple(None if ax == "model" else ax for ax in spec)
 
 
-def gather_params(local, specs, mesh, split=None):
-    """The step's working params from every rank's slices: whole, or,
-    under a :class:`~repro_torch.train.tp.ModelSplit`, gathered along
-    ``data`` only (each leaf's model slice)."""
-    return tree_map(lambda t, spec: Placement(
-        _off_model(spec) if split is not None else spec, mesh).gather(t),
-        local, specs)
+def gather_params(local, specs, mesh):
+    """The step's working params from every rank's slices: gathered along
+    ``data`` only, so each leaf is its model slice (``train/tp.py``)."""
+    return tree_map(lambda t, spec: Placement(_off_model(spec), mesh).gather(
+        t), local, specs)
+
+
+def gather_whole(local, specs, mesh):
+    """Every leaf made whole from every rank's slices (checks and
+    comparisons; the step never holds a whole tree)."""
+    return tree_map(lambda t, spec: Placement(spec, mesh).gather(t), local,
+                    specs)
 
 
 def batch_axis(mesh):
@@ -135,21 +138,16 @@ def split_batch(batch: dict, mesh, rules: Rules, num_micro: int = 1) -> dict:
     return out
 
 
-def reduce_grads(grads, specs, mesh, split=None):
+def reduce_grads(grads, specs, mesh):
     """This rank's slices of the mean gradient over the batch ranks:
-    ``grads`` is the gradient tree of this rank's rows, whole (the same
-    on the model ranks of one data group) or, under ``split``, already
-    each leaf's model slice. A whole leaf takes its ``model`` slice
-    first; then each is reduce-scattered onto its ``data`` dim over the
-    data ranks (all-reduced where its spec names none) and all-reduced
-    over the pods, then divided by the batch ranks' count."""
+    ``grads`` is the gradient tree of this rank's rows, each leaf already
+    its model slice; each is reduce-scattered onto its ``data`` dim over
+    the data ranks (all-reduced where its spec names none) and
+    all-reduced over the pods, then divided by the batch ranks' count."""
     pods = axis_index(mesh, "pod")[1] if "pod" in mesh.shape else 1
     ranks = pods * axis_index(mesh, "data")[1]
 
     def leaf(g, spec):
-        if split is None:
-            g = Placement(tuple(ax if ax == "model" else None
-                                for ax in spec), mesh)(g)
         if "data" in spec:
             g = _reduce_scatter(g, spec.index("data"), mesh, "data")
         else:

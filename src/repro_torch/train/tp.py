@@ -1,8 +1,10 @@
 """The ``model`` axis's compute split in training: the port's explicit form
 of what the reference's SPMD partitioner derives from ``param_pspecs`` on
-the ``model`` axis (column-parallel wq, wk, wv, gate, up, lm_head; row-
-parallel wo, down; heads by ``kv_heads``, else the key sequence split
-over the axis (``kv_seq``); the vocab-sharded head and its logsumexp;
+the ``model`` axis, for all six families (column-parallel wq, wk, wv, wg,
+wr, gate, up, wz, wx, lm_head, frontend_proj, w_lora_a; row-parallel wo,
+down, out_proj, cm_v, w_lora_b; heads by ``kv_heads``, else the key
+sequence split over the axis (``kv_seq``); RWKV6's and Mamba2's heads
+where they divide the axis; the vocab-sharded head and its logsumexp;
 experts over ``model``).
 
 Four autograd collectives over this rank's model group carry it. Every
@@ -22,6 +24,16 @@ gradient every rank must hold whole is *replicated*:
 * :func:`gather_split`: a split tensor made whole for compute of which
   each rank does a part. Forward all-gather; backward reduce-scatter sum.
 
+The consumer decides the backward, so three more serve the cases the
+four do not: :func:`scatter`, the partial sums of a row-parallel product
+that feed split compute (RWKV6's decay LoRA, whose sum feeds the rank's
+heads): forward reduce-scatter, backward all-gather; :func:`own`, this
+rank's block of a replicated tensor for split compute: forward the
+block, backward the all-gather of the ranks' blocks (each rank's
+gradient is zero outside its block); and :func:`total`, a sum over the
+group that split compute reads (a norm's moments over a split width):
+forward and backward the all-reduce sum.
+
 :func:`swap` moves a tensor split along one dim into one split along
 another (an all-to-all; backward the all-to-all back). The tied head, the
 step's one consumer of a gather feeding split compute, takes its
@@ -34,10 +46,11 @@ the logsumexp's and the key-split attention's, whose gradient cancels.
 Each works on NCCL, gloo and the dry-run's fake group.
 
 :class:`ModelSplit` is one rank's plan, read from the state's specs
-(:func:`plan`): which leaves hold their model slice, and which attention
-case the architecture takes. The dense and MoE families split; ``vlm``,
-``audio``, ``ssm`` and ``hybrid`` keep the storage form on a mesh
-(:data:`SPLIT_FAMILIES`).
+(:func:`plan`): which leaves hold their model slice, named by stack
+(``layers.attn.wq``, ``encoder.attn.wq``, ``layers.xattn.wq``,
+``shared_attn.attn.wq``, ``mamba_blocks.mamba.wz``, ``embed``), and the
+case each block takes. Every family splits on a model axis of more than
+one rank.
 """
 from __future__ import annotations
 
@@ -48,13 +61,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import TENSOR_COLLECTIVES, all_gather, axis_index
+from repro_torch.models.ssm import mamba2_dims
 
-__all__ = ["SPLIT_FAMILIES", "ModelSplit", "plan", "enter", "leave",
-           "gather_replicated", "gather_split", "swap", "max_over",
-           "all_reduce", "reduce_scatter"]
-
-#: The families whose train step splits its compute over ``model``.
-SPLIT_FAMILIES = ("dense", "moe")
+__all__ = ["ModelSplit", "plan", "enter", "leave",
+           "gather_replicated", "gather_split", "scatter", "own", "total",
+           "swap", "max_over", "all_reduce", "reduce_scatter"]
 
 
 def all_reduce(t: torch.Tensor, mesh, axis, op=dist.ReduceOp.SUM
@@ -139,6 +150,32 @@ class _GatherSplit(torch.autograd.Function):
         return out.to(grad.dtype), None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh):
+        ctx.dim, ctx.mesh, ctx.dtype = dim, mesh, t.dtype
+        return reduce_scatter(t.to(torch.promote_types(
+            t.dtype, torch.float32)), dim, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (all_gather(grad, ctx.dim, ctx.mesh, axis="model").to(
+            ctx.dtype), None, None)
+
+
+class _Own(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        coord, ways = axis_index(mesh, "model")
+        n = t.shape[dim] // ways
+        return t.narrow(dim, coord * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.dim, ctx.mesh, axis="model"), None, None
+
+
 def _all_to_all(t: torch.Tensor, split_dim: int, cat_dim: int, mesh
                 ) -> torch.Tensor:
     """Block ``s`` of ``t`` along ``split_dim`` sent to model rank ``s``;
@@ -189,6 +226,24 @@ def gather_split(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     return _GatherSplit.apply(t, dim % t.dim(), mesh)
 
 
+def scatter(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's block along ``dim`` of the model group's f32 sum of the
+    partials ``t``, for split compute (backward: all-gather)."""
+    return _Scatter.apply(t, dim % t.dim(), mesh)
+
+
+def own(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's block along ``dim`` of a replicated ``t``, for split
+    compute (backward: the ranks' blocks of the gradient gathered)."""
+    return _Own.apply(t, dim % t.dim(), mesh)
+
+
+def total(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The model group's f32 sum of ``t``, for split compute (forward and
+    backward: the all-reduce sum)."""
+    return enter(leave(t, mesh), mesh)
+
+
 def swap(t: torch.Tensor, split_dim: int, cat_dim: int, mesh
          ) -> torch.Tensor:
     """``t``, split along ``cat_dim`` over the model group, re-split along
@@ -207,28 +262,54 @@ def max_over(t: torch.Tensor, mesh) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class ModelSplit:
     """One rank's plan of the model axis's split (``Runtime.model_split``,
-    set by the train step only): ``leaves`` names the layer and top-level
-    leaves stored as their model slice (``"attn.wq"``, ``"mlp.down"``,
-    ``"moe.up"``, ``"embed"``, ``"lm_head"``); ``heads`` is True where
-    the KV heads divide the axis (each rank attends its ``kv_heads / m``
-    groups), else the attention splits the key sequence where T divides
-    the axis (``kv_seq``) and runs replicated where it does not;
-    ``vocab`` is True where the head's vocabulary divides the axis."""
+    set by the train step only): ``leaves`` names the leaves stored as
+    their model slice, qualified by stack (``"layers.attn.wq"``,
+    ``"encoder.mlp.up"``, ``"mamba_tail.mamba.out_proj"``) or top-level
+    (``"embed"``, ``"lm_head"``, ``"frontend_proj"``); ``cases`` the case
+    of each stack's blocks (``(("layers.attn", "heads"), ...)``): the
+    attention (``attn``, and ``xattn`` for cross-attention) ``heads``
+    where the KV heads divide the axis, else ``kv_seq`` (the keys' length
+    split, replicated where it does not divide); RWKV6's ``time_mix`` and
+    Mamba2's ``mamba`` ``heads`` where their heads divide it, else
+    ``replicated`` on the leaves made whole; ``vocab`` is True where the
+    head's vocabulary divides the axis. ``stack`` is the stack the view
+    reads (:meth:`at`): a block's code names its leaves relative to it
+    (``"attn.wq"``, ``"cm_v"``), the head and the frontend with the
+    top-level view (``stack=""``). ``taken`` records, per ``kv_seq``
+    block, what the step did with the keys' length, which only the step
+    sees: ``"split"`` over the axis or ``"replicated"`` (every view
+    shares it)."""
 
     mesh: Any
     ways: int
     coord: int
     leaves: frozenset
-    heads: bool
+    cases: tuple
     vocab: bool
+    stack: str = ""
+    taken: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
+
+    def at(self, stack: str) -> "ModelSplit":
+        """The view of ``stack``'s leaves."""
+        return dataclasses.replace(self, stack=stack)
+
+    def name(self, name: str) -> str:
+        return f"{self.stack}.{name}" if self.stack else name
 
     def has(self, name: str) -> bool:
-        return name in self.leaves
+        return self.name(name) in self.leaves
+
+    def case(self, block: str) -> str:
+        """The case of this stack's ``block`` (``attn``, ``xattn``,
+        ``time_mix`` or ``mamba``)."""
+        return dict(self.cases)[self.name(block)]
 
     @property
     def attention(self) -> str:
-        """The attention case: ``heads`` or ``kv_seq``."""
-        return "heads" if self.heads else "kv_seq"
+        """The decoder's attention case: ``heads`` or ``kv_seq``."""
+        return dict(self.cases).get("layers.attn", dict(self.cases).get(
+            "shared_attn.attn"))
 
     def block(self, n: int) -> tuple[int, int]:
         """(first index, count) of this rank's block of ``n``."""
@@ -240,6 +321,12 @@ class ModelSplit:
 
     def leave(self, t):
         return leave(t, self.mesh)
+
+    def scatter(self, t, dim: int):
+        return scatter(t, dim, self.mesh)
+
+    def total(self, t):
+        return total(t, self.mesh)
 
     def max(self, t):
         return max_over(t, self.mesh)
@@ -272,38 +359,69 @@ class ModelSplit:
                           for w, h in zip(ws, held)], dim)
 
     def own(self, t, dim: int):
-        """This rank's block along ``dim`` of a replicated tensor, entered
-        into split compute."""
-        lo, n = self.block(t.shape[dim])
-        return self.enter(t).narrow(dim, lo, n)
+        """This rank's block along ``dim`` of a replicated tensor, for
+        split compute."""
+        return own(t, dim, self.mesh)
+
+
+# the leaves a block's ``heads`` case reads as their model slices
+_BLOCK_LEAVES = {
+    "attn": ("attn.wq", "attn.wk", "attn.wv", "attn.wo"),
+    "xattn": ("xattn.wq", "xattn.wk", "xattn.wv", "xattn.wo"),
+    "time_mix": ("wr", "wk", "wv", "wg", "wo", "w_lora_a", "w_lora_b"),
+    "mamba": ("mamba.wz", "mamba.wx", "mamba.out_proj"),
+}
+
+
+def _stack_cases(cfg, ways: int, stack: str, tree: dict) -> dict:
+    """The case of each block that ``stack``'s spec tree holds, keyed
+    ``"<stack>.<block>"`` (:class:`ModelSplit`)."""
+    out = {}
+    for block in ("attn", "xattn"):
+        if block in tree:
+            out[f"{stack}.{block}"] = ("heads" if cfg.num_kv_heads % ways
+                                       == 0 else "kv_seq")
+    if "wr" in tree:  # RWKV6's time mix holds its leaves in the layer
+        out[f"{stack}.time_mix"] = ("heads" if cfg.num_heads % ways == 0
+                                    else "replicated")
+    if "mamba" in tree:
+        out[f"{stack}.mamba"] = ("heads" if mamba2_dims(cfg)[1] % ways == 0
+                                 else "replicated")
+    return out
 
 
 def plan(cfg, mesh, pspecs) -> Optional[ModelSplit]:
     """The split of ``cfg``'s step on ``mesh`` from its param specs
-    (``sharding/rules.py:param_pspecs``), or None: a model axis of one
-    rank, or a family that keeps the storage form."""
-    if mesh is None or cfg.family not in SPLIT_FAMILIES:
+    (``sharding/rules.py:param_pspecs``), or None for a model axis of one
+    rank. Raises where a block's heads divide the axis but the specs do
+    not split its projections."""
+    if mesh is None:
         return None
     coord, ways = axis_index(mesh, "model")
     if ways == 1:
         return None
     leaves = set()
-    layers = pspecs["layers"]
-    for block, names in layers.items():
-        if not isinstance(names, dict):
-            continue
-        for name, spec in names.items():
-            if "model" in spec:
-                leaves.add(f"{block}.{name}")
-    for name in ("embed", "lm_head"):
-        if name in pspecs and "model" in pspecs[name]:
-            leaves.add(name)
-    heads = cfg.num_kv_heads % ways == 0
-    if heads and not {"attn.wq", "attn.wk", "attn.wv",
-                      "attn.wo"} <= leaves:
-        raise ValueError("the KV heads divide the model axis but the "
-                         "attention's projections are not all split")
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        elif "model" in node:
+            leaves.add(".".join(path))
+    walk(pspecs, ())
+    cases = {}
+    for stack, tree in pspecs.items():
+        if isinstance(tree, dict):
+            cases.update(_stack_cases(cfg, ways, stack, tree))
+    for key, case in cases.items():
+        stack, block = key.split(".")
+        want = {f"{stack}.{n}" for n in _BLOCK_LEAVES[block]}
+        if case == "heads" and not want <= leaves:
+            raise ValueError(f"the heads of {key} divide the model axis but "
+                             f"its projections are not all split: "
+                             f"{sorted(want - leaves)}")
     vocab = ("lm_head" in leaves if not cfg.tie_embeddings
              else cfg.vocab_size % ways == 0)
     return ModelSplit(mesh=mesh, ways=ways, coord=coord,
-                      leaves=frozenset(leaves), heads=heads, vocab=vocab)
+                      leaves=frozenset(leaves),
+                      cases=tuple(sorted(cases.items())), vocab=vocab)

@@ -6,6 +6,7 @@ them against the same single-process runs as ``test_torch_train_mesh.py``
 does. It imports torch and the port only: a spawned rank never loads
 JAX.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -13,15 +14,28 @@ import torch
 
 import _torch_train_worker as TW
 
-ARCHS = ("smollm-135m", "qwen1.5-0.5b", "olmoe-1b-7b")
-# a family that keeps the storage form on a model axis > 1 (train/tp.py
-# SPLIT_FAMILIES): its leaves gathered whole, the gradients' model slices
-# taken after
-STORAGE_ARCHS = ("rwkv6-3b",)
+# trained on both meshes of MESHES
+ARCHS = ("smollm-135m", "qwen1.5-0.5b", "olmoe-1b-7b", "rwkv6-3b",
+         "zamba2-7b")
+# trained on (1, 4) only: RWKV6 whose 2 heads do not divide the axis (its
+# time mix replicated), the vlm and the audio model with their seeded
+# frontend features
+ONE_MESH = ("rwkv6-3b/2 heads", "phi-3-vision-4.2b", "seamless-m4t-medium")
+VARIANTS = {"rwkv6-3b/2 heads": ("rwkv6-3b", {"num_heads": 2})}
 MESHES = {"1x4": {"data": 1, "model": 4}, "2x2": {"data": 2, "model": 2}}
+SCENARIOS = ([(m, a) for m in MESHES for a in ARCHS]
+             + [("1x4", a) for a in ONE_MESH])
+# the (1, 4) working set and gathers of every config
+WORKING_SETS = ARCHS + ONE_MESH[1:]
 STEPS = 2
 # the collectives' cases: (rows, K, N) of X @ W, each dim split 4 ways
 ROWS, K, N = 8, 8, 12
+
+
+def cfg_of(name: str):
+    """The reduced config of an arch, or of a variant of VARIANTS."""
+    arch, kw = VARIANTS.get(name, (name, {}))
+    return dataclasses.replace(TW.cfg_of(arch), **kw)
 
 
 def collective_inputs() -> dict:
@@ -76,29 +90,151 @@ def collectives(mesh) -> dict:
     torch.sum((t["X"][:, ks] @ y) * t["C"]).backward()
     out["swap"] = (y.detach(), w.grad)
 
+    x = t["X"][:, ks].clone().requires_grad_(True)
+    y = tp.scatter(x @ t["W"][ks], -1, mesh)
+    torch.sum(y * t["C"][:, cols]).backward()
+    out["scatter"] = (y.detach(), x.grad)
+
+    w = t["W"].clone().requires_grad_(True)
+    y = tp.own(w, -1, mesh)
+    torch.sum((t["X"] @ y) * t["C"][:, cols]).backward()
+    out["own"] = (y.detach(), w.grad)
+
+    x = t["X"][:, ks].clone().requires_grad_(True)
+    y = tp.total(x @ t["W"][ks], mesh)
+    torch.sum(y[:, cols] * t["C"][:, cols]).backward()
+    out["total"] = (y.detach(), x.grad)
+
     out["max_over"] = tp.max_over(t["M"][r], mesh)
     return out
 
 
-def working_set(arch: str, mesh) -> dict:
-    """One split step on ``mesh``: ``leaves``, (path, the shape the train
-    step's gather gives, the leaf's whole shape, its spec) of every params
-    leaf; ``gathers``, (the collective, its output shape) of every
-    model-axis gather and swap the forward (and its recompute) made."""
+def block_inputs() -> dict:
+    """The seeded inputs of the split blocks' cases: a (ROWS, N) width
+    with its norm's scale and bias, a gate, the decay LoRA's streams and
+    weights, and a cross-attention of reduced seamless-m4t-medium with 2
+    KV heads (which do not divide 4) over 8 memory rows."""
+    rng = np.random.default_rng(6)
+    cfg = cross_cfg()
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    f = np.float32
+    return {
+        "x": rng.normal(1.0, 2.0, size=(ROWS, N)), "scale":
+        rng.normal(size=N), "bias": rng.normal(size=N),
+        "z": rng.normal(size=(ROWS, N)), "C": rng.normal(size=(ROWS, N)),
+        "xs": rng.normal(size=(ROWS, 16)), "a": rng.normal(size=(16, K)),
+        "b": rng.normal(size=(K, N)),
+        "q_in": rng.normal(size=(2, 4, d)).astype(f),
+        "memory": rng.normal(size=(2, 8, d)).astype(f),
+        "wq": (rng.normal(size=(d, h * hd)) / d ** 0.5).astype(f),
+        "wk": (rng.normal(size=(d, kv * hd)) / d ** 0.5).astype(f),
+        "wv": (rng.normal(size=(d, kv * hd)) / d ** 0.5).astype(f),
+        "wo": (rng.normal(size=(h * hd, d)) / d ** 0.5).astype(f),
+        "Co": rng.normal(size=(2, 4, d)).astype(f)}
+
+
+def cross_cfg():
+    return dataclasses.replace(TW.cfg_of("seamless-m4t-medium"),
+                               num_kv_heads=2)
+
+
+# per block case: the leaves each rank holds as a block (the dim it is
+# cut along), the rest whole
+BLOCK_CUTS = {
+    "layernorm": {"y": -1, "x": -1},
+    "gated_rmsnorm": {"y": -1, "x": -1, "z": -1},
+    "decay_lora": {"y": -1, "a": -1, "b": 0},
+    "cross_kv_seq": {"wq": -1, "wk": -1, "wv": -1, "wo": 0},
+}
+
+
+def blocks(mesh=None) -> dict:
+    """Per case of BLOCK_CUTS, {name: tensor} of its output ``y`` and the
+    gradients this rank gets of ``sum(y * C)``: under the split on
+    ``mesh`` (this rank's blocks of the BLOCK_CUTS leaves), or, without a
+    mesh, the plain function on the whole inputs. The LayerNorm and the
+    gated RMSNorm over a split width, the decay LoRA's reduce-scattered
+    partial sums, and cross-attention whose KV heads do not divide the
+    axis (``kv_seq``: every query against each rank's 2 of the 8 memory
+    rows, the weights gathered, wo row-parallel)."""
+    from repro_torch.launch.mesh import axis_index
+    from repro_torch.models import layers
+    from repro_torch.train import tp
+
+    t = {k: torch.from_numpy(v) for k, v in block_inputs().items()}
+    r, m = (0, 1) if mesh is None else axis_index(mesh, "model")
+    split = None if mesh is None else tp.ModelSplit(
+        mesh=mesh, ways=m, coord=r, leaves=frozenset(
+            f"layers.xattn.{n}" for n in ("wq", "wk", "wv", "wo")),
+        cases=(("layers.xattn", "kv_seq"),), vocab=False, stack="layers")
+
+    def leaf(case, name):
+        dim = BLOCK_CUTS[case].get(name)
+        v = t[name]
+        if split is not None and dim is not None:
+            n = v.shape[dim] // m
+            v = v.narrow(dim, r * n, n)
+        return v.clone().requires_grad_(True)
+
+    def run(case, fn, names, c):
+        args = {n: leaf(case, n) for n in names}
+        y = fn(**args)
+        cut = BLOCK_CUTS[case].get("y")
+        if split is not None and cut is not None:
+            n = c.shape[cut] // m
+            c = c.narrow(cut, r * n, n)
+        torch.sum(y * c).backward()
+        return dict(y=y.detach(), **{n: a.grad for n, a in args.items()})
+
+    out = {}
+    for kind in ("layernorm", "gated_rmsnorm"):
+        def norm(x, scale, bias=None, z=None, kind=kind):
+            p = {"scale": scale} if bias is None else {"scale": scale,
+                                                       "bias": bias}
+            y = layers.norm_apply(p, x, kind.split("_")[-1], split=split)
+            return y if z is None else y * torch.nn.functional.silu(z)
+        names = (("x", "scale", "bias") if kind == "layernorm"
+                 else ("x", "scale", "z"))
+        out[kind] = run(kind, norm, names, t["C"].float())
+
+    def lora(xs, a, b):
+        if split is None:
+            return torch.tanh(xs @ a) @ b
+        return split.scatter(torch.tanh(split.enter(xs) @ a) @ b, -1)
+    out["decay_lora"] = run("decay_lora", lora, ("xs", "a", "b"), t["C"])
+
+    cfg = cross_cfg()
+    rt = layers.Runtime(model_split=split)
+
+    def cross(q_in, memory, wq, wk, wv, wo):
+        p = {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+        return layers.attention_apply(p, q_in, rt, cfg, memory=memory,
+                                      cross=True)[0]
+    out["cross_kv_seq"] = run("cross_kv_seq", cross,
+                              ("q_in", "memory", "wq", "wk", "wv", "wo"),
+                              t["Co"])
+    return out
+
+
+def spied_steps(arch: str, mesh) -> tuple:
+    """The train steps of ``arch`` on ``mesh`` (``TW.run_steps``) and
+    their working set: ``leaves``, (path, the shape the steps' first
+    gather of the params gives, the leaf's whole shape, its spec) of
+    every params leaf; ``gathers``, (the collective, its output shape) of
+    every model-axis gather and swap the forwards (and their recomputes)
+    made."""
     from repro_torch.models import lm
     from repro_torch.sharding.rules import make_rules
     from repro_torch.train import loop, sharded, tp
     from repro_torch.train.tree import tree_leaves
 
-    cfg = TW.cfg_of(arch)
-    specs = loop.state_specs(cfg, make_rules(mesh, cfg))
-    state = loop.init_train_state(cfg, seed=0, device="cpu", mesh=mesh,
-                                  specs=specs)
+    cfg = cfg_of(arch)
     seen = []
     gather = sharded.gather_params
 
-    def spy(local, pspecs, mesh_, split=None):
-        out = gather(local, pspecs, mesh_, split)
+    def spy(local, pspecs, mesh_):
+        out = gather(local, pspecs, mesh_)
         seen.append([tuple(v.shape) for v in tree_leaves(out)])
         return out
     gathers = []
@@ -115,9 +251,7 @@ def working_set(arch: str, mesh) -> dict:
     for n, fn in forward.items():
         setattr(tp, n, seen_by(n, fn))
     try:
-        step = loop.make_train_step(cfg, TW._runtime(None), mesh=mesh,
-                                    specs=specs, **TW.STEP_KW)
-        step(state, TW.batches(cfg)[0])
+        run, _, specs = TW.run_steps(arch, mesh, steps=STEPS, cfg=cfg)
     finally:
         sharded.gather_params = gather
         for n, fn in forward.items():
@@ -132,30 +266,29 @@ def working_set(arch: str, mesh) -> dict:
         else:
             paths.append(".".join(path))
     walk(whole, ())
-    return {"leaves": list(zip(paths, seen[0], [tuple(v.shape)
-                                                for v in tree_leaves(whole)],
-                               tree_leaves(specs.params))),
-            "gathers": gathers}
+    return run, {"leaves": list(zip(paths, seen[0],
+                                    [tuple(v.shape)
+                                     for v in tree_leaves(whole)],
+                                    tree_leaves(specs.params))),
+                 "gathers": gathers}
 
 
 def run_all(mesh_of, rank: int) -> dict:
-    """Every scenario, keyed ``(mesh, arch, kind)``: the collectives on
-    (1, 4), the steps of every arch on every mesh and of the storage form
-    on (2, 2) (whole trees kept by rank 0 only), the working set of each
-    arch on (1, 4)."""
+    """Every scenario, keyed ``(mesh, arch, kind)``: the collectives and
+    the split blocks on (1, 4), the steps of every scenario of SCENARIOS
+    (whole trees kept by rank 0 only), and, taken from the same steps on
+    (1, 4), the working set of each config of WORKING_SETS."""
     keep = rank == 0
-    out = {"collectives": collectives(mesh_of(MESHES["1x4"]))}
-    for name, shape in MESHES.items():
-        mesh = mesh_of(shape)
-        for arch in ARCHS:
-            run, _, _ = TW.run_steps(arch, mesh, steps=STEPS)
-            out[(name, arch, "steps")] = TW._strip(run, keep)
-            if name == "1x4":
-                out[(name, arch, "working_set")] = working_set(arch, mesh)
-    mesh = mesh_of(MESHES["2x2"])
-    for arch in STORAGE_ARCHS:
-        run, _, _ = TW.run_steps(arch, mesh, steps=STEPS)
-        out[("2x2", arch, "steps")] = TW._strip(run, keep)
+    one = mesh_of(MESHES["1x4"])
+    out = {"collectives": collectives(one), "blocks": blocks(one)}
+    for name, arch in SCENARIOS:
+        mesh = mesh_of(MESHES[name])
+        if name == "1x4" and arch in WORKING_SETS:
+            run, out[(name, arch, "working_set")] = spied_steps(arch, mesh)
+        else:
+            run, _, _ = TW.run_steps(arch, mesh, steps=STEPS,
+                                     cfg=cfg_of(arch))
+        out[(name, arch, "steps")] = TW._strip(run, keep)
     return out
 
 
@@ -174,6 +307,6 @@ def rank_main(rank: int, world: int, store: str, tmp: str) -> None:
 
 
 def single() -> dict:
-    """The steps of every arch in one process (the yardstick)."""
-    return {arch: TW.run_steps(arch, None, steps=STEPS)[0]
-            for arch in ARCHS + STORAGE_ARCHS}
+    """The steps of every config in one process (the yardstick)."""
+    return {arch: TW.run_steps(arch, None, steps=STEPS, cfg=cfg_of(arch))[0]
+            for arch in ARCHS + ONE_MESH}

@@ -29,9 +29,17 @@ def cfg_of(arch: str):
 
 
 def batches(cfg) -> list:
+    """STEPS seeded batches of B x T tokens; a frontend config's also
+    carry seeded (B, frontend_len, frontend_dim) features."""
     from repro_torch.data.pipeline import SyntheticCorpus
     corpus = SyntheticCorpus(cfg.vocab_size, seed=3)
-    return [corpus.batch(s, B, T) for s in range(STEPS)]
+    out = [corpus.batch(s, B, T) for s in range(STEPS)]
+    if cfg.frontend:
+        rng = np.random.default_rng(4)
+        for b in out:
+            b["frontend"] = rng.normal(size=(
+                B, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)
+    return out
 
 
 def _runtime(mesh, split=None):
@@ -48,7 +56,7 @@ def _whole(tree, specs, mesh):
     from repro_torch.train import sharded
     from repro_torch.train.tree import tree_map
     if mesh is not None:
-        tree = sharded.gather_params(tree, specs, mesh)
+        tree = sharded.gather_whole(tree, specs, mesh)
     return tree_map(lambda t: t.detach().cpu().clone(), tree)
 
 
@@ -56,8 +64,8 @@ def grads_of(cfg, params, batch, mesh, specs, *, aux_only=False):
     """The gradient of the train loss (or of the MoE aux alone) at
     ``params`` (this rank's slices on a mesh): ``(value, whole grads)``.
     On a mesh, as the train step takes them: this rank's rows, the params
-    gathered (along ``data`` only where the model axis splits the
-    compute), the gradients reduced to the specs, then gathered whole."""
+    gathered along ``data`` (each leaf its model slice), the gradients
+    reduced to the specs, then gathered whole."""
     from repro_torch.models import lm
     from repro_torch.sharding.rules import make_rules
     from repro_torch.train import sharded, tp
@@ -67,30 +75,32 @@ def grads_of(cfg, params, batch, mesh, specs, *, aux_only=False):
     rt = _runtime(mesh, split)
 
     def loss_fn(p, b):
-        xent, aux = lm.forward_xent(p, b["tokens"], b["labels"], rt, cfg)
+        xent, aux = lm.forward_xent(p, b["tokens"], b["labels"], rt, cfg,
+                                    frontend_feats=b.get("frontend"))
         return (aux if aux_only else xent + 0.01 * aux), aux
 
     if mesh is not None:
         batch = sharded.split_batch(batch, mesh, make_rules(mesh, cfg))
-        params = sharded.gather_params(params, specs.params, mesh, split)
+        params = sharded.gather_params(params, specs.params, mesh)
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     (value, _), grads = value_and_grad(loss_fn, params, batch)
     if mesh is not None:
-        grads = sharded.reduce_grads(grads, specs.params, mesh, split)
+        grads = sharded.reduce_grads(grads, specs.params, mesh)
         value = sharded.world_mean(value, mesh)
     return float(value), _whole(grads, specs.params if specs else None,
                                 mesh)
 
 
 def run_steps(arch: str, mesh, *, num_micro: int = 1, steps: int = STEPS,
-              start_step: int = 0):
+              start_step: int = 0, cfg=None):
     """``steps`` train steps from the seeded state (its step counter set
-    to ``start_step``). Returns (per step: metrics, whole grads at the
-    state it starts from, whole params after it; the final state)."""
+    to ``start_step``) of ``cfg`` (default: ``arch``'s reduced config).
+    Returns (per step: metrics, whole grads at the state it starts from,
+    whole params after it; the final state)."""
     from repro_torch.sharding.rules import make_rules
     from repro_torch.train import loop
 
-    cfg = cfg_of(arch)
+    cfg = cfg or cfg_of(arch)
     specs = None
     if mesh is not None:
         specs = loop.state_specs(cfg, make_rules(mesh, cfg))

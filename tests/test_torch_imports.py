@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports without JAX and imports
 nothing of the JAX package ``repro``; neither does ``chip_smoke.py``."""
+import json
 import re
 import subprocess
 import sys
@@ -16,26 +17,10 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 REFERENCE_IMPORT = re.compile(r"^\s*(from|import)\s+repro(\.|\s|$)", re.M)
 
 
-def test_port_modules_and_chip_smoke_import_without_jax():
-    code = textwrap.dedent(f"""
-        import importlib, pkgutil, sys
-        sys.modules["jax"] = None  # any `import jax` now raises
-        sys.path[:0] = [{str(ROOT / "src")!r}, {str(ROOT)!r}]
-        import repro_torch
-        names = [m.name for m in pkgutil.walk_packages(
-            repro_torch.__path__, "repro_torch.")]
-        for name in names:
-            importlib.import_module(name)
-        import chip_smoke
-        loaded = [m for m in sys.modules
-                  if m == "repro" or m.startswith("repro.")]
-        assert not loaded, loaded
-        print(len(names))
-    """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
-                         capture_output=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was imported
+def test_port_modules_and_chip_smoke_import_without_jax(fresh_imports):
+    rec = fresh_imports["every module"]
+    assert rec["repro"] == [], rec
+    assert rec["modules"] >= 20  # every module was imported
 
 
 TP_MODULES = ("repro_torch.serve.tp", "repro_torch.sharding.rules",
@@ -47,25 +32,53 @@ TRAIN_MODULES = ("repro_torch.data.pipeline", "repro_torch.train.tree",
                  "repro_torch.train.sharded", "repro_torch.train.tp")
 
 
-@pytest.mark.parametrize("module", TP_MODULES + TRAIN_MODULES)
-def test_tensor_parallel_modules_import_without_jax(module):
-    """The tensor-parallel and training slices' modules import with JAX
-    unavailable, load nothing of ``repro`` and join no process group at
-    import."""
+@pytest.fixture(scope="module")
+def fresh_imports() -> dict:
+    """From one interpreter with JAX unavailable, each import afresh
+    (every ``repro`` and ``repro_torch`` module dropped from
+    ``sys.modules`` before it): per module of TP_MODULES + TRAIN_MODULES,
+    then DRYRUN_MODULES together, then every module of the port and
+    ``chip_smoke.py`` (``"every module"``, with their count), whether
+    anything of ``repro`` (or, for the dry-run's, the fake process group)
+    was loaded and whether a process group was initialized."""
     code = textwrap.dedent(f"""
-        import importlib, sys
+        import importlib, json, pkgutil, sys
         sys.modules["jax"] = None
-        sys.path[:0] = [{str(ROOT / "src")!r}]
-        importlib.import_module({module!r})
+        sys.path[:0] = [{str(ROOT / "src")!r}, {str(ROOT)!r}]
         import torch.distributed as dist
-        assert not dist.is_initialized()
-        loaded = [m for m in sys.modules
-                  if m == "repro" or m.startswith("repro.")]
-        assert not loaded, loaded
+
+        def fresh(names, fake_pg=False):
+            for m in [m for m in sys.modules if m.startswith("repro")]:
+                del sys.modules[m]
+            for name in names:
+                importlib.import_module(name)
+            return dict(
+                repro=[m for m in sys.modules
+                       if m == "repro" or m.startswith("repro.")
+                       or (fake_pg and m.endswith("fake_pg"))],
+                group=dist.is_initialized())
+        out = {{name: fresh([name])
+               for name in {TP_MODULES + TRAIN_MODULES!r}}}
+        out["dry-run"] = fresh({DRYRUN_MODULES!r}, fake_pg=True)
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        out["every module"] = fresh(names + ["chip_smoke"])
+        out["every module"]["modules"] = len(names)
+        print(json.dumps(out))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", TP_MODULES + TRAIN_MODULES)
+def test_tensor_parallel_modules_import_without_jax(fresh_imports, module):
+    """The tensor-parallel and training slices' modules import with JAX
+    unavailable, load nothing of ``repro`` and join no process group at
+    import."""
+    assert fresh_imports[module] == dict(repro=[], group=False)
 
 
 # the dry-run slice: its three new modules and the three it changed; none
@@ -75,23 +88,8 @@ DRYRUN_MODULES = ("repro_torch.launch.op_analysis", "repro_torch.launch.steps",
                   "repro_torch.models.lm", "repro_torch.models.layers")
 
 
-def test_dryrun_modules_import_without_jax():
-    code = textwrap.dedent(f"""
-        import importlib, sys
-        sys.modules["jax"] = None
-        sys.path[:0] = [{str(ROOT / "src")!r}]
-        for name in {DRYRUN_MODULES!r}:
-            importlib.import_module(name)
-        import torch.distributed as dist
-        assert not dist.is_initialized()
-        loaded = [m for m in sys.modules
-                  if m == "repro" or m.startswith("repro.")
-                  or m.endswith("fake_pg")]
-        assert not loaded, loaded
-    """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
-                         capture_output=True, timeout=120)
-    assert out.returncode == 0, out.stderr
+def test_dryrun_modules_import_without_jax(fresh_imports):
+    assert fresh_imports["dry-run"] == dict(repro=[], group=False)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
